@@ -13,18 +13,26 @@ run when it fails:
                GEMM at every tile of the table at 4096x2048x6144 f32 and
                at 300x450x200 and 1024x256x128 in f32 and bf16; TRIAD at
                n in {1024, 2**20 + 17, 2**26} in f32 and bf16 (plus an
-               unaligned view that takes the scalar path).
+               unaligned view that takes the scalar path), and at every
+               length of the ``triad --full`` ladder in f32.
 4. timing    — CUDA-event times of each kernel at the main path's shapes
-               beside its bound, its plain version and one PyTorch call
-               that computes the same function; TRIAD also replayed from
-               a CUDA graph (device time without the host's dispatch),
-               and the wrappers' host dispatch cost per call.
+               (each checked against its plain version on the same
+               tensors first) beside its bound, its plain version and one
+               PyTorch call that computes the same function; TRIAD also
+               replayed from a CUDA graph (device time without the host's
+               dispatch); and the host cost of one tuner sample at
+               n = 1024, split into the wrapper's dispatch and the
+               sampler's synchronize.
 5. main path — ``python -m repro_torch.tune`` for ``triad --full``,
                ``dgemm --full --strategy random --budget 16 --seed 0`` and
                ``gemm_tiled --report``, then the roofline-model bench with
-               its cache (4 MiB) and DRAM (256 MiB) TRIAD sizes; the
-               rendered roofline must hold a DGEMM F_p and at least two
-               TRIAD subsystems, and both kernels must have launched.
+               its cache (4 MiB) and DRAM (256 MiB) TRIAD sizes, which on
+               a card tunes DGEMM over the same 16 random configs of the
+               full space as the ``dgemm --full`` session; the
+               rendered roofline must hold a DGEMM F_p within
+               F_P_AGREEMENT of the ``dgemm --full`` session's and at
+               least two TRIAD subsystems, and both kernels must have
+               launched.
 
 The last three lines are the card line, one ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``. Without a card, or outside
@@ -33,6 +41,7 @@ a checkout, the script exits non-zero and prints neither.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -54,6 +63,10 @@ TRIAD_SIZES = {"cache": 1 << 22, "dram": 1 << 28}  # roofline-model bytes
 F32_PEAK = 67e12                           # H100 SXM data sheet, 700 W
 HBM_PEAK = 3.35e12
 SUBPROCESS_TIMEOUT_S = 420
+# The roofline model and the ``dgemm --full`` session time the same random
+# configs with the same sampler, so their F_p differ by run-to-run noise
+# and the model's smaller per-config budget only.
+F_P_AGREEMENT = (0.8, 1.25)
 
 
 def fail(msg: str) -> None:
@@ -174,6 +187,23 @@ def host_us_per_call(fn, calls: int = 2000) -> float:
     return (time.perf_counter() - t0) / calls * 1e6
 
 
+def host_us_per_sample(fn, samples: int = 2000) -> float:
+    """Median host microseconds of ``fn(); torch.cuda.synchronize()``,
+    the bracket the tuner's ``timed_sampler`` puts around every sample."""
+    import torch
+    for _ in range(20):
+        fn()
+        torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    return times[len(times) // 2] * 1e6
+
+
 def run_tune(args: list[str]) -> tuple[str, dict]:
     """One ``python -m repro_torch.tune`` session; returns its output and
     the launch counts of its footer's ``kernels`` line."""
@@ -231,7 +261,8 @@ def main() -> int:
     print("nvcc: " + (nvcc_ver.splitlines()[-1] if nvcc_ver else "?"))
 
     from repro_torch import kernels
-    from repro_torch.bench.common import triad_length
+    from repro_torch.bench import roofline_model
+    from repro_torch.bench.common import triad_length, triad_sizes
     from repro_torch.kernels import build
     from repro_torch.kernels.matmul import TILES, matmul, matmul_ref
     from repro_torch.kernels.triad import triad, triad_ref
@@ -316,6 +347,21 @@ def main() -> int:
                 n_checks["triad"] += 1
                 print(f"triad n={n_} {dtype} {label}: ok, max abs err "
                       f"{worst:.3e}")
+    for n_bytes in triad_sizes(False):      # the triad --full ladder, f32
+        n_ = triad_length(n_bytes)
+        x, y = randn(n_), randn(n_)
+        before = triad.launches
+        got = triad(x, y, gamma=3.0)
+        torch.cuda.synchronize()
+        if triad.launches != before + 1:
+            fail("triad: launch counter did not move")
+        worst = check_close(f"triad n={n_} f32", got, triad_ref(x, y, 3.0),
+                            triad_tol(torch.float32))
+        errs["triad"] = max(errs["triad"], worst)
+        n_checks["triad"] += 1
+        print(f"triad n={n_} ({n_bytes >> 10} KiB) f32: ok, max abs err "
+              f"{worst:.3e}")
+    del x, y, got
     torch.cuda.empty_cache()
 
     # -- 4. timing ---------------------------------------------------------
@@ -346,6 +392,11 @@ def main() -> int:
     for label, n_bytes in TRIAD_SIZES.items():
         n_ = triad_length(n_bytes)
         x, y = randn(n_), randn(n_)
+        worst = check_close(f"triad {label} n={n_} f32", triad(x, y, gamma=3.0),
+                            triad_ref(x, y, 3.0), triad_tol(torch.float32))
+        errs["triad"] = max(errs["triad"], worst)
+        n_checks["triad"] += 1
+        print(f"triad {label} n={n_} f32: ok, max abs err {worst:.3e}")
         moved = 3.0 * n_ * 4
         iters = 200 if label == "cache" else 50
         triad_ms[label] = {
@@ -365,11 +416,31 @@ def main() -> int:
               f"{t['plain']:.5f} ms | torch.add(alpha=3) "
               f"{t['library']:.5f} ms")
         del x, y
+    # One tuner sample at a size the card finishes in ~2 us: host time =
+    # the wrapper's dispatch + the kernel + the sampler's synchronize.
     x, y = randn(1024), randn(1024)
-    print(f"dispatch at n=1024 (host us/call): triad wrapper "
-          f"{host_us_per_call(lambda: triad(x, y, gamma=3.0)):.2f} | "
-          f"torch.add {host_us_per_call(lambda: torch.add(x, y, alpha=3.0)):.2f}")
-    del x, y
+    c = torch.empty_like(x)
+    launcher = build.kernel_fn("rt_triad_f32", (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+    ptrs = (x.data_ptr(), y.data_ptr(), c.data_ptr(), x.numel(), 3.0, 0,
+            build.current_stream_ptr(0))
+    dispatch = {
+        "triad wrapper": host_us_per_call(lambda: triad(x, y, gamma=3.0)),
+        "ctypes launch alone": host_us_per_call(lambda: launcher(*ptrs)),
+        "torch.add(alpha=3)": host_us_per_call(
+            lambda: torch.add(x, y, alpha=3.0)),
+    }
+    sample_us = host_us_per_sample(lambda: triad(x, y, gamma=3.0))
+    device_us = graph_ms(lambda: triad(x, y, gamma=3.0)) * 1e3
+    wrapper_us = dispatch["triad wrapper"]
+    print("dispatch at n=1024 (host us/call, back to back): " + " | ".join(
+        f"{name} {us:.2f}" for name, us in dispatch.items()))
+    print(f"one tuner sample at n=1024 (host us, median): {sample_us:.2f} = "
+          f"wrapper {wrapper_us:.2f} + kernel {device_us:.2f} (graph "
+          f"replay) + synchronize and the rest "
+          f"{sample_us - wrapper_us - device_us:.2f}")
+    del x, y, c
     torch.cuda.empty_cache()
 
     # -- 5. main path ------------------------------------------------------
@@ -383,7 +454,8 @@ def main() -> int:
     runs = {}
     for args in (["--benchmark", "triad", "--full"],
                  ["--benchmark", "dgemm", "--full", "--strategy", "random",
-                  "--budget", "16", "--seed", "0"],
+                  "--budget", str(roofline_model.CARD_DGEMM_BUDGET),
+                  "--seed", "0"],
                  ["--benchmark", "gemm_tiled", "--report"]):
         out, counts = run_tune(args)
         runs[args[1]] = (out, counts)
@@ -392,7 +464,6 @@ def main() -> int:
     if "peak compute F_p (dgemm)" not in runs["gemm_tiled"][0]:
         fail("gemm_tiled --report rendered no roofline")
 
-    from repro_torch.bench import roofline_model
     print("$ repro_torch.bench.roofline_model (cache 4 MiB, dram 256 MiB)",
           flush=True)
     t0 = time.perf_counter()
@@ -418,6 +489,14 @@ def main() -> int:
           f"({report.dgemm.config}); "
           + "; ".join(f"B_a {name} {inc.score:.1f} GB/s"
                       for name, inc in report.bandwidths))
+    m = re.search(r"^best      : .*score=([0-9.eE+-]+)$", runs["dgemm"][0],
+                  re.M)
+    ratio = report.dgemm.score / float(m.group(1))
+    print(f"roofline F_p / dgemm --full F_p = {ratio:.3f} (must lie in "
+          f"{F_P_AGREEMENT})")
+    if not F_P_AGREEMENT[0] <= ratio <= F_P_AGREEMENT[1]:
+        fail(f"roofline model F_p {report.dgemm.score:.1f} is {ratio:.3f}x "
+             f"the dgemm --full session's {m.group(1)}")
     print(f"main path: search wall {main_wall:.1f}s; launches {launches}")
     for key in ("triad", "matmul"):
         if launches[key] == 0:

@@ -18,14 +18,15 @@ the two packages measure the same configurations on the same data.
     (the JAX package tunes the same tiles against a cost model).
   * ``synthetic`` — an instant quadratic objective for session mechanics.
 
-Benchmarks are small frozen dataclasses (picklable, with a
-``precompile`` hook for the tuner's background pipeline); every one runs
-on ``cuda`` unless built with ``device="cpu"``.
+``dgemm_benchmark(device)`` and its siblings return the benchmark
+callable bound to one device, with a ``precompile`` hook for the tuner's
+background pipeline; every one runs on ``cuda`` unless built with
+``device="cpu"``.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import functools
 import itertools
 from typing import Callable
 
@@ -42,10 +43,10 @@ from ..kernels.matmul import matmul, smem_bytes
 from ..kernels.matmul import TILES as GEMM_TILES
 from ..kernels.triad import triad
 
-__all__ = ["DgemmBenchmark", "GEMM_TILED_SHAPE", "GemmTiledBenchmark",
-           "STATIC_SMEM_BYTES", "TriadBenchmark", "dgemm_data",
-           "dgemm_flops", "dgemm_space", "emit", "gemm_tiled_space",
-           "paper_settings", "print_table", "synthetic_benchmark",
+__all__ = ["GEMM_TILED_SHAPE", "STATIC_SMEM_BYTES", "dgemm_benchmark",
+           "dgemm_data", "dgemm_flops", "dgemm_space", "emit",
+           "gemm_tiled_benchmark", "gemm_tiled_space", "paper_settings",
+           "print_table", "synthetic_benchmark", "triad_benchmark",
            "triad_data", "triad_length", "triad_moved_bytes",
            "triad_sizes"]
 
@@ -259,7 +260,7 @@ def paper_settings(quick: bool = True) -> EvaluationSettings:
 
 
 #: the tile search's target GEMM (the JAX package's ``bench_kernel_autotune``
-#: shape: one tensor-parallel shard of a Mixtral expert GEMM)
+#: shape: one tensor-parallel shard of a Mixtral expert GEMM), in float32
 GEMM_TILED_SHAPE = {"m": 4096, "n": 2048, "k": 6144}
 #: static shared memory a block may hold without an opt-in attribute
 STATIC_SMEM_BYTES = 48 * 1024
@@ -275,94 +276,82 @@ def block_smem_limit(device: "str | torch.device" = "cuda") -> int:
     return int(getattr(props, "shared_memory_per_block", STATIC_SMEM_BYTES))
 
 
-def gemm_tiled_space(m: int = GEMM_TILED_SHAPE["m"],
-                     n: int = GEMM_TILED_SHAPE["n"],
-                     k: int = GEMM_TILED_SHAPE["k"], *,
-                     smem_limit: int = STATIC_SMEM_BYTES) -> SearchSpace:
+def gemm_tiled_space(smem_limit: int = STATIC_SMEM_BYTES) -> SearchSpace:
     """(bm, bn, bk) over the kernel's tile table, constrained to tiles
-    whose shared memory fits one block and that divide the problem."""
+    whose shared memory fits one block (the kernel masks ragged edges,
+    so no tile has to divide the problem)."""
     table = set(GEMM_TILES)
     return grid(bm=sorted({t[0] for t in table}),
                 bn=sorted({t[1] for t in table}),
                 bk=sorted({t[2] for t in table})).constrain(
         lambda c: (c["bm"], c["bn"], c["bk"]) in table,
-        lambda c: smem_bytes(c["bm"], c["bn"], c["bk"]) <= smem_limit,
-        lambda c: m % c["bm"] == 0 and n % c["bn"] == 0
-        and k % c["bk"] == 0)
+        lambda c: smem_bytes(c["bm"], c["bn"], c["bk"]) <= smem_limit)
 
 
 # ---------------------------------------------------------------------------
-# Benchmarks (config -> invocation factory)
+# Benchmarks (config -> invocation factory), each bound to one device
 # ---------------------------------------------------------------------------
 
 
-@dataclasses.dataclass(frozen=True)
-class DgemmBenchmark:
-    """``dgemm``: config (n, m, k) -> a ``torch.matmul`` f32 sampler."""
+def dgemm_benchmark(device: str = "cuda") -> Callable:
+    """``dgemm`` on ``device``: config (n, m, k) -> a ``torch.matmul``
+    f32 sampler factory, with the compile pipeline's ``precompile``."""
 
-    device: str = "cuda"
-
-    def __call__(self, cfg: dict) -> Callable:
+    def bench(cfg: dict) -> Callable:
         return dgemm_invocation_factory(cfg["n"], cfg["m"], cfg["k"],
-                                        device=self.device)
+                                        device=device)
 
-    def precompile(self, cfg: dict) -> None:
+    def precompile(cfg: dict) -> None:
         n, m, k = cfg["n"], cfg["m"], cfg["k"]
         default_cache().compile(
-            torch.matmul, (TensorSpec((n, k), torch.float32, self.device),
-                           TensorSpec((k, m), torch.float32, self.device)))
+            torch.matmul, (TensorSpec((n, k), torch.float32, device),
+                           TensorSpec((k, m), torch.float32, device)))
+
+    bench.precompile = precompile
+    return bench
 
 
-@dataclasses.dataclass(frozen=True)
-class TriadBenchmark:
-    """``triad``: config (n_bytes,) -> a TRIAD-kernel GB/s sampler."""
+def triad_benchmark(device: str = "cuda") -> Callable:
+    """``triad`` on ``device``: config (n_bytes,) -> a TRIAD-kernel GB/s
+    sampler factory (float32), with ``precompile``."""
 
-    device: str = "cuda"
-    dtype: torch.dtype = torch.float32
+    def bench(cfg: dict) -> Callable:
+        return triad_invocation_factory(cfg["n_bytes"], device=device)
 
-    def __call__(self, cfg: dict) -> Callable:
-        return triad_invocation_factory(cfg["n_bytes"], self.dtype,
-                                        device=self.device)
-
-    def precompile(self, cfg: dict) -> None:
-        n = triad_length(cfg["n_bytes"], self.dtype)
-        spec = TensorSpec((n,), self.dtype, self.device)
+    def precompile(cfg: dict) -> None:
+        spec = TensorSpec((triad_length(cfg["n_bytes"]),), torch.float32,
+                          device)
         default_cache().compile(triad, (spec, spec), static={"gamma": 3.0})
 
+    bench.precompile = precompile
+    return bench
 
-@dataclasses.dataclass(frozen=True)
-class GemmTiledBenchmark:
-    """``gemm_tiled``: config (bm, bn, bk) -> the hand-written GEMM's
-    GFLOP/s at one fixed (m, n, k). The operands are drawn once per
-    benchmark and shared by every tile (GEMM is data-oblivious), so a
-    tile search pays the large draw once."""
 
-    device: str = "cuda"
-    m: int = GEMM_TILED_SHAPE["m"]
-    n: int = GEMM_TILED_SHAPE["n"]
-    k: int = GEMM_TILED_SHAPE["k"]
-    dtype: torch.dtype = torch.float32
-    _data: dict = dataclasses.field(default_factory=dict, compare=False,
-                                    repr=False)
+def gemm_tiled_benchmark(device: str = "cuda") -> Callable:
+    """``gemm_tiled`` on ``device``: config (bm, bn, bk) -> the
+    hand-written GEMM's GFLOP/s at :data:`GEMM_TILED_SHAPE` in float32.
+    The operands are drawn once, at the first invocation, and shared by
+    every tile (GEMM is data-oblivious), so a tile search pays the large
+    draw once."""
+    m, n, k = (GEMM_TILED_SHAPE[d] for d in "mnk")
 
-    def operands(self) -> tuple[torch.Tensor, torch.Tensor]:
-        if "ab" not in self._data:
-            self._data["ab"] = dgemm_data(
-                self.m, self.n, self.k,
-                dgemm_seed(self.m, self.n, self.k, 0), self.dtype,
-                self.device)
-        return self._data["ab"]
+    @functools.cache
+    def operands() -> tuple[torch.Tensor, torch.Tensor]:
+        return dgemm_data(m, n, k, dgemm_seed(m, n, k, 0),
+                          device=device)
 
-    def __call__(self, cfg: dict) -> Callable:
+    def bench(cfg: dict) -> Callable:
         return gemm_tiled_invocation_factory(
-            cfg["bm"], cfg["bn"], cfg["bk"], self.operands,
-            device=self.device)
+            cfg["bm"], cfg["bn"], cfg["bk"], operands, device=device)
 
-    def precompile(self, cfg: dict) -> None:
+    def precompile(cfg: dict) -> None:
         default_cache().compile(
-            matmul, (TensorSpec((self.m, self.k), self.dtype, self.device),
-                     TensorSpec((self.k, self.n), self.dtype, self.device)),
+            matmul, (TensorSpec((m, k), torch.float32, device),
+                     TensorSpec((k, n), torch.float32, device)),
             static={"bm": cfg["bm"], "bn": cfg["bn"], "bk": cfg["bk"]})
+
+    bench.precompile = precompile
+    return bench
 
 
 def synthetic_benchmark(cfg: dict) -> Callable:

@@ -15,16 +15,32 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-from ..core import (TRIAD_INTENSITY, Tuner, TuningSession, build_reports,
-                    grid, hardware_fingerprint, load_trials,
+from ..core import (TRIAD_INTENSITY, RandomSearchStrategy, Tuner,
+                    TuningSession, build_reports, grid,
+                    hardware_fingerprint, load_trials,
                     operational_intensity, render_markdown, ridge_point,
                     trials_from_result)
 from ..device import resolve_device
-from .common import (DgemmBenchmark, TriadBenchmark, dgemm_space, emit,
-                     paper_settings, print_table)
+from .common import (dgemm_benchmark, dgemm_space, emit, paper_settings,
+                     print_table, triad_benchmark)
 
 #: working sets well inside (4 MiB) and far outside (256 MiB) the 50 MB L2
 TRIAD_SIZES = {"cache": 1 << 22, "dram": 1 << 28}
+#: random full-space DGEMM configs a quick run tunes on a card (seed 0,
+#: the sample of ``tune --benchmark dgemm --full --strategy random``)
+CARD_DGEMM_BUDGET = 16
+
+
+def dgemm_tuner(quick: bool, device: str, settings) -> Tuner:
+    """The DGEMM search. A quick run on a card samples the full space:
+    the quick corner's products (dims <= 1024) take tens of microseconds
+    there, which the host clock around launch + synchronize cannot tell
+    from the dispatch, so its F_p would be the host's, not the card's."""
+    if quick and device == "cuda":
+        return Tuner(dgemm_space(False), settings,
+                     strategy=RandomSearchStrategy(budget=CARD_DGEMM_BUDGET,
+                                                   seed=0))
+    return Tuner(dgemm_space(quick), settings)
 
 
 def run(quick: bool = True, cache_dir: str | None = None,
@@ -39,15 +55,15 @@ def run(quick: bool = True, cache_dir: str | None = None,
     # pruned DRAM stream would be a truncated bandwidth estimate).
     triad_settings = dataclasses.replace(settings, use_inner_prune=False,
                                          use_outer_prune=False)
-    dgemm_tuner = Tuner(dgemm_space(quick), settings)
+    peak_tuner = dgemm_tuner(quick, device, settings)
     triad_tuner = Tuner(grid(n_bytes=tuple(TRIAD_SIZES.values())),
                         triad_settings)
-    dgemm_bench = DgemmBenchmark(device)
-    triad_bench = TriadBenchmark(device)
+    dgemm_bench = dgemm_benchmark(device)
+    triad_bench = triad_benchmark(device)
 
     fp = hardware_fingerprint(device)
     if cache_dir is not None:
-        peak = TuningSession("roofline", dgemm_tuner, dgemm_bench,
+        peak = TuningSession("roofline", peak_tuner, dgemm_bench,
                              cache_dir=cache_dir, fingerprint=fp,
                              benchmark_name="dgemm").run()
         bw = TuningSession("roofline", triad_tuner, triad_bench,
@@ -57,7 +73,7 @@ def run(quick: bool = True, cache_dir: str | None = None,
         # machine still renders as its own dashboard section
         trials = load_trials(f"{cache_dir}/roofline.jsonl")
     else:
-        peak = dgemm_tuner.tune(dgemm_bench)
+        peak = peak_tuner.tune(dgemm_bench)
         bw = triad_tuner.tune(triad_bench)
         trials = (trials_from_result(peak, "dgemm", fp)
                   + trials_from_result(bw, "triad", fp))

@@ -25,8 +25,10 @@ import time
 from pathlib import Path
 from typing import Optional, Sequence
 
-__all__ = ["BUILD_ROOT", "CSRC", "NVCC_FLAGS", "kernel_fn", "library",
-           "library_path", "source_hash"]
+import torch
+
+__all__ = ["BUILD_ROOT", "CSRC", "NVCC_FLAGS", "current_stream_ptr",
+           "kernel_fn", "library", "library_path", "source_hash"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -37,6 +39,10 @@ LIB_NAME = "libreprotorch.so"
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _FNS: dict[str, object] = {}
+#: the current stream's raw ``cudaStream_t`` of a device index, without
+#: building a ``torch.cuda.Stream`` object per launch (CUDA builds of torch
+#: export it; the public path below is the fallback)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def _sources() -> list[Path]:
@@ -130,3 +136,11 @@ def kernel_fn(name: str, argtypes: Sequence[type]):
             fn.restype = ctypes.c_int
             _FNS[name] = fn
     return fn
+
+
+def current_stream_ptr(index: int) -> int:
+    """The raw ``cudaStream_t`` of device ``index``'s current stream (the
+    stream a launch must enqueue on, graph capture included)."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream

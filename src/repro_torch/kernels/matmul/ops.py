@@ -34,6 +34,8 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p)
 _MAX_GRID_Y = 65535
 _COUNT_LOCK = threading.Lock()
+#: (dtype, tile) -> ctypes launcher, filled at its first launch
+_LAUNCHERS: dict = {}
 
 
 def smem_bytes(bm: int, bn: int, bk: int) -> int:
@@ -85,21 +87,24 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     """
     _check_tile(bm, bn, bk)
     _check(a, b)
-    if a.device.type == "cpu":
+    dev = a.device
+    if dev.type == "cpu":
         return matmul_ref(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"matmul runs on cpu or cuda, not {a.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"matmul runs on cpu or cuda, not {dev}")
     m, k = a.shape
     n = b.shape[1]
     if -(-m // bm) > _MAX_GRID_Y:
         raise ValueError(f"m={m} needs more than {_MAX_GRID_Y} row blocks "
                          f"of {bm}")
-    c = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    fn = build.kernel_fn(f"rt_matmul_{_DTYPES[a.dtype]}_{bm}x{bn}x{bk}",
-                         _ARGTYPES)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-            c.device.index, stream)
+    key = (a.dtype, bm, bn, bk)
+    fn = _LAUNCHERS.get(key)
+    if fn is None:
+        fn = _LAUNCHERS[key] = build.kernel_fn(
+            f"rt_matmul_{_DTYPES[a.dtype]}_{bm}x{bn}x{bk}", _ARGTYPES)
+    c = torch.empty((m, n), dtype=a.dtype, device=dev)
+    rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, dev.index,
+            build.current_stream_ptr(dev.index))
     if rc != 0:
         raise RuntimeError(f"matmul kernel launch failed: CUDA error {rc}")
     with _COUNT_LOCK:

@@ -25,6 +25,7 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
 _COUNT_LOCK = threading.Lock()
+_LAUNCHERS: dict = {}   # dtype -> ctypes launcher, filled at its first launch
 
 
 def triad_ref(a: torch.Tensor, b: torch.Tensor,
@@ -56,15 +57,18 @@ def triad(a: torch.Tensor, b: torch.Tensor, *,
     ``triad.launches``.
     """
     _check(a, b)
-    if a.device.type == "cpu":
+    dev = a.device
+    if dev.type == "cpu":
         return triad_ref(a, b, gamma)
-    if a.device.type != "cuda":
-        raise ValueError(f"triad runs on cpu or cuda, not {a.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"triad runs on cpu or cuda, not {dev}")
+    fn = _LAUNCHERS.get(a.dtype)
+    if fn is None:
+        fn = _LAUNCHERS[a.dtype] = build.kernel_fn(
+            f"rt_triad_{_DTYPES[a.dtype]}", _ARGTYPES)
     c = torch.empty_like(a)
-    fn = build.kernel_fn(f"rt_triad_{_DTYPES[a.dtype]}", _ARGTYPES)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), a.numel(),
-            float(gamma), c.device.index, stream)
+            float(gamma), dev.index, build.current_stream_ptr(dev.index))
     if rc != 0:
         raise RuntimeError(f"triad kernel launch failed: CUDA error {rc}")
     with _COUNT_LOCK:

@@ -106,10 +106,10 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     from . import kernels
-    from .bench.common import (DgemmBenchmark, GemmTiledBenchmark,
-                               TriadBenchmark, block_smem_limit,
-                               dgemm_space, gemm_tiled_space,
-                               paper_settings, synthetic_benchmark,
+    from .bench.common import (block_smem_limit, dgemm_benchmark,
+                               dgemm_space, gemm_tiled_benchmark,
+                               gemm_tiled_space, paper_settings,
+                               synthetic_benchmark, triad_benchmark,
                                triad_sizes)
     from .core import TrialCache, Tuner, TuningSession, grid
     from .core import hardware_fingerprint
@@ -122,16 +122,16 @@ def main(argv=None) -> int:
                                    use_inner_prune=True,
                                    use_outer_prune=True)
     if args.benchmark == "dgemm":
-        space, benchmark = dgemm_space(quick), DgemmBenchmark(device)
+        space, benchmark = dgemm_space(quick), dgemm_benchmark(device)
     elif args.benchmark == "gemm_tiled":
         space = gemm_tiled_space(smem_limit=block_smem_limit(device))
-        benchmark = GemmTiledBenchmark(device)
+        benchmark = gemm_tiled_benchmark(device)
     elif args.benchmark == "synthetic":
         space = grid(x=tuple(range(12)))
         benchmark = synthetic_benchmark
     else:
         space = grid(n_bytes=triad_sizes(quick))
-        benchmark = TriadBenchmark(device)
+        benchmark = triad_benchmark(device)
         # Each TRIAD size probes a different memory subsystem: the sizes
         # are measurements, not competitors. Pruning a slow DRAM stream
         # against the cache-resident incumbent would cache a truncated

@@ -15,7 +15,8 @@ import torch
 
 import benchmarks.common as ref_common
 from repro_torch.bench import common
-from repro_torch.core import ExecutableCache, TensorSpec, Tuner, grid
+from repro_torch.core import (ExecutableCache, TensorSpec, Tuner, grid,
+                              load_trials)
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.matmul import matmul
 from repro_torch.kernels.triad import triad
@@ -73,18 +74,30 @@ def test_gemm_tiled_space_constraints():
     assert all(smem_bytes(c["bm"], c["bn"], c["bk"]) <= 16 * 1024
                for c in tight.configs())
     assert 0 < tight.cardinality < 12
-    assert common.gemm_tiled_space(m=4096 + 64).cardinality == 6
     assert common.GEMM_TILED_SHAPE == {"m": 4096, "n": 2048, "k": 6144}
 
 
-def test_gemm_tiled_benchmark_tunes_on_the_host():
-    bench = common.GemmTiledBenchmark("cpu", m=128, n=128, k=32)
+def test_gemm_tiled_benchmark_tunes_on_the_host(monkeypatch):
+    monkeypatch.setattr(common, "GEMM_TILED_SHAPE",
+                        {"m": 128, "n": 96, "k": 32})
+    shapes = []
+    real = common.gemm_tiled_invocation_factory
+
+    def spy(bm, bn, bk, data, **kw):
+        a, b = data()
+        shapes.append((a.shape, b.shape, id(a)))
+        return real(bm, bn, bk, data, **kw)
+
+    monkeypatch.setattr(common, "gemm_tiled_invocation_factory", spy)
+    reset_launch_counts()
     settings = common.paper_settings(True)
-    result = Tuner(common.gemm_tiled_space(128, 128, 32), settings).tune(
-        bench, pipeline="off")
+    result = Tuner(common.gemm_tiled_space(), settings).tune(
+        common.gemm_tiled_benchmark("cpu"), pipeline="off")
     assert len(result.trials) == 12 and result.best_score > 0
-    a, b = bench.operands()
-    assert a.shape == (128, 32) and b.shape == (32, 128)
+    # one (m, k) @ (k, n) draw, shared by every tile
+    assert {(a, b) for a, b, _ in shapes} == {((128, 32), (32, 96))}
+    assert len({i for _, _, i in shapes}) == 1
+    assert launch_counts() == {"matmul": 0, "triad": 0}
 
 
 def test_exec_cache_resolves_each_tile_once():
@@ -113,9 +126,9 @@ def test_benchmarks_run_on_the_host_without_launches():
     reset_launch_counts()
     settings = common.paper_settings(True)
     tri = Tuner(grid(n_bytes=(2 ** 16,)), settings).tune(
-        common.TriadBenchmark("cpu"))
+        common.triad_benchmark("cpu"))
     dg = Tuner(grid(n=(64,), m=(64,), k=(32,)), settings).tune(
-        common.DgemmBenchmark("cpu"))
+        common.dgemm_benchmark("cpu"))
     assert tri.best_score > 0 and dg.best_score > 0
     assert launch_counts() == {"matmul": 0, "triad": 0}
 
@@ -152,3 +165,33 @@ def test_cli_triad_quick_on_the_host_with_report(tmp_path):
     assert dg.returncode == 0, dg.stderr
     assert "peak compute F_p (dgemm)" in dg.stdout
     assert dg.stdout.count("bandwidth B_a mem[") == 3
+
+
+def test_roofline_model_dgemm_space_follows_the_device(monkeypatch,
+                                                      tmp_path):
+    from repro_torch.bench import roofline_model
+    from repro_torch.core import RandomSearchStrategy
+    settings = common.paper_settings(True)
+    card = roofline_model.dgemm_tuner(True, "cuda", settings)
+    assert isinstance(card.strategy, RandomSearchStrategy)
+    assert card.strategy.budget == roofline_model.CARD_DGEMM_BUDGET == 16
+    assert list(card.space.configs()) == \
+        list(common.dgemm_space(False).configs())
+    host = roofline_model.dgemm_tuner(True, "cpu", settings)
+    assert not isinstance(host.strategy, RandomSearchStrategy)
+    assert list(host.space.configs()) == \
+        list(common.dgemm_space(True).configs())
+    # the host run end to end, at a small DGEMM corner and TRIAD sizes
+    monkeypatch.setattr(roofline_model, "dgemm_space",
+                        lambda quick: grid(n=(64, 128), m=(64,), k=(32,)))
+    monkeypatch.setattr(roofline_model, "TRIAD_SIZES",
+                        {"cache": 1 << 16, "dram": 1 << 18})
+    res = roofline_model.run(quick=True, cache_dir=str(tmp_path),
+                             device="cpu")
+    report = next(r for r in res["reports"]
+                  if r.fingerprint == res["fingerprint"])
+    assert "peak compute F_p (dgemm)" in res["markdown"]
+    assert len(report.bandwidths) == 2 and report.dgemm.score > 0
+    trials = load_trials(tmp_path / "roofline.jsonl")
+    assert sorted(t.benchmark for t in trials) == \
+        ["dgemm", "dgemm", "triad", "triad"]

@@ -66,11 +66,11 @@ def test_triad_kernel_matches_plain_on_card(card, n, dtype, offset):
 
 
 def test_triad_session_goes_through_the_kernel(card, tmp_path):
-    from repro_torch.bench.common import TriadBenchmark, paper_settings
+    from repro_torch.bench.common import paper_settings, triad_benchmark
     from repro_torch.core import Tuner, grid
     from repro_torch.kernels.triad import triad
     before = triad.launches
     result = Tuner(grid(n_bytes=(1 << 20, 1 << 24)),
-                   paper_settings(True)).tune(TriadBenchmark("cuda"))
+                   paper_settings(True)).tune(triad_benchmark("cuda"))
     assert result.best_score > 0 and len(result.trials) == 2
     assert triad.launches > before

@@ -88,9 +88,9 @@ def test_cuda_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         resolve_device("cuda")
     with pytest.raises(RuntimeError):
-        common.DgemmBenchmark()({"n": 8, "m": 8, "k": 8})
+        common.dgemm_benchmark()({"n": 8, "m": 8, "k": 8})
     with pytest.raises(RuntimeError):
-        common.TriadBenchmark("cuda")({"n_bytes": 1 << 16})
+        common.triad_benchmark("cuda")({"n_bytes": 1 << 16})
     with pytest.raises(RuntimeError):
         common.dgemm_data(8, 8, 8, 0)
     with pytest.raises(RuntimeError):
