@@ -3,13 +3,16 @@ is the reference).
 
 Layout mirrors ``repro``: ``core`` (search space, strategies, two-level
 evaluator, trial cache, roofline report), ``kernels`` (hand-written CUDA
-kernels with their plain PyTorch versions), ``bench`` (the paper's DGEMM
-and TRIAD benchmarks plus the tiled-GEMM tile search) and the ``tune``
-CLI (``python -m repro_torch.tune``). Entry points run on ``cuda`` unless
-the caller passes ``device="cpu"``; nothing here imports ``jax`` or
-``repro``.
+kernels with their plain PyTorch versions: GEMM, TRIAD, flash
+attention), ``models`` and ``configs`` (the dense model stack and the
+ten architecture configs), ``bench`` (the paper's DGEMM and TRIAD
+benchmarks, the tiled-GEMM tile search and the whole-model train step
+over the flash tiles) and the ``tune`` CLI (``python -m
+repro_torch.tune``). Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``; nothing here imports ``jax`` or ``repro``.
 """
 
+from . import configs, kernels, models
 from .device import resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["configs", "kernels", "models", "resolve_device"]

@@ -17,6 +17,9 @@ the two packages measure the same configurations on the same data.
     (bm, bn, bk) tile is the tunable and the score is measured GFLOP/s
     (the JAX package tunes the same tiles against a cost model).
   * ``synthetic`` — an instant quadratic objective for session mechanics.
+  * ``model_step_family`` — a whole-model train step (loss and
+    gradients) as an objective over the flash-attention tiles
+    (:func:`model_step_space`); GFLOP/s over one shared work term.
 
 ``dgemm_benchmark(device)`` and its siblings return the benchmark
 callable bound to one device, with a ``precompile`` hook for the tuner's
@@ -28,7 +31,8 @@ from __future__ import annotations
 
 import functools
 import itertools
-from typing import Callable
+import threading
+from typing import Callable, Union
 
 import numpy as np
 import torch
@@ -39,16 +43,20 @@ from ..core.exec_cache import TensorSpec
 from ..core.profiling import trace_instant
 from ..core.searchspace import doubling_from, powers_of_two
 from ..device import resolve_device, synchronizer
+from ..kernels import build
 from ..kernels.matmul import matmul, smem_bytes
 from ..kernels.matmul import TILES as GEMM_TILES
 from ..kernels.triad import triad
+from ..models.config import ModelConfig
+from ..models.transformer import StepConfig
+from ..models.workloads import ModelWorkload, build_workload, workload_flops
 
 __all__ = ["GEMM_TILED_SHAPE", "STATIC_SMEM_BYTES", "dgemm_benchmark",
            "dgemm_data", "dgemm_flops", "dgemm_space", "emit",
-           "gemm_tiled_benchmark", "gemm_tiled_space", "paper_settings",
-           "print_table", "synthetic_benchmark", "triad_benchmark",
-           "triad_data", "triad_length", "triad_moved_bytes",
-           "triad_sizes"]
+           "gemm_tiled_benchmark", "gemm_tiled_space", "model_step_family",
+           "model_step_space", "paper_settings", "print_table",
+           "synthetic_benchmark", "triad_benchmark", "triad_data",
+           "triad_length", "triad_moved_bytes", "triad_sizes"]
 
 
 def emit(name: str, us_per_call: float, derived: str) -> None:
@@ -351,6 +359,99 @@ def gemm_tiled_benchmark(device: str = "cuda") -> Callable:
             static={"bm": cfg["bm"], "bn": cfg["bn"], "bk": cfg["bk"]})
 
     bench.precompile = precompile
+    return bench
+
+
+# ---------------------------------------------------------------------------
+# Whole-model workloads as tuning objectives
+# ---------------------------------------------------------------------------
+#
+# A model step is a benchmark like any other: the config carries the
+# StepConfig execution knobs (flash-attention tiles, remat), the score is
+# GFLOP/s over one work term per model (FlopCounterMode on the plain
+# path, see repro_torch.models.workloads), so the ranking is by time.
+
+
+def model_step_space(quick: bool = True) -> SearchSpace:
+    """Execution-knob space of a whole-model step. ``use_flash`` gates
+    the flash kernel; the tiles only bind when it is on — kept in one
+    grid so the tuner sees the interaction."""
+    if quick:
+        return grid(use_flash=(0, 1), flash_block_q=(64, 128),
+                    flash_block_k=(64, 128))
+    return grid(use_flash=(0, 1), flash_block_q=(64, 128, 256, 512),
+                flash_block_k=(64, 128, 256, 512), remat=(0, 1))
+
+
+def _model_step(base: ModelWorkload, cfg: dict) -> ModelWorkload:
+    """The family's workload under one tuner config: the same weights and
+    tokens, the config's execution knobs."""
+    return base.with_step(StepConfig(
+        use_flash=bool(cfg.get("use_flash", 0)),
+        flash_block_q=int(cfg.get("flash_block_q", 512)),
+        flash_block_k=int(cfg.get("flash_block_k", 512)),
+        remat=bool(cfg.get("remat", 0))))
+
+
+def model_step_family(workload: str,
+                      arch: Union[str, ModelConfig, None] = None, *,
+                      batch_size: int = 2, seq_len: int = 64,
+                      device: "str | torch.device" = "cuda") -> Callable:
+    """Benchmark family for one whole-model step on ``device``.
+
+    ``workload`` names a :mod:`repro_torch.models.workloads` builder
+    (``train_step``); ``arch`` is an architecture name (its SMOKE
+    config), a :class:`ModelConfig` or None (the tiny dense toy). The
+    weights, tokens and work term are built once, at the first config,
+    and shared by every config; each config pre-heats once, at its first
+    invocation. Samples are host-clock GFLOP/s around one step and a
+    ``torch.cuda.synchronize``: a step takes milliseconds, so the tens of
+    microseconds of dispatch and synchronize in each sample (PERF.md)
+    are negligible. ``precompile`` builds
+    the shared workload and, for a flash config on the card, the kernel
+    library, in the tuner's background pipeline.
+    """
+    dev = resolve_device(device)
+    sync = synchronizer(dev)
+    lock = threading.Lock()
+    shared: dict = {}
+
+    def base() -> tuple[ModelWorkload, float]:
+        with lock:
+            if not shared:
+                w = build_workload(workload, arch, batch_size=batch_size,
+                                   seq_len=seq_len, device=dev)
+                shared.update(workload=w, flops=workload_flops(w))
+            return shared["workload"], shared["flops"]
+
+    def bench(cfg: dict) -> Callable:
+        w, flops = base()
+        wc = _model_step(w, cfg)
+        heated = threading.Event()
+
+        def factory():
+            if not heated.is_set():
+                wc.fn(*wc.args)                  # pre-heat, once per config
+                sync()
+                heated.set()
+            trace_instant("workload", kernel=workload, arch=w.cfg.name,
+                          flops=flops, **{k: cfg[k] for k in sorted(cfg)})
+
+            def run():
+                wc.fn(*wc.args)
+                sync()
+
+            return timed_sampler(run, work=flops / 1e9)  # GFLOP/s
+
+        return factory
+
+    def precompile(cfg: dict) -> None:
+        base()
+        if cfg.get("use_flash") and dev.type == "cuda":
+            build.library()
+
+    bench.precompile = precompile
+    bench.__name__ = f"model_step_{workload}"
     return bench
 
 

@@ -7,11 +7,13 @@ executable cache. The library is built from ``csrc/`` at first use
 (:mod:`repro_torch.kernels.build`), never at import.
 """
 
+from .flash_attention import attention_ref, flash_attention
 from .matmul import matmul, matmul_ref
 from .triad import triad, triad_ref
 
 #: every kernel wrapper of the port (name -> wrapper)
-WRAPPERS = {"matmul": matmul, "triad": triad}
+WRAPPERS = {"matmul": matmul, "triad": triad,
+            "flash_attention": flash_attention}
 
 
 def reset_launch_counts() -> None:
@@ -24,5 +26,6 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-__all__ = ["WRAPPERS", "launch_counts", "matmul", "matmul_ref",
-           "reset_launch_counts", "triad", "triad_ref"]
+__all__ = ["WRAPPERS", "attention_ref", "flash_attention", "launch_counts",
+           "matmul", "matmul_ref", "reset_launch_counts", "triad",
+           "triad_ref"]

@@ -1,0 +1,317 @@
+"""Shared model layers of the train step (the JAX package's
+``models/layers.py``), functional over parameter dicts.
+
+Conventions, as in the reference:
+  * weights store contraction dims first: ``wq (D, H, Dh)``,
+    ``wo (H, Dh, D)``; a stack of layers has a leading "layers" axis;
+  * attention tensors are (B, H, S, Dh);
+  * norms, rope, softmax and the loss compute in float32.
+
+The reference wraps activations in ``shard_act`` (a no-op outside a
+sharding resolver context); the port runs on one card, so those calls
+are dropped. Its ``xscan`` is a Python loop here, ``jax.checkpoint`` is
+``torch.utils.checkpoint``. The decode path (``KVCacheSpec``,
+``attention_decode``) belongs to the serving slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from ..kernels.flash_attention import flash_attention
+from .config import ModelConfig
+from .params import ParamDef
+
+__all__ = ["apply_mlp", "apply_norm", "apply_rope", "attention_defs",
+           "attention_full", "checkpointed", "cross_entropy_loss",
+           "embed_tokens", "embedding_defs", "logits_fn", "mlp_defs",
+           "next_token_targets", "norm_defs"]
+
+NEG_INF = -1e30
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` that keeps only its inputs for the backward pass and
+    recomputes the rest (the reference's ``jax.checkpoint`` with the
+    ``nothing_saveable`` policy). The model draws no random numbers, so
+    no RNG state is saved."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def norm_defs(cfg: ModelConfig, d: int | None = None) -> ParamDef:
+    return ParamDef(shape=(d or cfg.d_model,), logical=("embed_r",),
+                    init="ones", dtype=cfg.tdtype)
+
+
+def apply_norm(scale: torch.Tensor, x: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    x32 = x.float()
+    if cfg.norm == "layernorm":
+        x32 = x32 - x32.mean(dim=-1, keepdim=True)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    x32 = x32 * torch.rsqrt(var + cfg.norm_eps)
+    return (x32 * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+
+def _rope_freqs(head_dim: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, H, S, Dh); positions: (S,) or (B, S)."""
+    dh = x.shape[-1]
+    freqs = _rope_freqs(dh, theta, x.device)              # (Dh/2,)
+    angles = positions[..., None].float() * freqs          # (..., S, Dh/2)
+    if angles.dim() == 2:                                  # (S, Dh/2)
+        angles = angles[None, None]                        # (1, 1, S, Dh/2)
+    else:                                                  # (B, S, Dh/2)
+        angles = angles[:, None]                           # (B, 1, S, Dh/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def attention_defs(cfg: ModelConfig, layers: int | None = None,
+                   kv_from: int | None = None) -> dict:
+    """Param tree for one (stack of) attention layer(s).
+
+    ``layers``: if given, stack with a leading "layers" axis.
+    ``kv_from``: width of the kv source (cross-attention); default d_model.
+    """
+    D, H, Hk, Dh = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
+    Dkv = kv_from or D
+    lead = (layers,) if layers else ()
+    lax_ = ("layers",) if layers else ()
+
+    def w(shape, logical):
+        return ParamDef(shape=lead + shape, logical=lax_ + logical,
+                        dtype=cfg.tdtype)
+
+    return {
+        "wq": w((D, H, Dh), ("embed", "heads", "head_dim")),
+        "wk": w((Dkv, Hk, Dh), ("embed", "kv_heads", "head_dim")),
+        "wv": w((Dkv, Hk, Dh), ("embed", "kv_heads", "head_dim")),
+        "wo": w((H, Dh, D), ("heads", "head_dim", "embed")),
+    }
+
+
+def _qkv(p: dict, x: torch.Tensor, kv_x: torch.Tensor):
+    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bhsk", kv_x, p["wk"])
+    v = torch.einsum("bsd,dhk->bhsk", kv_x, p["wv"])
+    return q, k, v
+
+
+def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                   kv_x: Optional[torch.Tensor] = None, causal: bool = True,
+                   rope: bool = True, window: Optional[int] = None,
+                   use_flash: bool = False, block_q: int = 512,
+                   block_k: int = 512) -> torch.Tensor:
+    """Full-sequence attention (train). x: (B, S, D). ``use_flash`` takes
+    the flash kernel (its plain version on CPU tensors)."""
+    kv_src = x if kv_x is None else kv_x
+    q, k, v = _qkv(p, x, kv_src)
+    if rope:
+        pos_q = torch.arange(x.shape[1], device=x.device)
+        pos_k = torch.arange(kv_src.shape[1], device=x.device)
+        q = apply_rope(q, pos_q, cfg.rope_theta)
+        k = apply_rope(k, pos_k, cfg.rope_theta)
+    if use_flash and kv_x is None:
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              bq=block_q, bk=block_k)
+    else:
+        out = _attend(q, k, v, causal=causal and kv_x is None, window=window)
+    return torch.einsum("bhsk,hkd->bsd", out, p["wo"])
+
+
+def _expand_kv(k: torch.Tensor, h: int) -> torch.Tensor:
+    """GQA: replicate kv heads up to the q-head count."""
+    hkv = k.shape[1]
+    if hkv == h:
+        return k
+    return k.repeat_interleave(h // hkv, dim=1)
+
+
+# Sequences at or above this length use the q-chunked path so the (S, S)
+# score matrix never materializes whole.
+_CHUNK_THRESHOLD = 2048
+_Q_CHUNK = 1024
+
+
+def _attend(q, k, v, *, causal: bool,
+            window: Optional[int]) -> torch.Tensor:
+    """Attention with GQA head expansion; q-chunked for long sequences."""
+    b, h, sq, dh = q.shape
+    k = _expand_kv(k, h)
+    v = _expand_kv(v, h)
+    if sq >= _CHUNK_THRESHOLD and sq % _Q_CHUNK == 0:
+        return _attend_chunked(q, k, v, causal=causal, window=window)
+    return _attend_direct(q, k, v, causal=causal, window=window)
+
+
+def _attend_direct(q, k, v, *, causal: bool, window: Optional[int],
+                   q_offset: Optional[int] = None) -> torch.Tensor:
+    b, h, sq, dh = q.shape
+    sk = k.shape[2]
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                          k.float()) / math.sqrt(dh)
+    if causal or window is not None:
+        dev = q.device
+        offset = (sk - sq) if q_offset is None else q_offset  # align ends
+        q_pos = torch.arange(sq, device=dev)[:, None] + offset
+        k_pos = torch.arange(sk, device=dev)[None, :]
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= q_pos >= k_pos
+        if window is not None:
+            mask &= (q_pos - k_pos) < window
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def _attend_chunked(q, k, v, *, causal: bool,
+                    window: Optional[int]) -> torch.Tensor:
+    """Loop over query chunks: the live score slab is (B, H, qc, S), not
+    (B, H, S, S). Each chunk is checkpointed, so the backward pass
+    re-derives its probabilities instead of keeping them per chunk."""
+    qc = _Q_CHUNK
+
+    def body(q_c, i):
+        return _attend_direct(q_c, k, v, causal=causal, window=window,
+                              q_offset=i * qc)
+
+    outs = [checkpointed(body, q_c, i)
+            for i, q_c in enumerate(q.split(qc, dim=2))]
+    return torch.cat(outs, dim=2)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GeGLU / plain)
+# ---------------------------------------------------------------------------
+
+
+def mlp_defs(cfg: ModelConfig, layers: int | None = None) -> dict:
+    D, F_ = cfg.d_model, cfg.d_ff
+    lead = (layers,) if layers else ()
+    lax_ = ("layers",) if layers else ()
+
+    def w(shape, logical):
+        return ParamDef(shape=lead + shape, logical=lax_ + logical,
+                        dtype=cfg.tdtype)
+
+    if cfg.mlp_type == "plain":
+        return {"w_up": w((D, F_), ("embed", "mlp")),
+                "w_down": w((F_, D), ("mlp", "embed"))}
+    return {"w_gate": w((D, F_), ("embed", "mlp")),
+            "w_up": w((D, F_), ("embed", "mlp")),
+            "w_down": w((F_, D), ("mlp", "embed"))}
+
+
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")   # jax.nn.gelu's default
+    return F.silu(x)
+
+
+def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.mlp_type == "plain":
+        h = _act(torch.einsum("bsd,df->bsf", x, p["w_up"]), cfg.act)
+        return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+    g = _act(torch.einsum("bsd,df->bsf", x, p["w_gate"]), cfg.act)
+    u = torch.einsum("bsd,df->bsf", x, p["w_up"])
+    return torch.einsum("bsf,fd->bsd", g * u, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Embedding + LM head + loss
+# ---------------------------------------------------------------------------
+
+
+def embedding_defs(cfg: ModelConfig) -> dict:
+    out = {"table": ParamDef(shape=(cfg.vocab_padded, cfg.d_model),
+                             logical=("vocab", "embed"), init="embed",
+                             scale=0.02, dtype=cfg.tdtype)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ParamDef(shape=(cfg.d_model, cfg.vocab_padded),
+                                  logical=("embed", "vocab"),
+                                  dtype=cfg.tdtype)
+    return out
+
+
+def embed_tokens(p: dict, tokens: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    return p["table"][tokens.long()]
+
+
+def logits_fn(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return torch.einsum("bsd,vd->bsv", h, p["table"])
+    return torch.einsum("bsd,dv->bsv", h, p["lm_head"])
+
+
+def cross_entropy_loss(p_embed: dict, h: torch.Tensor, targets: torch.Tensor,
+                       cfg: ModelConfig, *, chunk: int = 512,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """CE over (B, S) targets, chunked over the sequence so the
+    (B, chunk, V) logits slab bounds activation memory; each chunk is
+    checkpointed. ``mask`` (B, S) in {0, 1} weights positions. Positions
+    past the last whole chunk are dropped, as in the reference."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    n_chunks = s // chunk
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
+
+    def body(hc, tc, mc):
+        logits = logits_fn(p_embed, hc, cfg).float()
+        if cfg.vocab_padded != cfg.vocab_size:
+            col = torch.arange(logits.shape[-1], device=logits.device)
+            logits = torch.where(col < cfg.vocab_size, logits, NEG_INF)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+        return torch.sum((lse - gold) * mc.float())
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + checkpointed(body, h[:, sl], targets[:, sl],
+                                     mask[:, sl])
+    return total / torch.clamp(mask.sum(), min=1.0)
+
+
+def next_token_targets(tokens: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Keep S intact: targets are tokens rolled left; the final position
+    is masked out of the loss."""
+    b, s = tokens.shape
+    targets = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones((b, s), dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    return targets, mask

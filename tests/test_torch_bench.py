@@ -97,7 +97,8 @@ def test_gemm_tiled_benchmark_tunes_on_the_host(monkeypatch):
     # one (m, k) @ (k, n) draw, shared by every tile
     assert {(a, b) for a, b, _ in shapes} == {((128, 32), (32, 96))}
     assert len({i for _, _, i in shapes}) == 1
-    assert launch_counts() == {"matmul": 0, "triad": 0}
+    assert launch_counts() == {"matmul": 0, "triad": 0,
+                               "flash_attention": 0}
 
 
 def test_exec_cache_resolves_each_tile_once():
@@ -130,7 +131,8 @@ def test_benchmarks_run_on_the_host_without_launches():
     dg = Tuner(grid(n=(64,), m=(64,), k=(32,)), settings).tune(
         common.dgemm_benchmark("cpu"))
     assert tri.best_score > 0 and dg.best_score > 0
-    assert launch_counts() == {"matmul": 0, "triad": 0}
+    assert launch_counts() == {"matmul": 0, "triad": 0,
+                               "flash_attention": 0}
 
 
 def _tune_cli(tmp_path, *args, env_extra=None):
@@ -148,7 +150,8 @@ def test_cli_synthetic_session_resumes(tmp_path):
     assert first.returncode == 0, first.stderr
     assert "best      : {'x': 7}  score=100.0" in first.stdout
     assert "fingerprint: cpu:" in first.stdout
-    assert "kernels   : matmul=0  triad=0 launches" in first.stdout
+    assert ("kernels   : flash_attention=0  matmul=0  triad=0 launches"
+            in first.stdout)
     again = _tune_cli(tmp_path, *args)
     assert again.returncode == 0, again.stderr
     assert "cached     : 12 trials" in again.stdout

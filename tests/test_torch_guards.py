@@ -61,6 +61,11 @@ import runpy
 import repro_torch, repro_torch.core, repro_torch.kernels
 import repro_torch.bench.common, repro_torch.bench.roofline_model
 import repro_torch.tune
+import repro_torch.models, repro_torch.configs
+import repro_torch.kernels.flash_attention
+import repro_torch.models.api, repro_torch.models.workloads
+from repro_torch.configs import get
+assert get("granite_3_2b").n_params() == 2534049792
 assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
 sys.argv = ["repro_torch.tune", "--help"]
 runpy.run_module("repro_torch.tune", run_name="__main__")
@@ -95,6 +100,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
         common.dgemm_data(8, 8, 8, 0)
     with pytest.raises(RuntimeError):
         port_cache.hardware_fingerprint()
+    with pytest.raises(RuntimeError, match="is_available"):
+        common.model_step_family("train_step")
     assert resolve_device("cpu").type == "cpu"
 
 

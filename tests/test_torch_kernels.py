@@ -123,7 +123,8 @@ def test_cpu_calls_launch_nothing():
     matmul.resolve((a, a), bm=64, bn=64, bk=8)(a, a)
     triad(a[0], a[1])
     triad.resolve((a[0], a[1]), gamma=2.0)(a[0], a[1])
-    assert launch_counts() == {"matmul": 0, "triad": 0}
+    assert launch_counts() == {"matmul": 0, "triad": 0,
+                               "flash_attention": 0}
 
 
 def test_triad_ref_is_the_plain_formula():
