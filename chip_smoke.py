@@ -8,8 +8,9 @@ Run from the root of a checkout: the kernels are built from
 run when it fails:
 
 1. card      — ``nvidia-smi`` name and power limit; torch, CUDA, nvcc.
-2. build     — compile the CUDA kernels for sm_90a; print the seconds and
-               the flash kernel's registers, spills and shared memory.
+2. build     — compile the CUDA kernels for sm_90a; print the seconds,
+               every kernel's registers, spills and static shared memory,
+               and the dynamic shared memory of the flash and SSD blocks.
 3. checks    — each kernel against its plain PyTorch version on the card:
                GEMM at every tile of the table at 4096x2048x6144 f32 and
                at 300x450x200 and 1024x256x128 in f32 and bf16; TRIAD at
@@ -23,7 +24,12 @@ run when it fails:
                tile of the quick space, in bf16 within about two bf16
                ulps and in f32 within 1e-5 (FLASH_MAIN_TOL), and its
                autograd gradients against the plain version's (exact:
-               the backward is the plain math).
+               the backward is the plain math); the SSD chunk scan's y
+               and final state on SSD_CASES (the cases of
+               ``tests/test_kernel_ssd.py``, an odd chunk, mamba2-130m's
+               widths at Q in {128, 256, 512} and zamba2-2.7b's) within
+               SSD_ULPS f32 ulps of the largest element, and its autograd
+               gradients (exact).
 4. timing    — CUDA-event times of each kernel at the main path's shapes
                (each checked against its plain version on the same
                tensors first) beside its bound, its plain version and one
@@ -31,8 +37,11 @@ run when it fails:
                replayed from a CUDA graph (device time without the host's
                dispatch); the host cost of one tuner sample at
                n = 1024, split into the wrapper's dispatch and the
-               sampler's synchronize; and attention forward + backward
-               at the model step's shape on the flash and plain paths.
+               sampler's synchronize; attention forward + backward at
+               the model step's shape on the flash and plain paths; the
+               SSD kernel at SSD_MAIN (mamba2-130m serving, zamba2-2.7b
+               train), checked first, beside its bound and its plain
+               version (no PyTorch call computes it).
 5. main path — ``python -m repro_torch.tune`` for ``triad --full``,
                ``dgemm --full --strategy random --budget 16 --seed 0`` and
                ``gemm_tiled --report``, then the roofline-model bench with
@@ -52,10 +61,29 @@ run when it fails:
                best score and flash launches are required, and the
                4-layer loss with ``use_flash=1`` must match
                ``use_flash=0`` on the same weights within
-               MODEL_LOSS_RTOL.
+               MODEL_STEP["loss_rtol"].
 7. full depth — one granite-3-2b train step at all 40 layers, B=1,
                S=4096, ``use_flash=1`` at the tuner's best flash tiles:
                loss and gradients finite; step time and peak memory.
+8. serving   — mamba2-130m at full width and depth (SERVING): one
+               ``api.prefill_fn`` of 4 prompts of 32768 tokens (one SSD
+               launch per layer required, finite logits), then 32 greedy
+               ``api.decode_fn`` steps (tokens in the vocabulary); prefill
+               ms, decode ms per step, peak memory. Then, in f32 at the
+               same widths, a 4096-token prefill and 256 teacher-forced
+               decode steps must give the logits and states of one
+               4352-token prefill within CONTINUE_TOL.
+9. hybrid    — as phase 6 on zamba2-2.7b's train step (HYBRID_STEP: full
+               width, depth cut from 54 to 6 layers, B=1, S=4096): every
+               config must launch the SSD kernel, and the flash kernel
+               exactly when ``use_flash=1`` (head dim 80); then CUDA-event
+               times of one layer's parts alone, and a ``torch.profiler``
+               trace of one step at the tuner's flash tile: the device's
+               idle share of the step, and the device time of the SSD
+               kernel, the flash kernel, their plain backward passes and
+               the rest.
+
+Each phase prints its seconds.
 
 The last three lines are the card line, one ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``. Without a card, or outside
@@ -86,6 +114,7 @@ TRIAD_SIZES = {"cache": 1 << 22, "dram": 1 << 28}  # roofline-model bytes
 F32_PEAK = 67e12                           # H100 SXM data sheet, 700 W
 HBM_PEAK = 3.35e12
 BF16_PEAK = 989e12                         # tensor cores, bf16, dense
+SMEM_PER_SM = 228 * 1024                   # H100: shared memory per SM
 SUBPROCESS_TIMEOUT_S = 420
 FLASH_MAIN = (1, 32, 8, 4096, 64)          # (B, H, Hkv, S, D), granite-3-2b
 FLASH_TOL = {"f32": {"rtol": 2e-5, "atol": 2e-5},   # tests/test_kernels.py
@@ -110,14 +139,51 @@ FLASH_CASES = (
     + [(1, 4, 4, 128, 64, True, None, "bf16")]
     + [(1, 4, 2, 300, d, True, None, dt) for d in (16, 128)
        for dt in ("f32", "bf16")]
-    + [(1, 2, 1, 300, 256, True, 64, dt) for dt in ("f32", "bf16")])
-MODEL_STEP = {"arch": "granite_3_2b", "layers": 4, "batch": 1, "seq": 4096}
+    + [(1, 2, 1, 300, 256, True, 64, dt) for dt in ("f32", "bf16")]
+    + [(1, 4, 4, 300, 80, True, 96, dt) for dt in ("f32", "bf16")])
 # The flash and plain attention outputs are each rounded to bf16, so they
 # differ by about one bf16 ulp (2**-8 relative) in some elements; through 4
 # random-weight layers that moves the loss by about 2e-6 relative on an
 # H100 (PERF.md). A kernel wrong in one layer or a share of rows moves it
 # by more than the limit.
-MODEL_LOSS_RTOL = 1e-4
+MODEL_STEP = {"arch": "granite_3_2b", "layers": 4, "batch": 1, "seq": 4096,
+              "loss_rtol": 1e-4}
+#: zamba2-2.7b's train step: full width, depth cut from 54 layers to one
+#: group of attn_every = 6 Mamba2 layers and one use of the shared block.
+#: Its one flash layer moves the loss by 1.14e-6 relative on an H100
+#: (PERF.md, PR 13); the limit is about 9x that.
+HYBRID_STEP = {"arch": "zamba2_2_7b", "layers": 6, "batch": 1, "seq": 4096,
+               "loss_rtol": 1e-5}
+#: mamba2-130m serving: full width and depth, the prefill_32k prompt
+#: length at batch 4 (its global batch of 32 is a multi-chip deployment's)
+SERVING = {"arch": "mamba2_130m", "batch": 4, "seq": 32768,
+           "decode_steps": 32}
+#: decode continuing prefill, in f32 at the same widths: a 4096-token
+#: prefill and 256 teacher-forced decode steps against a 4352-token prefill
+CONTINUE = {"prefill": 4096, "decode": 256}
+CONTINUE_TOL = {"rtol": 1e-4, "atol": 1e-4}  # tests/test_ssd.py
+#: (B, H, C, Q, P, N, with h0): the cases of tests/test_kernel_ssd.py (its
+#: four shapes and the state-carry case), an odd chunk (S = 300, Q = 100),
+#: mamba2-130m's widths at S = 4096 with Q in {128, 256, 512} (the config's
+#: chunk and the knob space of src/repro/launch/perf.py:73) and zamba2-2.7b's
+SSD_CASES = (
+    [(2, 3, 4, 16, 8, 16, False), (2, 3, 4, 32, 16, 8, False),
+     (1, 8, 2, 16, 8, 16, False), (2, 3, 8, 8, 8, 16, False),
+     (1, 1, 3, 8, 4, 4, False), (1, 1, 3, 8, 4, 4, True),
+     (1, 24, 3, 100, 64, 128, True)]
+    + [(1, 24, 4096 // q, q, 64, 128, False) for q in (128, 256, 512)]
+    + [(1, 80, 32, 128, 64, 64, False)])
+#: the main path's shapes (B, H, C, Q, P, N): mamba2-130m serving and
+#: zamba2-2.7b's train step
+SSD_MAIN = {"mamba2 serving": (4, 24, 128, 256, 64, 128),
+            "zamba2 train": (1, 80, 32, 128, 64, 64)}
+# The kernel and the plain version both compute in f32 and differ by the
+# order of their sums only: the limit is SSD_ULPS f32 ulps (2**-23) of the
+# largest output element, per element, far below the reference tests' 2e-5
+# times that magnitude; on an H100 the error reads under 3 such ulps
+# (PERF.md). A dropped or misplaced 64-position sub-tile moves outputs by
+# O(0.1) or more.
+SSD_ULPS = 8
 # The roofline model and the ``dgemm --full`` session time the same random
 # configs with the same sampler, so their F_p differ by run-to-run noise
 # and the model's smaller per-config budget only.
@@ -129,7 +195,15 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
+_PHASE: dict = {}
+
+
 def phase(name: str) -> None:
+    """Start a phase; print the seconds the previous one took."""
+    now = time.perf_counter()
+    if _PHASE:
+        print(f"-- {_PHASE['name']}: {now - _PHASE['t0']:.1f}s", flush=True)
+    _PHASE.update(name=name, t0=now)
     print(f"\n== {name} ==", flush=True)
 
 
@@ -260,13 +334,13 @@ def host_us_per_sample(fn, samples: int = 2000) -> float:
 
 
 def kernel_label(mangled: str) -> str:
-    """``name<dtype,dims...>`` of a mangled ``*_kernel`` template
-    instantiation (the identifier is the one its length prefix spans;
-    namespaces before it may hold digits)."""
-    end = mangled.find("_kernelI")
-    if end < 0:
+    """``name<dtype,dims...>`` of a mangled ``*_kernel`` function, a
+    template instantiation or not (the identifier is the one its length
+    prefix spans; namespaces before it may hold digits)."""
+    m = re.search(r"_kernel[IE]", mangled)
+    if m is None:
         return mangled
-    end += len("_kernel")
+    end = m.start() + len("_kernel")
     base = next((mangled[m.end():end]
                  for m in re.finditer(r"\d+", mangled[:end])
                  for i in range(len(m.group()))
@@ -383,10 +457,40 @@ def flash_main_checks(q, k, v, g, tiles) -> tuple[int, dict]:
     return 2 * len(tiles), worst
 
 
-def model_step_path(work: pathlib.Path) -> dict:
-    """Tune granite-3-2b's train step (full width, MODEL_STEP depth) over
-    the quick model-step space in process; check the session and the
-    flash/plain loss agreement. Returns what the result line needs."""
+def counting(bench, per_config: dict):
+    """``bench`` with each config's kernel launches during its samples
+    added up in ``per_config[config key]`` (pre-heat calls excluded)."""
+    from collections import Counter
+    from repro_torch import kernels
+
+    def wrapped(cfg: dict):
+        factory = bench(cfg)
+        counts = per_config.setdefault(tuple(sorted(cfg.items())), Counter())
+
+        def counted_factory():
+            sampler = factory()
+
+            def sample():
+                before = kernels.launch_counts()
+                out = sampler()
+                for name, n in kernels.launch_counts().items():
+                    counts[name] += n - before[name]
+                return out
+            return sample
+        return counted_factory
+
+    wrapped.precompile = bench.precompile
+    wrapped.__name__ = bench.__name__
+    return wrapped
+
+
+def model_step_path(work: pathlib.Path, spec: dict) -> dict:
+    """Tune one model's train step (full width, ``spec``'s depth, batch
+    and sequence) over the quick model-step space in process; check the
+    session, that every config launched the SSD kernel where the model
+    has Mamba2 layers and the flash kernel exactly when ``use_flash=1``,
+    and the flash/plain loss agreement within ``spec["loss_rtol"]``.
+    Returns what the result line needs."""
     import dataclasses
     import gc
     import statistics
@@ -398,24 +502,34 @@ def model_step_path(work: pathlib.Path) -> dict:
     from repro_torch.core import Tuner, TuningSession
     from repro_torch.models.transformer import StepConfig
     from repro_torch.models.workloads import build_workload, step_flops
-    full = get(MODEL_STEP["arch"])
-    cfg = dataclasses.replace(full, n_layers=MODEL_STEP["layers"])
-    b, s = MODEL_STEP["batch"], MODEL_STEP["seq"]
+    full = get(spec["arch"])
+    cfg = dataclasses.replace(full, n_layers=spec["layers"])
+    b, s = spec["batch"], spec["seq"]
     flops = step_flops(cfg, b, s)
-    print(f"{full.name} at full width (d_model {cfg.d_model}, {cfg.n_heads} "
-          f"heads, {cfg.n_kv_heads} kv heads, head_dim {cfg.head_dim_}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}); depth "
-          f"cut from {full.n_layers} to {cfg.n_layers} layers "
-          f"({cfg.n_params() / 1e6:.1f}M params); B={b}, S={s}; work term "
-          f"{flops / 1e12:.4f} TFLOP per step (FlopCounterMode, plain path)")
+    has_ssd = cfg.family in ("ssm", "hybrid")
+    widths = (f"d_model {cfg.d_model}, {cfg.n_heads} heads, "
+              f"{cfg.n_kv_heads} kv heads, head_dim {cfg.head_dim_}, d_ff "
+              f"{cfg.d_ff}")
+    if has_ssd:
+        widths += (f", d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads, "
+                   f"ssm_state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
+                   f"attn_every {cfg.attn_every}, window {cfg.window}")
+    print(f"{full.name} at full width ({widths}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}); depth cut from {full.n_layers} to {cfg.n_layers} "
+          f"layers ({cfg.n_params() / 1e6:.1f}M params); B={b}, S={s}; "
+          f"work term {flops / 1e12:.4f} TFLOP per step (FlopCounterMode, "
+          f"plain path)")
     settings = dataclasses.replace(paper_settings(True),
                                    use_ci_convergence=True,
                                    use_inner_prune=True,
                                    use_outer_prune=True)
+    per_config: dict = {}
     session = TuningSession(
-        "model_step", Tuner(model_step_space(True), settings),
-        model_step_family("train_step", cfg, batch_size=b, seq_len=s),
-        cache_dir=str(work / "model_step"), benchmark_name="train_step")
+        f"model_step_{spec['arch']}", Tuner(model_step_space(True), settings),
+        counting(model_step_family("train_step", cfg, batch_size=b,
+                                   seq_len=s), per_config),
+        cache_dir=str(work / f"model_step_{spec['arch']}"),
+        benchmark_name="train_step")
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     result = session.run()
@@ -426,9 +540,6 @@ def model_step_path(work: pathlib.Path) -> dict:
         fail(f"model step: {len(result.trials)} trials recorded, want 8")
     if result.best_score is None or not math.isfinite(result.best_score):
         fail(f"model step: best score {result.best_score}")
-    if launches["flash_attention"] == 0:
-        fail("model step: the use_flash=1 trials never launched the flash "
-             "kernel")
     step_ms = {}
     for t in result.trials:
         r = t.result
@@ -436,10 +547,18 @@ def model_step_path(work: pathlib.Path) -> dict:
         key = (t.config["use_flash"], t.config["flash_block_q"],
                t.config["flash_block_k"])
         step_ms[key] = flops / (rate * 1e9) * 1e3
+        counts = per_config[tuple(sorted(t.config.items()))]
         print(f"  {t.config} -> {r.score:.1f} GFLOP/s, median step "
               f"{step_ms[key]:.2f} ms over {len(r.invocations)} "
               f"invocations, {r.total_samples} samples"
-              f"{' (pruned)' if r.pruned else ''} ({r.stop_reason})")
+              f"{' (pruned)' if r.pruned else ''} ({r.stop_reason}); "
+              f"launches in its samples: flash {counts['flash_attention']}"
+              + (f", ssd {counts['ssd_chunk_scan']}" if has_ssd else ""))
+        if bool(counts["flash_attention"]) != bool(t.config["use_flash"]):
+            fail(f"model step {t.config}: {counts['flash_attention']} flash "
+                 f"launches (wanted some exactly when use_flash=1)")
+        if has_ssd and counts["ssd_chunk_scan"] == 0:
+            fail(f"model step {t.config}: the SSD kernel never launched")
     print(f"model step: best {result.best_config} score "
           f"{result.best_score:.1f} GFLOP/s; session wall {wall:.1f}s; "
           f"launches {launches}")
@@ -457,17 +576,17 @@ def model_step_path(work: pathlib.Path) -> dict:
                                              remat=False))):
         losses[label] = float(w.with_step(step).fn(*w.args)[0])
     rel = abs(losses["flash"] / losses["plain"] - 1.0)
-    print(f"4-layer loss: use_flash=1 {losses['flash']:.6f} vs use_flash=0 "
-          f"{losses['plain']:.6f} (relative {rel:.2e}, tol "
-          f"{MODEL_LOSS_RTOL})")
-    if not (math.isfinite(rel) and rel <= MODEL_LOSS_RTOL):
+    print(f"{cfg.n_layers}-layer loss: use_flash=1 {losses['flash']:.6f} vs "
+          f"use_flash=0 {losses['plain']:.6f} (relative {rel:.3e}, tol "
+          f"{spec['loss_rtol']})")
+    if not (math.isfinite(rel) and rel <= spec["loss_rtol"]):
         fail(f"model step: flash loss {losses['flash']} vs plain "
              f"{losses['plain']}")
     del w
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches["flash_attention"], "tile": tile,
-            "step_ms": step_ms, "best": result.best_config, "wall": wall}
+    return {"launches": launches, "tile": tile, "step_ms": step_ms,
+            "best": result.best_config, "wall": wall, "loss_rel": rel}
 
 
 def full_depth_step(tile: tuple[int, int]) -> dict:
@@ -507,6 +626,321 @@ def full_depth_step(tile: tuple[int, int]) -> dict:
     torch.cuda.empty_cache()
     return {"step_ms": times[1] * 1e3, "peak_gib": peak / 2 ** 30,
             "loss": float(loss)}
+
+
+def ssd_inputs(gen, b, h, c, q, p, n, with_h0=False) -> tuple:
+    """SSD operands on the card with the reference tests' distributions:
+    x * dt, B and C ~ 0.5 N(0, 1), cum the within-chunk cumsum of
+    -U(0.01, 0.2), and an optional N(0, 1) initial state."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    xdt, bm, cm = 0.5 * randn(b, h, c, q, p), 0.5 * randn(b, c, q, n), \
+        0.5 * randn(b, c, q, n)
+    step = 0.01 + 0.19 * torch.rand((b, h, c, q), generator=gen,
+                                    device="cuda")
+    return (xdt, bm, cm, torch.cumsum(-step, dim=-1),
+            randn(b, h, p, n) if with_h0 else None)
+
+
+def ssd_tol(want) -> dict:
+    """Per-element limit: SSD_ULPS f32 ulps of the largest element."""
+    return {"rtol": 0.0,
+            "atol": SSD_ULPS * 2.0 ** -23 * float(want.abs().max())}
+
+
+def ssd_check(label: str, ops: tuple) -> tuple[float, float]:
+    """The kernel's y and final state against the plain version's on the
+    same operands; returns the max abs errors (y, state)."""
+    from repro_torch.kernels.ssd import (chunk_scan, ssd_chunk_scan,
+                                         ssd_chunk_scan_ref)
+    xdt, bm, cm, cum, h0 = ops
+    want_y, want_h = ssd_chunk_scan_ref(xdt, bm, cm, cum, h0=h0,
+                                        return_state=True)
+    got_y, got_h = launch_checked(ssd_chunk_scan, lambda: chunk_scan(
+        xdt, bm, cm, cum, h0=h0, return_state=True))
+    tol_y, tol_h = ssd_tol(want_y), ssd_tol(want_h)
+    err_y = check_close(f"{label} y", got_y, want_y, tol_y)
+    err_h = check_close(f"{label} state", got_h, want_h, tol_h)
+    print(f"{label}: y max abs err {err_y:.3e} (limit {tol_y['atol']:.3e}, "
+          f"max |y| {float(want_y.abs().max()):.3f}); state {err_h:.3e} "
+          f"(limit {tol_h['atol']:.3e})")
+    return err_y, err_h
+
+
+def ssd_grad_check(ops: tuple) -> None:
+    """The autograd function's gradients against the plain version's
+    (exact: the backward recomputes through the plain math)."""
+    import torch
+    from repro_torch.kernels.ssd import (chunk_scan, ssd_chunk_scan,
+                                         ssd_chunk_scan_ref)
+    g = torch.randn_like(ops[0])
+    grads = {}
+    for name, fn in (("kernel", lambda *x: launch_checked(
+            ssd_chunk_scan, lambda: chunk_scan(*x))),
+                     ("plain", ssd_chunk_scan_ref)):
+        leaves = [t.detach().clone().requires_grad_() for t in ops[:4]]
+        grads[name] = torch.autograd.grad(fn(*leaves), leaves, g)
+    for name, a, b in zip(("xdt", "bm", "cm", "cum"), grads["kernel"],
+                          grads["plain"]):
+        if not torch.equal(a, b):
+            fail(f"ssd d{name}: the autograd function's gradient differs "
+                 f"from the plain version's (max abs err "
+                 f"{float((a - b).abs().max()):.3e})")
+    print(f"ssd {tuple(ops[0].shape)}: dxdt, dB, dC, dcum equal the plain "
+          f"version's exactly")
+
+
+def ssd_shape_cost(shape: tuple) -> dict:
+    """Work, bytes and bound of one kernel call at (B, H, C, Q, P, N),
+    returning the final state (the prefill path's call). ``flops`` is the
+    JAX package's formula, the rate's work term; the bound counts only
+    the work the function needs (``needed_flops``: C·Bᵀ once for all
+    heads, the causal triangle of the quadratic terms)."""
+    from repro_torch.kernels.ssd import bytes_moved, flops, needed_flops
+    b, h, c, q, p, n = shape
+    work = needed_flops(b, h, c * q, q, p, n)
+    moved = bytes_moved(b, h, c * q, q, p, n, return_state=True)
+    return {"flops": flops(b, h, c * q, q, p, n), "needed": work,
+            "bytes": moved,
+            "bound": max(work / F32_PEAK, moved / HBM_PEAK) * 1e3,
+            "bound_by": "operations" if work / F32_PEAK >= moved / HBM_PEAK
+            else "bytes", "blocks": b * h * -(-p // 32)}
+
+
+def serving_path() -> dict:
+    """mamba2-130m at full width and depth: one prefill of a batch of
+    SERVING["batch"] prompts of SERVING["seq"] tokens through
+    ``api.prefill_fn``, then greedy decode steps through
+    ``api.decode_fn``. Requires one SSD launch per layer in the prefill,
+    finite logits and tokens in the vocabulary."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get
+    from repro_torch.models import api
+    from repro_torch.models.params import materialize
+    from repro_torch.models.transformer import StepConfig
+    cfg = get(SERVING["arch"])
+    b, s, steps = SERVING["batch"], SERVING["seq"], SERVING["decode_steps"]
+    params = materialize(torch.Generator(device="cuda").manual_seed(0),
+                         api.param_defs(cfg))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (b, s))).cuda()
+    step = StepConfig(remat=False)
+    print(f"{cfg.name}: all {cfg.n_layers} layers at full width (d_model "
+          f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads "
+          f"of {cfg.ssm_head_dim}, ssm_state {cfg.ssm_state}, chunk "
+          f"{cfg.ssm_chunk}, vocab {cfg.vocab_size}, {cfg.dtype}; "
+          f"{cfg.n_params() / 1e6:.1f}M params); {b} prompts of {s} tokens "
+          f"(cut from prefill_32k's global batch 32), {steps} greedy decode "
+          f"steps")
+    with torch.no_grad():
+        api.prefill_fn(params, {"tokens": tokens[:, :512]}, cfg, step)
+        torch.cuda.synchronize()                     # warm-up, not counted
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = api.prefill_fn(params, {"tokens": tokens}, cfg, step)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches = kernels.launch_counts()
+        if launches["ssd_chunk_scan"] != cfg.n_layers:
+            fail(f"serving: {launches['ssd_chunk_scan']} SSD launches in one "
+                 f"prefill, want one per layer ({cfg.n_layers})")
+        if logits.shape != (b, 1, cfg.vocab_padded) or not bool(
+                torch.isfinite(logits).all()):
+            fail(f"serving: prefill logits {tuple(logits.shape)}, finite "
+                 f"{bool(torch.isfinite(logits).all())}")
+        generated = []
+        t0 = time.perf_counter()
+        for i in range(steps):
+            tok = logits[..., :cfg.vocab_size].argmax(dim=-1)   # (B, 1)
+            generated.append(tok)
+            logits, cache = api.decode_fn(params, {"tokens": tok}, cache,
+                                          s + i, cfg, step)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+        gen_tokens = torch.cat(generated, dim=1)
+        peak = torch.cuda.max_memory_allocated()
+        if not bool(torch.isfinite(logits).all()) or not bool(
+                ((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size)).all()):
+            fail("serving: non-finite decode logits or tokens outside the "
+                 "vocabulary")
+        serving_launches = kernels.launch_counts()
+    print(f"prefill {prefill_ms:.1f} ms ({b * s / prefill_ms * 1e3:.0f} "
+          f"tokens/s); decode {decode_ms:.3f} ms per step of {b} tokens; "
+          f"peak memory {peak / 2 ** 30:.2f} GiB; launches {serving_launches}"
+          f"; first generated tokens {gen_tokens[:, :8].tolist()}")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "peak_gib": peak / 2 ** 30,
+            "launches": serving_launches["ssd_chunk_scan"]}
+
+
+def decode_continues_prefill() -> dict:
+    """In f32 at mamba2-130m's widths, B = 1: a CONTINUE["prefill"]-token
+    prefill followed by CONTINUE["decode"] teacher-forced decode steps
+    must give the last logits and the ssm and conv states of one prefill
+    of all the tokens (the kernel's y and final state against the
+    sequential recurrence of ``ssd_decode``)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models import api
+    from repro_torch.models.params import materialize
+    from repro_torch.models.transformer import StepConfig
+    cfg = dataclasses.replace(get(SERVING["arch"]), dtype="float32")
+    n0, n1 = CONTINUE["prefill"], CONTINUE["decode"]
+    params = materialize(torch.Generator(device="cuda").manual_seed(0),
+                         api.param_defs(cfg))
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, n0 + n1))).cuda()
+    step = StepConfig(remat=False)
+    with torch.no_grad():
+        logits, cache = api.prefill_fn(params, {"tokens": tokens[:, :n0]},
+                                       cfg, step)
+        for t in range(n0, n0 + n1):
+            logits, cache = api.decode_fn(
+                params, {"tokens": tokens[:, t:t + 1]}, cache, t, cfg, step)
+        want_logits, want = api.prefill_fn(params, {"tokens": tokens}, cfg,
+                                           step)
+    errs = {}
+    for name, got_t, want_t in (("logits", logits, want_logits),
+                                ("ssm", cache["ssm"], want["ssm"]),
+                                ("conv", cache["conv"], want["conv"])):
+        errs[name] = check_close(f"decode continues prefill: {name}", got_t,
+                                 want_t, CONTINUE_TOL)
+    print(f"f32 {cfg.name}: prefill {n0} + {n1} decode steps vs prefill "
+          f"{n0 + n1}: max abs err logits {errs['logits']:.3e}, ssm states "
+          f"{errs['ssm']:.3e}, conv states {errs['conv']:.3e} (limit "
+          f"{CONTINUE_TOL})")
+    del params, cache, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def hybrid_layer_parts(tile: tuple[int, int]) -> dict:
+    """CUDA-event times of the parts of one zamba2-2.7b layer at the
+    hybrid step's shape: the SSD kernel's forward and its forward +
+    backward (plain recompute), and the shared block's attention forward
+    (flash kernel at ``tile``) and forward + backward on the flash and
+    the plain paths."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd import chunk_scan
+    from repro_torch.models.layers import _attend
+    cfg = get(HYBRID_STEP["arch"])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ops = ssd_inputs(gen, *SSD_MAIN["zamba2 train"])[:4]
+    leaves = [t.detach().clone().requires_grad_() for t in ops]
+    g = torch.randn_like(ops[0])
+    s = HYBRID_STEP["seq"]
+    shape = (HYBRID_STEP["batch"], cfg.n_heads, s, cfg.head_dim_)
+    q, k, v, ga = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    kw = dict(causal=True, window=cfg.window)
+    with torch.no_grad():
+        parts = {
+            "ssd_fwd": cuda_ms(lambda: chunk_scan(*ops), iters=10),
+            "flash_fwd": cuda_ms(lambda: flash_attention(
+                q, k, v, bq=tile[0], bk=tile[1], **kw), iters=5, warmup=1)}
+    parts.update({
+        "ssd_fwd_bwd": cuda_ms(lambda: torch.autograd.grad(
+            chunk_scan(*leaves), leaves, g), iters=3, warmup=1),
+        "flash_fwd_bwd": cuda_ms(lambda: torch.autograd.grad(
+            flash_attention(*qkv, bq=tile[0], bk=tile[1], **kw), qkv, ga),
+            iters=2, warmup=1),
+        "plain_attn_fwd_bwd": cuda_ms(lambda: torch.autograd.grad(
+            _attend(*qkv, **kw), qkv, ga), iters=2, warmup=1),
+    })
+    del ops, leaves, g, q, k, v, ga, qkv
+    torch.cuda.empty_cache()
+    return parts
+
+
+def step_trace(spec: dict, tile: tuple[int, int]) -> dict:
+    """Where one train step's time goes, from a ``torch.profiler`` trace:
+    ``spec``'s model at ``use_flash=1`` and ``tile``, one warm-up step,
+    two steps timed by the host clock, then one traced step. The device
+    is busy for the sum of the traced kernels' times; the rest of the
+    host-clock step is device idle time. Device times of the parts: the
+    SSD and flash kernels by their names, the plain backward passes of
+    both by the kernels launched under their autograd nodes."""
+    import dataclasses
+    import statistics
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get
+    from repro_torch.models.transformer import StepConfig
+    from repro_torch.models.workloads import build_workload
+    cfg = dataclasses.replace(get(spec["arch"]), n_layers=spec["layers"])
+    w = build_workload("train_step", cfg, batch_size=spec["batch"],
+                       seq_len=spec["seq"],
+                       step=StepConfig(use_flash=True, flash_block_q=tile[0],
+                                       flash_block_k=tile[1], remat=False))
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        w.fn(*w.args)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.mean(walls[1:])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        w.fn(*w.args)
+        torch.cuda.synchronize()
+        traced_wall = (time.perf_counter() - t0) * 1e3
+    del w
+    torch.cuda.empty_cache()
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not device:
+        fail("step trace: torch.profiler recorded no device activity")
+
+    def named(*tags) -> float:
+        return sum(e.time_range.elapsed_us() for e in device
+                   if any(t in e.name for t in tags)) / 1e3
+
+    def under(tag: str) -> float:
+        total = 0.0
+        for e in events:
+            if e.device_type != DeviceType.CPU or tag not in e.name:
+                continue
+            parent = e.cpu_parent
+            while parent is not None and tag not in parent.name:
+                parent = parent.cpu_parent
+            if parent is None:          # outermost event of this node
+                total += e.device_time_total
+        return total / 1e3
+
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    parts = {"ssd kernel": named("ssd_scores_kernel",
+                                 "ssd_chunk_scan_kernel"),
+             "ssd plain backward": under("_ChunkScanBackward"),
+             "flash kernel": named("flash_attention_kernel"),
+             "attention plain backward": under("_FlashAttentionBackward")}
+    parts["rest"] = busy - sum(parts.values())
+    print(f"{cfg.name}, {cfg.n_layers} layers, use_flash=1 tile {tile}: "
+          f"step {wall:.2f} ms by the host clock (steps "
+          f"{', '.join(f'{x:.2f}' for x in walls)} ms, the first warming "
+          f"up; the traced one {traced_wall:.2f} ms); {len(device)} device "
+          f"events busy for {busy:.2f} ms, so the device idles "
+          f"{1 - busy / wall:.1%} of the step")
+    for name, ms in parts.items():
+        print(f"  {name}: {ms:.3f} ms of device time = {ms / busy:.1%} of "
+              f"the busy time, {ms / wall:.1%} of the step")
+    if parts["ssd kernel"] <= 0 or parts["flash kernel"] <= 0:
+        fail(f"step trace: the hand kernels' device time is missing "
+             f"({parts})")
+    return {"wall_ms": wall, "busy_ms": busy, "parts": parts}
 
 
 def run_tune(args: list[str]) -> tuple[str, dict]:
@@ -578,6 +1012,8 @@ def main() -> int:
         smem_bytes as flash_smem_bytes
     from repro_torch.kernels.triad import triad, triad_ref
     from repro_torch.bench.common import model_step_space
+    from repro_torch.kernels.ssd import chunk_scan, ssd_chunk_scan_ref
+    from repro_torch.kernels.ssd import smem_bytes as ssd_smem_bytes
     from repro_torch.models.layers import _attend
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -593,16 +1029,29 @@ def main() -> int:
           f"({'built' if fresh else 'found'} in "
           f"{time.perf_counter() - t0:.2f}s)")
     log = build.library_path().parent / "build.log"
+    ptxas_rows = []
     if log.exists():
         text = log.read_text(encoding="utf-8")
         print("  " + text.splitlines()[0])
-        for row in ptxas_report(text):
+        ptxas_rows = ptxas_report(text)
+        for row in ptxas_rows:
             print("  " + row)
     limit = getattr(torch.cuda.get_device_properties(0),
                     "shared_memory_per_block_optin", "not reported")
     for d in sorted({case[4] for case in FLASH_CASES}):
         print(f"  flash d={d}: {flash_smem_bytes(d)} bytes dynamic shared "
               f"memory per block (opt-in limit {limit})")
+    regs = next((int(m.group(1)) for m in (re.search(
+        r"^ssd_chunk_scan_kernel<f32>: (\d+) registers", row)
+        for row in ptxas_rows) if m), None)
+    for n_state in (64, 128, 256):
+        smem = ssd_smem_bytes(n_state)
+        # an SM holds 65536 registers and 228 KiB of shared memory, 1 KiB
+        # of it reserved per block
+        per_sm = "not known" if regs is None else min(
+            65536 // (regs * 256), SMEM_PER_SM // (smem + 1024))
+        print(f"  ssd N={n_state}: {smem} bytes dynamic shared memory per "
+              f"block; {per_sm} scan blocks per SM")
 
     # -- 3. checks ---------------------------------------------------------
     phase("kernel checks")
@@ -612,7 +1061,8 @@ def main() -> int:
         return torch.randn(*shape, generator=gen).to(dev).to(dtype)
 
     errs = {"matmul": 0.0, "triad": 0.0}
-    n_checks = {"matmul": 0, "triad": 0, "flash_attention": 0}
+    n_checks = {"matmul": 0, "triad": 0, "flash_attention": 0,
+                "ssd_chunk_scan": 0}
     m, n, k = GEMM_MAIN
     a, b = randn(m, k), randn(k, n)
     want = matmul_ref(a, b)
@@ -693,6 +1143,18 @@ def main() -> int:
     errs["flash_attention"] = main_errs["bf16"]
     errs["flash_f32_main"] = main_errs["f32"]
     n_checks["flash_attention"] += n_main
+    torch.cuda.empty_cache()
+    ssd_gen = torch.Generator(device="cuda").manual_seed(3)
+    errs["ssd_y"], errs["ssd_state"] = 0.0, 0.0
+    for b_, h_, c_, q_, p_, n_, with_h0 in SSD_CASES:
+        ops = ssd_inputs(ssd_gen, b_, h_, c_, q_, p_, n_, with_h0)
+        ey, eh = ssd_check(f"ssd B={b_} H={h_} S={c_ * q_} Q={q_} P={p_} "
+                           f"N={n_}{' h0' if with_h0 else ''}", ops)
+        errs["ssd_y"], errs["ssd_state"] = (max(errs["ssd_y"], ey),
+                                            max(errs["ssd_state"], eh))
+        n_checks["ssd_chunk_scan"] += 1
+    ssd_grad_check(ssd_inputs(ssd_gen, *SSD_MAIN["zamba2 train"]))
+    n_checks["ssd_chunk_scan"] += 1
     torch.cuda.empty_cache()
 
     # -- 4. timing ---------------------------------------------------------
@@ -814,6 +1276,33 @@ def main() -> int:
           f"checkpointed)")
     del fq, fk, fv, fg, leaves
     torch.cuda.empty_cache()
+    ssd_time = {}
+    for label, shape in SSD_MAIN.items():
+        ops = ssd_inputs(ssd_gen, *shape)
+        ey, eh = ssd_check(f"ssd {label} {shape}", ops)
+        errs["ssd_y"], errs["ssd_state"] = (max(errs["ssd_y"], ey),
+                                            max(errs["ssd_state"], eh))
+        n_checks["ssd_chunk_scan"] += 1
+        xdt, bm, cm, cum, _ = ops
+        cost = ssd_shape_cost(shape)
+        with torch.no_grad():
+            t = {"kernel": cuda_ms(lambda: chunk_scan(
+                     xdt, bm, cm, cum, return_state=True), iters=5, warmup=1),
+                 "plain": cuda_ms(lambda: ssd_chunk_scan_ref(
+                     xdt, bm, cm, cum, return_state=True), iters=2,
+                     warmup=1)}
+        ssd_time[label] = {**t, **cost, "shape": shape}
+        print(f"ssd {label} (B, H, C, Q, P, N)={shape} f32: kernel "
+              f"{t['kernel']:.4f} ms ({cost['flops'] / t['kernel'] / 1e9:.2f} "
+              f"TFLOP/s of the formula's {cost['flops'] / 1e9:.1f} GFLOP, "
+              f"{cost['blocks']} blocks) | bound {cost['bound']:.4f} ms "
+              f"({cost['bound_by']}: needed {cost['needed'] / 1e9:.2f} GFLOP "
+              f"/ 67 TFLOP/s, {cost['bytes'] / 1e9:.3f} GB / 3.35 TB/s; "
+              f"{cost['bound'] / t['kernel']:.1%} of it) | plain "
+              f"{t['plain']:.4f} ms | library: none (no PyTorch call "
+              f"computes the chunk scan)")
+        del ops, xdt, bm, cm, cum
+        torch.cuda.empty_cache()
 
     # -- 5. main path ------------------------------------------------------
     phase("main path")
@@ -890,7 +1379,7 @@ def main() -> int:
 
     # -- 6. model step ------------------------------------------------------
     phase("model step (granite-3-2b, 4 of 40 layers, B=1, S=4096)")
-    step = model_step_path(WORK)
+    step = model_step_path(WORK, MODEL_STEP)
     layers = MODEL_STEP["layers"]
     for flash_on, path in ((0, "plain"), (1, "flash")):
         fastest = min(ms for key, ms in step["step_ms"].items()
@@ -907,9 +1396,28 @@ def main() -> int:
     phase("full-depth step (granite-3-2b, 40 layers, B=1, S=4096)")
     deep = full_depth_step(step["tile"])
 
+    # -- 8. SSM serving ------------------------------------------------------
+    phase("SSM serving (mamba2-130m, 24 layers, 4 x 32768-token prefill, "
+          "32 decode steps)")
+    serving = serving_path()
+    errs["continue"] = decode_continues_prefill()
+
+    # -- 9. hybrid model step -------------------------------------------------
+    phase("hybrid model step (zamba2-2.7b, 6 of 54 layers, B=1, S=4096)")
+    hyb = model_step_path(WORK, HYBRID_STEP)
+    parts = hybrid_layer_parts(hyb["tile"])
+    print(f"one layer's parts alone (CUDA events, ms): SSD kernel forward "
+          f"{parts['ssd_fwd']:.3f}, with its plain backward "
+          f"{parts['ssd_fwd_bwd']:.3f}; shared attention forward + backward "
+          f"{parts['flash_fwd_bwd']:.3f} on the flash path (flash kernel "
+          f"forward {parts['flash_fwd']:.3f}), {parts['plain_attn_fwd_bwd']:.3f}"
+          f" on the plain path")
+    trace = step_trace(HYBRID_STEP, hyb["tile"])
+
     # -- result lines ------------------------------------------------------
     phase("result")
     print(f"total wall {time.perf_counter() - t_start:.1f}s")
+    t_srv, t_hyb = ssd_time["mamba2 serving"], ssd_time["zamba2 train"]
     print(card_line())
     t_dram = triad_ms["dram"]
     print(json.dumps({"kernels": [
@@ -933,7 +1441,10 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:33",
-         "launches": step["launches"],
+         "launches": (step["launches"]["flash_attention"]
+                      + hyb["launches"]["flash_attention"]),
+         "launches_granite_step": step["launches"]["flash_attention"],
+         "launches_zamba2_step": hyb["launches"]["flash_attention"],
          "max_abs_err": errs["flash_attention"],
          "max_abs_err_f32_cases": errs["flash_f32_cases"],
          "max_abs_err_f32_main": errs["flash_f32_main"],
@@ -946,6 +1457,29 @@ def main() -> int:
          "model_step_ms": step["step_ms"][(1, *step["tile"])],
          "full_depth_step_ms": deep["step_ms"],
          "full_depth_peak_gib": deep["peak_gib"]},
+        {"name": "ssd_chunk_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd.cu",
+         "replaces": "src/repro/kernels/ssd/ssd.py:36",
+         "launches": serving["launches"] + hyb["launches"]["ssd_chunk_scan"],
+         "launches_serving": serving["launches"],
+         "launches_zamba2_step": hyb["launches"]["ssd_chunk_scan"],
+         "max_abs_err": errs["ssd_y"], "max_abs_err_state": errs["ssd_state"],
+         "ms": t_srv["kernel"], "plain_ms": t_srv["plain"],
+         "bound_ms": t_srv["bound"], "bound_by": t_srv["bound_by"],
+         "library_ms": None,
+         "library_note": "no single PyTorch call computes the SSD chunk scan",
+         "checks_passed": n_checks["ssd_chunk_scan"],
+         "shape": list(t_srv["shape"]), "dtype": "float32",
+         "bound_flops": t_srv["needed"], "formula_flops": t_srv["flops"],
+         "train_shape": list(t_hyb["shape"]), "train_ms": t_hyb["kernel"],
+         "train_plain_ms": t_hyb["plain"], "train_bound_ms": t_hyb["bound"],
+         "serving_prefill_ms": serving["prefill_ms"],
+         "serving_decode_ms_per_step": serving["decode_ms"],
+         "zamba2_step_ms": {f"use_flash={k[0]} tile=({k[1]}, {k[2]})": ms
+                            for k, ms in hyb["step_ms"].items()},
+         "zamba2_step_trace": {"wall_ms": trace["wall_ms"],
+                               "device_busy_ms": trace["busy_ms"],
+                               "device_ms": trace["parts"]}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,8 +17,9 @@ the two packages measure the same configurations on the same data.
     (bm, bn, bk) tile is the tunable and the score is measured GFLOP/s
     (the JAX package tunes the same tiles against a cost model).
   * ``synthetic`` — an instant quadratic objective for session mechanics.
-  * ``model_step_family`` — a whole-model train step (loss and
-    gradients) as an objective over the flash-attention tiles
+  * ``model_step_family`` — a whole-model step (the train step's loss
+    and gradients, or a prefill or decode step where the family has one)
+    as an objective over the flash-attention tiles
     (:func:`model_step_space`); GFLOP/s over one shared work term.
 
 ``dgemm_benchmark(device)`` and its siblings return the benchmark
@@ -400,16 +401,18 @@ def model_step_family(workload: str,
     """Benchmark family for one whole-model step on ``device``.
 
     ``workload`` names a :mod:`repro_torch.models.workloads` builder
-    (``train_step``); ``arch`` is an architecture name (its SMOKE
-    config), a :class:`ModelConfig` or None (the tiny dense toy). The
-    weights, tokens and work term are built once, at the first config,
-    and shared by every config; each config pre-heats once, at its first
-    invocation. Samples are host-clock GFLOP/s around one step and a
-    ``torch.cuda.synchronize``: a step takes milliseconds, so the tens of
-    microseconds of dispatch and synchronize in each sample (PERF.md)
-    are negligible. ``precompile`` builds
-    the shared workload and, for a flash config on the card, the kernel
-    library, in the tuner's background pipeline.
+    (``train_step``; ``prefill_step`` for the ``ssm`` and ``hybrid``
+    families, ``decode_step`` for ``ssm``); ``arch`` is an architecture
+    name (its SMOKE config), a :class:`ModelConfig` or None (the tiny
+    dense toy). The weights, inputs and work term are built once, at the
+    first config, and shared by every config; each config pre-heats
+    once, at its first invocation. Samples are host-clock GFLOP/s around
+    one step and a ``torch.cuda.synchronize``: a step takes
+    milliseconds, so the tens of microseconds of dispatch and
+    synchronize in each sample (PERF.md) are negligible. ``precompile``
+    builds the shared workload and, on the card, the kernel library for
+    a flash config or a model with SSD layers, in the tuner's background
+    pipeline.
     """
     dev = resolve_device(device)
     sync = synchronizer(dev)
@@ -446,8 +449,9 @@ def model_step_family(workload: str,
         return factory
 
     def precompile(cfg: dict) -> None:
-        base()
-        if cfg.get("use_flash") and dev.type == "cuda":
+        w, _ = base()
+        if dev.type == "cuda" and (cfg.get("use_flash") or w.cfg.family in
+                                   ("ssm", "hybrid")):
             build.library()
 
     bench.precompile = precompile

@@ -9,11 +9,13 @@ executable cache. The library is built from ``csrc/`` at first use
 
 from .flash_attention import attention_ref, flash_attention
 from .matmul import matmul, matmul_ref
+from .ssd import ssd_chunk_scan, ssd_chunk_scan_ref
 from .triad import triad, triad_ref
 
 #: every kernel wrapper of the port (name -> wrapper)
 WRAPPERS = {"matmul": matmul, "triad": triad,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "ssd_chunk_scan": ssd_chunk_scan}
 
 
 def reset_launch_counts() -> None:
@@ -27,5 +29,5 @@ def launch_counts() -> dict[str, int]:
 
 
 __all__ = ["WRAPPERS", "attention_ref", "flash_attention", "launch_counts",
-           "matmul", "matmul_ref", "reset_launch_counts", "triad",
-           "triad_ref"]
+           "matmul", "matmul_ref", "reset_launch_counts",
+           "ssd_chunk_scan", "ssd_chunk_scan_ref", "triad", "triad_ref"]

@@ -4,9 +4,10 @@
 Parameters keep the reference's stacked layout (a leading "layers" axis
 on every block weight); the reference scans over it, the port loops
 over the layers, each optionally checkpointed (``StepConfig.remat``).
-Only the train path of the dense family is ported: MoE, the VLM
-cross-attention stack and prefill/decode raise ``NotImplementedError``
-naming their ``ROADMAP.md`` entry.
+Only the train path of the dense family is ported here: MoE, the VLM
+cross-attention stack and the dense prefill/decode raise
+``NotImplementedError`` naming their ``ROADMAP.md`` entry (the Mamba2
+families live in :mod:`repro_torch.models.hybrid`).
 """
 
 from __future__ import annotations

@@ -3,19 +3,22 @@
 
 A workload is a named callable with concrete example arguments. The
 benchmark layer (:func:`repro_torch.bench.common.model_step_family`)
-turns a train step into a tuning objective whose search space is the
+turns a model step into a tuning objective whose search space is the
 flash-attention tiles of :class:`~repro_torch.models.transformer.StepConfig`.
 
 The work term (:func:`workload_flops`) replaces the reference's
 compiler-reported cost: ``torch.utils.flop_counter.FlopCounterMode``
-counts the matrix products of one step on the plain path
-(``use_flash=0``, no remat) on the ``meta`` device, once per (config,
-batch, sequence). Every tuner config of one model reuses that count, so
-the GFLOP/s the tuner maximizes ranks configs by step time alone; XLA's
-count, by contrast, changes with the implementation it costs.
+counts the matrix products of one call of the workload's own entry
+point (the train step with ``use_flash=0`` and no remat; ``prefill_fn``;
+``decode_fn``) on the ``meta`` device, where every kernel takes its
+plain version, once per (kind, config, batch, sequence). Every tuner
+config of one model reuses that count, so the GFLOP/s the tuner
+maximizes ranks configs by time alone; XLA's count, by contrast,
+changes with the implementation it costs.
 
-Only ``train_step`` and ``dgemm`` are ported; ``prefill_step`` and
-``decode_step`` belong to the serving slice and raise.
+``prefill_step`` is ported for the ``ssm`` and ``hybrid`` families and
+``decode_step`` for ``ssm``; the other families' serving steps belong to
+the serving slice and raise.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from .params import empty_like_defs, materialize
 from .transformer import StepConfig
 
 __all__ = ["ModelWorkload", "TINY_CONFIG", "WORKLOAD_NAMES",
-           "build_workload", "step_flops", "train_step", "workload_flops"]
+           "build_workload", "decode_step", "prefill_step", "step_flops",
+           "train_step", "workload_flops"]
 
 # Small enough to run in milliseconds on the host, big enough that the
 # matrix products dominate.
@@ -60,8 +64,11 @@ PARAM_SEED = 0
 TOKEN_SEED = 1
 
 WORKLOAD_NAMES = ("train_step", "prefill_step", "decode_step", "dgemm")
-_SERVING_TODO = ("{name} is not ported yet (ROADMAP.md, 'Still to port': "
-                 "the serving slice)")
+#: the families whose serving steps are ported, per workload
+_SERVING_FAMILIES = {"prefill_step": ("ssm", "hybrid"),
+                     "decode_step": ("ssm",)}
+_SERVING_TODO = ("{name} of the {family!r} family is not ported yet "
+                 "(ROADMAP.md, 'Still to port': the serving slice)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +78,7 @@ class ModelWorkload:
     and tokens)."""
 
     name: str
-    kind: str                    # train | kernel
+    kind: str                    # train | prefill | decode | kernel
     fn: Callable
     args: tuple
     cfg: Optional[ModelConfig]   # None for raw-kernel workloads (dgemm)
@@ -80,12 +87,13 @@ class ModelWorkload:
     declared_flops: Optional[float] = None  # analytic, when one exists
 
     def with_step(self, step: StepConfig) -> "ModelWorkload":
-        """The same weights and tokens under other execution knobs."""
-        if self.kind != "train":
+        """The same weights and inputs under other execution knobs."""
+        if self.kind not in _STEP_FNS:
             raise ValueError(f"{self.name} has no step config")
         return dataclasses.replace(
             self, step=step,
-            fn=functools.partial(train_step, cfg=self.cfg, step=step))
+            fn=functools.partial(_STEP_FNS[self.kind], cfg=self.cfg,
+                                 step=step))
 
 
 def _leaves(tree: dict) -> list[torch.Tensor]:
@@ -111,6 +119,25 @@ def train_step(params: dict, batch: dict, *, cfg: ModelConfig,
     return loss.detach(), _rebuild(params, iter(grads))
 
 
+def prefill_step(params: dict, batch: dict, *, cfg: ModelConfig,
+                 step: StepConfig) -> tuple[torch.Tensor, dict]:
+    """Last-position logits and the decode cache of a prompt batch."""
+    with torch.no_grad():
+        return api.prefill_fn(params, batch, cfg, step)
+
+
+def decode_step(params: dict, batch: dict, cache: dict, pos, *,
+                cfg: ModelConfig, step: StepConfig
+                ) -> tuple[torch.Tensor, dict]:
+    """Logits of one token per sequence and the advanced cache."""
+    with torch.no_grad():
+        return api.decode_fn(params, batch, cache, pos, cfg, step)
+
+
+_STEP_FNS = {"train": train_step, "prefill": prefill_step,
+             "decode": decode_step}
+
+
 def _tiny_shape(kind: str, batch: int, seq: int) -> WorkloadShape:
     return WorkloadShape(name=f"tiny_{kind}", seq_len=seq,
                          global_batch=batch, kind=kind)
@@ -131,15 +158,28 @@ def _resolve_arch(arch: Union[str, ModelConfig, None]) -> ModelConfig:
     return get_smoke(arch)
 
 
-def _build_train(cfg: ModelConfig, step: StepConfig, batch_size: int,
-                 seq: int, device: torch.device) -> ModelWorkload:
+def _build_step(kind: str, cfg: ModelConfig, step: StepConfig,
+                batch_size: int, seq: int,
+                device: torch.device) -> ModelWorkload:
+    """The ``kind`` step of ``cfg`` on seeded weights: the train step or
+    ``prefill_step`` on (B, S) tokens, or ``decode_step`` of one token per
+    sequence from a zero cache at position 0."""
+    name = f"{kind}_step"
+    if kind != "train" and cfg.family not in _SERVING_FAMILIES[name]:
+        raise NotImplementedError(_SERVING_TODO.format(name=name,
+                                                       family=cfg.family))
     gen = torch.Generator(device=device).manual_seed(PARAM_SEED)
     params = materialize(gen, api.param_defs(cfg))
-    batch = {"tokens": _tokens(batch_size, seq, cfg.vocab_size, device)}
-    return ModelWorkload(name="train_step", kind="train",
-                         fn=functools.partial(train_step, cfg=cfg, step=step),
-                         args=(params, batch), cfg=cfg, step=step,
-                         shape=_tiny_shape("train", batch_size, seq))
+    shape = _tiny_shape(kind, batch_size, seq)
+    tokens = _tokens(batch_size, 1 if kind == "decode" else seq,
+                     cfg.vocab_size, device)
+    args: tuple = (params, {"tokens": tokens})
+    if kind == "decode":
+        args += (api.cache_init(cfg, shape, device), 0)
+    return ModelWorkload(name=name, kind=kind,
+                         fn=functools.partial(_STEP_FNS[kind], cfg=cfg,
+                                              step=step),
+                         args=args, cfg=cfg, step=step, shape=shape)
 
 
 def _build_dgemm(m: int, n: int, k: int,
@@ -173,32 +213,39 @@ def build_workload(name: str, arch: Union[str, ModelConfig, None] = None,
     dev = resolve_device(device)
     if name == "dgemm":
         return _build_dgemm(m, n, k, dev)
-    if name != "train_step":
-        raise NotImplementedError(_SERVING_TODO.format(name=name))
-    return _build_train(_resolve_arch(arch), step or StepConfig(remat=False),
-                        batch_size, seq_len, dev)
+    return _build_step(name[:-len("_step")], _resolve_arch(arch),
+                       step or StepConfig(remat=False), batch_size, seq_len,
+                       dev)
 
 
 @functools.lru_cache(maxsize=None)
-def step_flops(cfg: ModelConfig, batch_size: int, seq_len: int) -> float:
-    """Matrix-product FLOPs of one train step of ``cfg`` on the plain
-    path (``use_flash=0``, no remat), counted on the ``meta`` device."""
+def step_flops(cfg: ModelConfig, batch_size: int, seq_len: int,
+               kind: str = "train") -> float:
+    """Matrix-product FLOPs of one ``kind`` step of ``cfg`` (train: the
+    plain path, ``use_flash=0``, no remat; prefill: ``prefill_fn`` over
+    (B, S) tokens; decode: ``decode_fn`` of one token from a zero cache),
+    counted on the ``meta`` device."""
     meta = torch.device("meta")
     params = empty_like_defs(api.param_defs(cfg), meta)
-    tokens = torch.empty((batch_size, seq_len), dtype=torch.int64,
-                         device=meta)
+    step = StepConfig(use_flash=False, remat=False)
+    tokens = torch.empty((batch_size, 1 if kind == "decode" else seq_len),
+                         dtype=torch.int64, device=meta)
+    args: tuple = (params, {"tokens": tokens})
+    if kind == "decode":
+        shape = _tiny_shape(kind, batch_size, seq_len)
+        args += (api.cache_init(cfg, shape, meta), 0)
     with FlopCounterMode(display=False) as counter:
-        train_step(params, {"tokens": tokens}, cfg=cfg,
-                   step=StepConfig(use_flash=False, remat=False))
+        _STEP_FNS[kind](*args, cfg=cfg, step=step)
     return float(counter.get_total_flops())
 
 
 def workload_flops(workload: ModelWorkload) -> float:
     """The work term of one call: the analytic count of a kernel
-    workload, or the matrix-product FLOPs of one train step on the plain
-    path, counted once per (config, batch, sequence) on the ``meta``
-    device and shared by every step config."""
+    workload, or the matrix-product FLOPs of one call of the workload's
+    own step, counted once per (kind, config, batch, sequence) on the
+    ``meta`` device and shared by every step config."""
     if workload.declared_flops is not None:
         return workload.declared_flops
     shape = workload.shape
-    return step_flops(workload.cfg, shape.global_batch, shape.seq_len)
+    return step_flops(workload.cfg, shape.global_batch, shape.seq_len,
+                      workload.kind)

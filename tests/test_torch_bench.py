@@ -98,7 +98,7 @@ def test_gemm_tiled_benchmark_tunes_on_the_host(monkeypatch):
     assert {(a, b) for a, b, _ in shapes} == {((128, 32), (32, 96))}
     assert len({i for _, _, i in shapes}) == 1
     assert launch_counts() == {"matmul": 0, "triad": 0,
-                               "flash_attention": 0}
+                               "flash_attention": 0, "ssd_chunk_scan": 0}
 
 
 def test_exec_cache_resolves_each_tile_once():
@@ -132,7 +132,7 @@ def test_benchmarks_run_on_the_host_without_launches():
         common.dgemm_benchmark("cpu"))
     assert tri.best_score > 0 and dg.best_score > 0
     assert launch_counts() == {"matmul": 0, "triad": 0,
-                               "flash_attention": 0}
+                               "flash_attention": 0, "ssd_chunk_scan": 0}
 
 
 def _tune_cli(tmp_path, *args, env_extra=None):
@@ -150,7 +150,7 @@ def test_cli_synthetic_session_resumes(tmp_path):
     assert first.returncode == 0, first.stderr
     assert "best      : {'x': 7}  score=100.0" in first.stdout
     assert "fingerprint: cpu:" in first.stdout
-    assert ("kernels   : flash_attention=0  matmul=0  triad=0 launches"
+    assert ("kernels   : flash_attention=0  matmul=0  ssd_chunk_scan=0  triad=0 launches"
             in first.stdout)
     again = _tune_cli(tmp_path, *args)
     assert again.returncode == 0, again.stderr

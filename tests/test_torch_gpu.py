@@ -1,6 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version on the card, the flash kernel's gradients, and tuning sessions
-through the kernels.
+version on the card, the flash and SSD kernels' gradients, a mamba2
+prefill through the SSD kernel, and tuning sessions through the kernels.
 
 Marked ``gpu``; each skips from inside the ``card`` fixture when no card
 is visible, so every worker collects the same tests. Run them on a
@@ -86,6 +86,7 @@ FLASH_CASES = [  # (b, hq, hkv, s, d, causal, window)
     (1, 4, 2, 100, 16, True, None),
     (1, 4, 2, 300, 128, True, None),
     (1, 2, 1, 300, 256, True, 64),
+    (1, 4, 4, 300, 80, True, 96),
 ]
 
 
@@ -143,3 +144,83 @@ def test_model_step_session_goes_through_the_flash_kernel(card):
                           seq_len=256))
     assert len(result.trials) == 8 and result.best_score > 0
     assert flash_attention.launches > before
+
+
+SSD_CASES = [  # (B, H, C, Q, P, N, with h0)
+    (2, 3, 4, 16, 8, 16, False),
+    (1, 1, 3, 8, 4, 4, True),
+    (1, 4, 3, 100, 64, 128, True),
+    (1, 2, 2, 70, 80, 256, False),
+    (1, 3, 2, 130, 33, 5, True),
+    (2, 4, 2, 256, 64, 128, False),
+]
+
+
+def _ssd_inputs(gen, b, h, c, q, p, n, with_h0, device):
+    xdt = _randn(gen, b, h, c, q, p, dtype=torch.float32, device=device)
+    bm = _randn(gen, b, c, q, n, dtype=torch.float32, device=device)
+    cm = _randn(gen, b, c, q, n, dtype=torch.float32, device=device)
+    step = 0.01 + 0.19 * torch.rand((b, h, c, q), generator=gen)
+    cum = torch.cumsum(-step, dim=-1).to(device)
+    h0 = _randn(gen, b, h, p, n, dtype=torch.float32, device=device) \
+        if with_h0 else None
+    return 0.5 * xdt, 0.5 * bm, 0.5 * cm, cum, h0
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_ssd_kernel_matches_plain_on_card(card, case):
+    """y and the final state within the reference tests' 2e-5, scaled by
+    the outputs' magnitude (f32 sums in another order)."""
+    from repro_torch.kernels.ssd import (chunk_scan, ssd_chunk_scan,
+                                         ssd_chunk_scan_ref)
+    gen = torch.Generator().manual_seed(sum(case[:6]))
+    xdt, bm, cm, cum, h0 = _ssd_inputs(gen, *case, device=card)
+    want = ssd_chunk_scan_ref(xdt, bm, cm, cum, h0=h0, return_state=True)
+    before = ssd_chunk_scan.launches
+    got = chunk_scan(xdt, bm, cm, cum, h0=h0, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_chunk_scan.launches == before + 1
+    for g, w in zip(got, want):
+        scale = max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5 * scale)
+
+
+def test_ssd_gradients_equal_the_plain_version_on_card(card):
+    from repro_torch.kernels.ssd import chunk_scan, ssd_chunk_scan_ref
+    gen = torch.Generator().manual_seed(11)
+    ops = _ssd_inputs(gen, 1, 4, 3, 64, 32, 16, False, card)[:4]
+    g = _randn(gen, 1, 4, 3, 64, 32, dtype=torch.float32, device=card)
+    leaves = [t.clone().requires_grad_() for t in ops]
+    got = torch.autograd.grad(chunk_scan(*leaves), leaves, g)
+    leaves = [t.clone().requires_grad_() for t in ops]
+    want = torch.autograd.grad(ssd_chunk_scan_ref(*leaves), leaves, g)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)      # the backward is the plain math
+
+
+def test_mamba2_prefill_goes_through_the_ssd_kernel(card):
+    """The SMOKE mamba2's prefill on the card launches the kernel once per
+    layer and matches the same prefill on the host (plain version)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.ssd import ssd_chunk_scan
+    from repro_torch.models import api
+    from repro_torch.models.params import map_tree, materialize
+    from repro_torch.models.transformer import StepConfig
+    cfg = get_smoke("mamba2_130m")
+    params = materialize(torch.Generator().manual_seed(0),
+                         api.param_defs(cfg))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    step = StepConfig(remat=False)
+    want_logits, want = api.prefill_fn(params, {"tokens": tokens}, cfg, step)
+    on_card = map_tree(lambda _, t: t.to(card), params)
+    before = ssd_chunk_scan.launches
+    logits, cache = api.prefill_fn(on_card, {"tokens": tokens.to(card)}, cfg,
+                                   step)
+    torch.cuda.synchronize()
+    assert ssd_chunk_scan.launches == before + cfg.n_layers
+    torch.testing.assert_close(logits.cpu(), want_logits, rtol=1e-4,
+                               atol=1e-4)
+    for key in ("ssm", "conv"):
+        torch.testing.assert_close(cache[key].cpu(), want[key], rtol=1e-4,
+                                   atol=1e-4)

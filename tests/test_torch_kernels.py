@@ -124,7 +124,7 @@ def test_cpu_calls_launch_nothing():
     triad(a[0], a[1])
     triad.resolve((a[0], a[1]), gamma=2.0)(a[0], a[1])
     assert launch_counts() == {"matmul": 0, "triad": 0,
-                               "flash_attention": 0}
+                               "flash_attention": 0, "ssd_chunk_scan": 0}
 
 
 def test_triad_ref_is_the_plain_formula():

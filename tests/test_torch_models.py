@@ -73,7 +73,7 @@ def test_registry_behaves_like_the_reference():
     assert _fields(TINY_CONFIG) == _fields(JAX_TINY)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ["mamba2_130m", "zamba2_2_7b"])
 def test_dense_param_counts_equal_the_reference(arch):
     assert configs.get(arch).n_params() == jax_configs.get(arch).n_params()
     assert configs.get_smoke(arch).n_params() == \
@@ -81,7 +81,8 @@ def test_dense_param_counts_equal_the_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["mixtral_8x22b", "whisper_base",
-                                  "mamba2_130m", "llama_3_2_vision_11b"])
+                                  "granite_moe_1b_a400m",
+                                  "llama_3_2_vision_11b"])
 def test_unported_families_raise_naming_the_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs.get_smoke(arch).n_params()
