@@ -10,7 +10,10 @@ run when it fails:
 1. card      — ``nvidia-smi`` name and power limit; torch, CUDA, nvcc.
 2. build     — compile the CUDA kernels for sm_90a; print the seconds,
                every kernel's registers, spills and static shared memory,
-               and the dynamic shared memory of the flash and SSD blocks.
+               the kernels that spill, and the dynamic shared memory of
+               the GEMM, flash (both kernels, every bf16 tile) and SSD
+               blocks; the library's bf16 flash tile table must be the
+               wrapper's.
 3. checks    — each kernel against its plain PyTorch version on the card:
                GEMM at every tile of the table at 4096x2048x6144 f32 and
                at 300x450x200 and 1024x256x128 in f32 and bf16; TRIAD at
@@ -19,10 +22,12 @@ run when it fails:
                length of the ``triad --full`` ladder in f32; flash
                attention on the cases of ``tests/test_kernels.py`` and
                at every head dim the configs use, each at every (bq, bk)
-               of the full model-step space, then at the model step's
+               of the full model-step space (bf16 on the tensor-core
+               kernel, which must run every compiled physical tile; f32
+               on the CUDA cores), then at the model step's
                shape (B=1, H=32, Hkv=8, S=4096, D=64, causal) at each
-               tile of the quick space, in bf16 within about two bf16
-               ulps and in f32 within 1e-5 (FLASH_MAIN_TOL), and its
+               tile of the quick space, in bf16 and in f32 within
+               FLASH_MAIN_TOL, and its
                autograd gradients against the plain version's (exact:
                the backward is the plain math); the SSD chunk scan's y
                and final state on SSD_CASES (the cases of
@@ -37,7 +42,10 @@ run when it fails:
                replayed from a CUDA graph (device time without the host's
                dispatch); the host cost of one tuner sample at
                n = 1024, split into the wrapper's dispatch and the
-               sampler's synchronize; attention forward + backward at
+               sampler's synchronize; the flash kernel at each quick tile
+               beside scaled_dot_product_attention, its f32 route, and
+               zamba2-2.7b's D = 80 at each quick tile (checked first);
+               attention forward + backward at
                the model step's shape on the flash and plain paths; the
                SSD kernel at SSD_MAIN (mamba2-130m serving, zamba2-2.7b
                train), checked first, beside its bound and its plain
@@ -47,7 +55,8 @@ run when it fails:
                ``gemm_tiled --report``, then the roofline-model bench with
                its cache (4 MiB) and DRAM (256 MiB) TRIAD sizes, which on
                a card tunes DGEMM over the same 16 random configs of the
-               full space as the ``dgemm --full`` session; the
+               full space as the ``dgemm --full`` session; gemm_tiled
+               must tune all 12 tiles; the
                rendered roofline must hold a DGEMM F_p within
                F_P_AGREEMENT of the ``dgemm --full`` session's and at
                least two TRIAD subsystems, and both kernels must have
@@ -58,10 +67,13 @@ run when it fails:
                width (d_model 2048, 32 heads, 8 kv heads, d_ff 8192,
                vocab 49155, bf16), depth cut from 40 to 4 layers, B=1,
                S=4096 (the ``train_4k`` sequence). All 8 trials, a finite
-               best score and flash launches are required, and the
+               best score and flash launches, all on the tensor-core
+               kernel, are required, and the
                4-layer loss with ``use_flash=1`` must match
                ``use_flash=0`` on the same weights within
-               MODEL_STEP["loss_rtol"].
+               MODEL_STEP["loss_rtol"]; then the same in float32 (the
+               f32 flash kernel, one launch a layer) within
+               MODEL_STEP["f32_loss_rtol"].
 7. full depth — one granite-3-2b train step at all 40 layers, B=1,
                S=4096, ``use_flash=1`` at the tuner's best flash tiles:
                loss and gradients finite; step time and peak memory.
@@ -86,7 +98,9 @@ run when it fails:
 Each phase prints its seconds.
 
 The last three lines are the card line, one ``{"kernels": [...]}`` JSON
-object and ``{"ok": true, "device": {...}}``. Without a card, or outside
+object (flash attention split by route: ``flash_attention`` the bf16
+tensor-core kernel, ``flash_attention_f32`` the CUDA-core one) and
+``{"ok": true, "device": {...}}``. Without a card, or outside
 a checkout, the script exits non-zero and prints neither.
 """
 
@@ -121,10 +135,12 @@ FLASH_TOL = {"f32": {"rtol": 2e-5, "atol": 2e-5},   # tests/test_kernels.py
              "bf16": {"rtol": 3e-2, "atol": 3e-2}}
 # At FLASH_MAIN an output element of unit-normal q, k, v is about 0.03, as
 # large as the test tolerance above, so the main shape gets limits from the
-# rounding instead: kernel and plain version both compute in f32 and round
-# once to bf16, so they differ by at most about one bf16 ulp (2**-8
-# relative; rtol 1.6e-2 is two); f32 orders its sums differently only.
-# A kv sub-tile dropped or misweighted at long S moves outputs by ~1e-3.
+# rounding instead: the plain version computes in f32 and rounds once to
+# bf16; the tensor-core kernel also rounds P to bf16 before P V (its max
+# abs error there reads 7.8e-3 to 1.6e-2 on an H100, by the seeded draw,
+# against 1.95e-3 for the CUDA-core kernel, PERF.md), within two bf16 ulps
+# (2**-8 relative; rtol 1.6e-2) plus atol 4e-3; f32 orders its sums differently only. A kv sub-tile dropped or
+# misweighted at long S moves outputs by ~1e-3.
 FLASH_MAIN_TOL = {"f32": {"rtol": 1e-5, "atol": 1e-5},
                   "bf16": {"rtol": 1.6e-2, "atol": 4e-3}}
 #: (b, hq, hkv, s, d, causal, window, dtype): the flash cases of
@@ -140,18 +156,27 @@ FLASH_CASES = (
     + [(1, 4, 2, 300, d, True, None, dt) for d in (16, 128)
        for dt in ("f32", "bf16")]
     + [(1, 2, 1, 300, 256, True, 64, dt) for dt in ("f32", "bf16")]
-    + [(1, 4, 4, 300, 80, True, 96, dt) for dt in ("f32", "bf16")])
-# The flash and plain attention outputs are each rounded to bf16, so they
-# differ by about one bf16 ulp (2**-8 relative) in some elements; through 4
-# random-weight layers that moves the loss by about 2e-6 relative on an
-# H100 (PERF.md). A kernel wrong in one layer or a share of rows moves it
+    + [(1, 4, 4, 300, 80, True, 96, dt) for dt in ("f32", "bf16")]
+    + [(1, 4, 2, 300, 32, True, 96, "bf16"),
+       (2, 8, 2, 256, 64, False, None, "bf16")])
+# In float32 the flash kernel (CUDA cores) and the plain attention differ by
+# the order of their f32 sums only (1e-6 relative per element at most at
+# the main shape, FLASH_MAIN_TOL); through 4 layers that is far below the
+# limit, which a kernel wrong in one layer or a share of rows exceeds.
+F32_LOSS_RTOL = 1e-5
+# The flash and plain attention outputs are each rounded to bf16, and the
+# tensor-core kernel rounds P to bf16 too, so they differ by about one bf16
+# ulp (2**-8 relative) in some elements; through 4 random-weight layers
+# that moves the loss by 6.7e-6 to 1.1e-5 relative on an H100 (by the kv
+# tile, PERF.md). A kernel wrong in one layer or a share of rows moves it
 # by more than the limit.
 MODEL_STEP = {"arch": "granite_3_2b", "layers": 4, "batch": 1, "seq": 4096,
-              "loss_rtol": 1e-4}
+              "loss_rtol": 1e-4, "f32_loss_rtol": F32_LOSS_RTOL}
 #: zamba2-2.7b's train step: full width, depth cut from 54 layers to one
 #: group of attn_every = 6 Mamba2 layers and one use of the shared block.
-#: Its one flash layer moves the loss by 1.14e-6 relative on an H100
-#: (PERF.md, PR 13); the limit is about 9x that.
+#: Its one flash layer moves the loss by 3.8e-6 to 5.0e-6 relative on an
+#: H100 with the tensor-core kernel (by the kv tile; 1.14e-6 with the
+#: CUDA-core kernel, PERF.md); the limit is twice that.
 HYBRID_STEP = {"arch": "zamba2_2_7b", "layers": 6, "batch": 1, "seq": 4096,
                "loss_rtol": 1e-5}
 #: mamba2-130m serving: full width and depth, the prefill_32k prompt
@@ -388,15 +413,21 @@ def launch_checked(wrapper, call):
 
 
 def flash_case_checks(randn) -> tuple[int, float]:
-    """The flash kernel against ``attention_ref`` on every case of
-    FLASH_CASES, each at every (bq, bk) of the full model-step space.
-    Returns (checks, max abs err over the f32 cases)."""
+    """The flash kernels against ``attention_ref`` on every case of
+    FLASH_CASES, each at every (bq, bk) of the full model-step space: the
+    bf16 cases on the tensor-core kernel, which must have run every
+    compiled physical tile of every head dim, the f32 cases on the CUDA
+    cores. Returns (checks, max abs err over the f32 cases)."""
     import torch
     from repro_torch.bench.common import model_step_space
-    from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention)
+    from repro_torch.kernels.flash_attention import (SM90_TILES,
+                                                     attention_ref,
+                                                     flash_attention,
+                                                     padded_blocks,
+                                                     physical_tile)
     tiles = sorted({(c["flash_block_q"], c["flash_block_k"])
                     for c in model_step_space(False).configs()})
+    ran = {d: set() for d in SM90_TILES}   # physical tiles run, bf16
     checks, worst_f32 = 0, 0.0
     for b, hq, hkv, s, d, causal, window, dt in FLASH_CASES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
@@ -404,16 +435,29 @@ def flash_case_checks(randn) -> tuple[int, float]:
         want = attention_ref(q, k, v, causal=causal, window=window)
         label = (f"flash b={b} h={hq}/{hkv} s={s} d={d} causal={causal} "
                  f"window={window} {dt}")
+        route = "tensor_cores" if dt == "bf16" else "cuda_cores"
         worst = 0.0
         for bq, bk in tiles:
+            routed = flash_attention.route_launches[route]
             got = launch_checked(flash_attention, lambda: flash_attention(
                 q, k, v, causal=causal, window=window, bq=bq, bk=bk))
+            if flash_attention.route_launches[route] != routed + 1:
+                fail(f"{label}: the {route} kernel did not launch")
             worst = max(worst, check_close(f"{label} tile ({bq}, {bk})", got,
                                            want, FLASH_TOL[dt]))
             checks += 1
+            if dt == "bf16":
+                bq_, bk_, _ = padded_blocks(s, bq, bk)
+                ran[d].add(physical_tile(bq_, bk_, SM90_TILES[d]))
         if dt == "f32":
             worst_f32 = max(worst_f32, worst)
         print(f"{label}: {len(tiles)} tiles ok, max abs err {worst:.3e}")
+    for d, compiled in SM90_TILES.items():
+        if ran[d] != set(compiled):
+            fail(f"flash bf16 d={d}: the cases ran physical tiles "
+                 f"{sorted(ran[d])}, not every compiled one {compiled}")
+    print(f"flash bf16: every compiled (head dim, physical tile) checked: "
+          f"{sum(map(len, ran.values()))} kernels")
     return checks, worst_f32
 
 
@@ -535,6 +579,7 @@ def model_step_path(work: pathlib.Path, spec: dict) -> dict:
     result = session.run()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    routes = dict(kernels.flash_attention.route_launches)
     del session
     if len(result.trials) != 8:
         fail(f"model step: {len(result.trials)} trials recorded, want 8")
@@ -561,7 +606,11 @@ def model_step_path(work: pathlib.Path, spec: dict) -> dict:
             fail(f"model step {t.config}: the SSD kernel never launched")
     print(f"model step: best {result.best_config} score "
           f"{result.best_score:.1f} GFLOP/s; session wall {wall:.1f}s; "
-          f"launches {launches}")
+          f"launches {launches}; flash per route {routes}")
+    if routes != {"tensor_cores": launches["flash_attention"],
+                  "cuda_cores": 0}:
+        fail(f"model step ({cfg.dtype}): flash launches {routes} did not all "
+             f"go through the tensor-core kernel")
     flash = [t for t in result.trials if t.config["use_flash"]]
     best = max(flash, key=lambda t: (not t.result.pruned, t.result.score))
     tile = (best.config["flash_block_q"], best.config["flash_block_k"])
@@ -585,8 +634,55 @@ def model_step_path(work: pathlib.Path, spec: dict) -> dict:
     del w
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "tile": tile, "step_ms": step_ms,
-            "best": result.best_config, "wall": wall, "loss_rel": rel}
+    out = {"launches": launches, "routes": routes, "tile": tile,
+           "step_ms": step_ms, "best": result.best_config, "wall": wall,
+           "loss_rel": rel}
+    if "f32_loss_rtol" in spec:
+        out.update(f32_loss(cfg, b, s, tile, spec["f32_loss_rtol"]))
+    return out
+
+
+def f32_loss(cfg, b: int, s: int, tile: tuple[int, int], rtol: float
+             ) -> dict:
+    """The same step in float32 (weights, activations, attention): the
+    loss with ``use_flash=1``, which runs the f32 flash kernel on the CUDA
+    cores, against ``use_flash=0`` within ``rtol``. Returns the relative
+    difference and the f32 kernel's launches in these two steps."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models.transformer import StepConfig
+    from repro_torch.models.workloads import build_workload
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    w = build_workload("train_step", cfg, batch_size=b, seq_len=s)
+    before = dict(kernels.flash_attention.route_launches)
+    losses = {}
+    for label, step in (("plain", StepConfig(remat=False)),
+                        ("flash", StepConfig(use_flash=True,
+                                             flash_block_q=tile[0],
+                                             flash_block_k=tile[1],
+                                             remat=False))):
+        losses[label] = float(w.with_step(step).fn(*w.args)[0])
+    torch.cuda.synchronize()
+    after = kernels.flash_attention.route_launches
+    f32_launches = after["cuda_cores"] - before["cuda_cores"]
+    rel = abs(losses["flash"] / losses["plain"] - 1.0)
+    print(f"{cfg.n_layers}-layer loss in float32: use_flash=1 "
+          f"{losses['flash']:.7f} vs use_flash=0 {losses['plain']:.7f} "
+          f"(relative {rel:.3e}, tol {rtol}); f32 flash kernel launches "
+          f"{f32_launches}")
+    if not (math.isfinite(rel) and rel <= rtol):
+        fail(f"model step f32: flash loss {losses['flash']} vs plain "
+             f"{losses['plain']}")
+    if f32_launches != cfg.n_layers or \
+            after["tensor_cores"] != before["tensor_cores"]:
+        fail(f"model step f32: flash launches per route went from {before} "
+             f"to {dict(after)}, want {cfg.n_layers} on the CUDA cores")
+    del w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"f32_loss_rel": rel, "f32_launches": f32_launches}
 
 
 def full_depth_step(tile: tuple[int, int]) -> dict:
@@ -925,7 +1021,8 @@ def step_trace(spec: dict, tile: tuple[int, int]) -> dict:
     parts = {"ssd kernel": named("ssd_scores_kernel",
                                  "ssd_chunk_scan_kernel"),
              "ssd plain backward": under("_ChunkScanBackward"),
-             "flash kernel": named("flash_attention_kernel"),
+             "flash kernel": named("flash_attention_kernel",
+                                   "flash_attention_sm90_kernel"),
              "attention plain backward": under("_FlashAttentionBackward")}
     parts["rest"] = busy - sum(parts.values())
     print(f"{cfg.name}, {cfg.n_layers} layers, use_flash=1 tile {tile}: "
@@ -1004,9 +1101,12 @@ def main() -> int:
     from repro_torch.bench.common import triad_length, triad_sizes
     from repro_torch.kernels import build
     from repro_torch.kernels.matmul import TILES, matmul, matmul_ref
-    from repro_torch.kernels.flash_attention import (attention_ref,
+    from repro_torch.kernels.matmul import smem_bytes as gemm_smem_bytes
+    from repro_torch.kernels.flash_attention import (SM90_TILES,
+                                                     attention_ref,
                                                      bytes_moved,
-                                                     flash_attention)
+                                                     flash_attention,
+                                                     sm90_smem_bytes)
     from repro_torch.kernels.flash_attention import flops as flash_flops
     from repro_torch.kernels.flash_attention import \
         smem_bytes as flash_smem_bytes
@@ -1038,9 +1138,24 @@ def main() -> int:
             print("  " + row)
     limit = getattr(torch.cuda.get_device_properties(0),
                     "shared_memory_per_block_optin", "not reported")
+    spills = [row for row in ptxas_rows
+              if not re.search(r", 0 bytes spill stores", row)]
+    print(f"  kernels that spill: {spills or 'none'}")
     for d in sorted({case[4] for case in FLASH_CASES}):
-        print(f"  flash d={d}: {flash_smem_bytes(d)} bytes dynamic shared "
-              f"memory per block (opt-in limit {limit})")
+        print(f"  flash f32 d={d}: {flash_smem_bytes(d)} bytes dynamic "
+              f"shared memory per block (opt-in limit {limit})")
+    table = (ctypes.c_int * 300)()
+    n_tiles = build.library().rt_flash_attention_sm90_tiles(table, 100)
+    compiled = {tuple(table[3 * i:3 * i + 3]) for i in range(n_tiles)}
+    if compiled != {(d, qt, kt) for d, tiles in SM90_TILES.items()
+                    for qt, kt in tiles}:
+        fail(f"the library's bf16 flash tiles {sorted(compiled)} are not "
+             f"the wrapper's SM90_TILES")
+    for d, tiles in SM90_TILES.items():
+        print(f"  flash bf16 d={d}: dynamic shared memory per block " + ", ".join(
+            f"{qt}x{kt} {sm90_smem_bytes(d, qt, kt)}" for qt, kt in tiles))
+    print("  matmul f32: dynamic shared memory per block " + ", ".join(
+        f"{'x'.join(map(str, t))} {gemm_smem_bytes(*t)}" for t in TILES))
     regs = next((int(m.group(1)) for m in (re.search(
         r"^ssd_chunk_scan_kernel<f32>: (\d+) registers", row)
         for row in ptxas_rows) if m), None)
@@ -1260,7 +1375,53 @@ def main() -> int:
           f"bytes {flash['bytes'] / 1e6:.1f} MB / 3.35 TB/s = "
           f"{flash['bytes'] / HBM_PEAK * 1e3:.4f} ms) | plain "
           f"{flash['plain']:.4f} ms | scaled_dot_product_attention "
-          f"{flash['library']:.4f} ms")
+          f"{flash['library']:.4f} ms (kernel / library "
+          f"{flash['kernel'] / flash['library']:.3f})")
+    f32_ops = [x.float() for x in (fq, fk, fv)]
+    want = attention_ref(*f32_ops, causal=True)
+    errs["flash_f32_main"] = max(errs["flash_f32_main"], check_close(
+        f"flash {FLASH_MAIN} f32 tile {flash_tile}", flash_attention(
+            *f32_ops, causal=True, bq=flash_tile[0], bk=flash_tile[1]),
+        want, FLASH_MAIN_TOL["f32"]))
+    del want
+    flash32 = {
+        "kernel": cuda_ms(lambda: flash_attention(
+            *f32_ops, causal=True, bq=flash_tile[0], bk=flash_tile[1]),
+            iters=3, warmup=1),
+        "plain": cuda_ms(lambda: attention_ref(*f32_ops, causal=True),
+                         iters=2, warmup=1),
+        "library": cuda_ms(lambda: torch.nn.functional
+                           .scaled_dot_product_attention(
+                               *f32_ops, is_causal=True, enable_gqa=True),
+                           iters=5, warmup=1),
+        "bound": max(flash["flops"] / F32_PEAK,
+                     2 * flash["bytes"] / HBM_PEAK) * 1e3}
+    print(f"flash {FLASH_MAIN} f32 causal (CUDA cores): kernel "
+          f"{flash32['kernel']:.4f} ms (tile {flash_tile}, "
+          f"{flash['flops'] / flash32['kernel'] / 1e9:.2f} TFLOP/s) | bound "
+          f"{flash32['bound']:.4f} ms (FLOPs / 67 TFLOP/s) | plain "
+          f"{flash32['plain']:.4f} ms | scaled_dot_product_attention "
+          f"{flash32['library']:.4f} ms")
+    del f32_ops
+    # zamba2-2.7b's shared attention: D = 80, window 4096 = S
+    d80 = [randn(1, 32, 4096, 80, dtype=torch.bfloat16) for _ in range(3)]
+    want = attention_ref(*d80, causal=True, window=4096)
+    flash_d80 = {}
+    for tile in quick_tiles:
+        errs["flash_attention"] = max(errs["flash_attention"], check_close(
+            f"flash (1, 32, 4096, 80) bf16 window 4096 tile {tile}",
+            flash_attention(*d80, causal=True, window=4096, bq=tile[0],
+                            bk=tile[1]), want, FLASH_MAIN_TOL["bf16"]))
+        n_checks["flash_attention"] += 1
+        flash_d80[tile] = cuda_ms(lambda t=tile: flash_attention(
+            *d80, causal=True, window=4096, bq=t[0], bk=t[1]), iters=10)
+    del want
+    d80_lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        *d80, is_causal=True), iters=10)
+    print("flash (1, 32, 4096, 80) bf16 causal, window 4096: " + " | ".join(
+        f"tile {t} {ms:.4f} ms" for t, ms in flash_d80.items())
+        + f" | scaled_dot_product_attention {d80_lib:.4f} ms")
+    del d80
     leaves = [t.detach().requires_grad_() for t in (fq, fk, fv)]
     attn_fb = {
         "flash": cuda_ms(lambda: torch.autograd.grad(flash_attention(
@@ -1324,6 +1485,10 @@ def main() -> int:
             launches[key] += counts.get(key, 0)
     if "peak compute F_p (dgemm)" not in runs["gemm_tiled"][0]:
         fail("gemm_tiled --report rendered no roofline")
+    m = re.search(r"^trials    : (\d+)", runs["gemm_tiled"][0], re.M)
+    if m is None or int(m.group(1)) != len(TILES):
+        fail(f"gemm_tiled tuned {m and m.group(1)} tiles, want all "
+             f"{len(TILES)} (the card's opt-in shared-memory limit)")
 
     print("$ repro_torch.bench.roofline_model (cache 4 MiB, dram 256 MiB)",
           flush=True)
@@ -1439,24 +1604,38 @@ def main() -> int:
          "library_ms": t_dram["library"], "checks_passed": n_checks["triad"],
          "n": t_dram["n"], "dtype": "float32"},
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:33",
-         "launches": (step["launches"]["flash_attention"]
-                      + hyb["launches"]["flash_attention"]),
-         "launches_granite_step": step["launches"]["flash_attention"],
-         "launches_zamba2_step": hyb["launches"]["flash_attention"],
+         "launches": (step["routes"]["tensor_cores"]
+                      + hyb["routes"]["tensor_cores"]),
+         "launches_granite_step": step["routes"]["tensor_cores"],
+         "launches_zamba2_step": hyb["routes"]["tensor_cores"],
          "max_abs_err": errs["flash_attention"],
-         "max_abs_err_f32_cases": errs["flash_f32_cases"],
-         "max_abs_err_f32_main": errs["flash_f32_main"],
          "ms": flash["kernel"],
          "plain_ms": flash["plain"], "bound_ms": flash["bound"],
          "bound_by": "operations", "library_ms": flash["library"],
          "checks_passed": n_checks["flash_attention"],
          "shape": list(FLASH_MAIN), "tile": list(flash_tile),
-         "dtype": "bfloat16", "causal": True,
+         "tile_ms": {f"{t[0]}x{t[1]}": ms for t, ms in flash_ms.items()},
+         "d80_tile_ms": {f"{t[0]}x{t[1]}": ms
+                         for t, ms in flash_d80.items()},
+         "d80_library_ms": d80_lib,
+         "dtype": "bfloat16", "causal": True, "tensor_cores": True,
          "model_step_ms": step["step_ms"][(1, *step["tile"])],
          "full_depth_step_ms": deep["step_ms"],
          "full_depth_peak_gib": deep["peak_gib"]},
+        {"name": "flash_attention_f32", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:33",
+         "launches": step["f32_launches"],
+         "launches_granite_f32_step": step["f32_launches"],
+         "max_abs_err": errs["flash_f32_main"],
+         "max_abs_err_f32_cases": errs["flash_f32_cases"],
+         "ms": flash32["kernel"], "plain_ms": flash32["plain"],
+         "bound_ms": flash32["bound"], "bound_by": "operations",
+         "library_ms": flash32["library"], "shape": list(FLASH_MAIN),
+         "tile": list(flash_tile), "dtype": "float32", "causal": True,
+         "tensor_cores": False, "f32_loss_rel": step["f32_loss_rel"]},
         {"name": "ssd_chunk_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd.cu",
          "replaces": "src/repro/kernels/ssd/ssd.py:36",

@@ -52,7 +52,7 @@ from ..models.config import ModelConfig
 from ..models.transformer import StepConfig
 from ..models.workloads import ModelWorkload, build_workload, workload_flops
 
-__all__ = ["GEMM_TILED_SHAPE", "STATIC_SMEM_BYTES", "dgemm_benchmark",
+__all__ = ["GEMM_TILED_SHAPE", "SM90_SMEM_OPTIN_BYTES", "dgemm_benchmark",
            "dgemm_data", "dgemm_flops", "dgemm_space", "emit",
            "gemm_tiled_benchmark", "gemm_tiled_space", "model_step_family",
            "model_step_space", "paper_settings", "print_table",
@@ -271,21 +271,25 @@ def paper_settings(quick: bool = True) -> EvaluationSettings:
 #: the tile search's target GEMM (the JAX package's ``bench_kernel_autotune``
 #: shape: one tensor-parallel shard of a Mixtral expert GEMM), in float32
 GEMM_TILED_SHAPE = {"m": 4096, "n": 2048, "k": 6144}
-#: static shared memory a block may hold without an opt-in attribute
-STATIC_SMEM_BYTES = 48 * 1024
+#: shared memory one block may take on an H100 with the opt-in attribute
+#: that every launch of the GEMM kernel sets (the card the kernels target)
+SM90_SMEM_OPTIN_BYTES = 232448
 
 
 def block_smem_limit(device: "str | torch.device" = "cuda") -> int:
-    """Shared memory one block may use on ``device``: the card's
-    per-block limit, or the static 48 KiB for the host's plain path."""
+    """Shared memory one block may use on ``device``: the card's opt-in
+    per-block limit (the static 48 KiB is not the limit: the kernels opt
+    in), or, for the host's plain path, which has none, the H100's."""
     dev = resolve_device(device)
     if dev.type != "cuda":
-        return STATIC_SMEM_BYTES
+        return SM90_SMEM_OPTIN_BYTES
     props = torch.cuda.get_device_properties(dev)
-    return int(getattr(props, "shared_memory_per_block", STATIC_SMEM_BYTES))
+    return int(getattr(props, "shared_memory_per_block_optin",
+                       props.shared_memory_per_block))
 
 
-def gemm_tiled_space(smem_limit: int = STATIC_SMEM_BYTES) -> SearchSpace:
+def gemm_tiled_space(
+        smem_limit: int = SM90_SMEM_OPTIN_BYTES) -> SearchSpace:
     """(bm, bn, bk) over the kernel's tile table, constrained to tiles
     whose shared memory fits one block (the kernel masks ragged edges,
     so no tile has to divide the problem)."""

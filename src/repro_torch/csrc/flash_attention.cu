@@ -1,22 +1,22 @@
-// Flash attention forward (online softmax) on CUDA cores, f32 and bf16.
+// Flash attention forward (online softmax) on CUDA cores, float32.
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py:33,
-// _attn_kernel / flash_attention_pallas (with the padding of
-// ops.flash_attention, which the Python wrapper keeps).
+// _attn_kernel / flash_attention_pallas, for float32 operands (with the
+// padding of ops.flash_attention, which the Python wrapper keeps). bf16
+// operands take the tensor-core kernel of flash_attention_sm90.cu: on the
+// tensor cores f32 would mean TF32, about three decimal digits, where the
+// f32 path is held to 1e-5.
 //
 // Computes, per (batch, query head), o = softmax(q k^T * sm_scale + mask) v
 // over (S, D) tiles: GQA (query head h reads kv head h / (H / Hkv)), a
 // causal mask, a sliding window (q - k < window), keys at or past kv_len
 // masked (the wrapper's zero padding), all at -1e30; f32 running (m, l,
-// acc); a row with no visible key writes 0; the output is in q's dtype.
+// acc); a row with no visible key writes 0; the output is f32.
 //
 // Bound on the card: operations. 4 S^2 D FLOPs (halved when causal)
-// against 4 S D words per head puts the main shape (B=1, H=32, Hkv=8,
-// S=4096, D=64, bf16) far above the ridge point; the roof is the tensor
-// cores' 989 TFLOP/s in bf16. This kernel does not use them: both
-// products run as f32 FMAs on CUDA cores (67 TFLOP/s on the data sheet),
-// so it stays far from its bound. mma.sync/wgmma, TMA and a pipelined kv
-// loop are later work.
+// against 4 S D words per head puts the model shapes far above the ridge
+// point. In full f32 the roof is the CUDA cores' 67 TFLOP/s (data sheet):
+// both products run as f32 FMAs from shared memory.
 //
 // Design. Hopper blocks run in no order, so the TPU's sequential kv grid
 // axis becomes a kv loop inside the block. A block of 128 threads owns one
@@ -24,19 +24,18 @@
 // whole loop, and m, l and the (QT, D) accumulator live in registers:
 // thread (ty, tx) of 16 x 8 owns rows ty + 16 i and, in the accumulator,
 // dims tx + 8 n. Each kv sub-tile of KT rows is staged in shared memory
-// (K transposed, V row-major, bf16 converted to f32 on the way in); the
-// scores are a register-tiled (QT, KT) product whose row max and row sum
-// are reduced across the 8 lanes of a row with warp shuffles; the
-// probabilities go to shared memory for the P V product. Tiles carry one
-// float of padding per row so that every warp access is conflict-free
-// or a broadcast. Ragged edges (S not a multiple of the tile, blocks
-// equal to S below 128) are masked here, so the physical tiles
-// (QT, KT) = (64, 64) for D <= 80, (64, 32) for D = 128 and (32, 32) for
-// D = 256 are fixed by the register and shared-memory budget, at most
-// 102 KiB (dynamic shared memory, opted in per launch). D need only be a
-// multiple of the 8 column lanes, since every load and store is a scalar
-// one: D = 80 (zamba2-2.7b's 2560 / 32 heads) runs as 10 accumulator dims
-// per thread in 77 KiB.
+// (K transposed, V row-major); the scores are a register-tiled (QT, KT)
+// product whose row max and row sum are reduced across the 8 lanes of a
+// row with warp shuffles; the probabilities go to shared memory for the
+// P V product. Tiles carry one float of padding per row so that every
+// warp access is conflict-free or a broadcast. Ragged edges (S not a
+// multiple of the tile, blocks equal to S below 128) are masked here, so
+// the physical tiles (QT, KT) = (64, 64) for D <= 80, (64, 32) for D = 128
+// and (32, 32) for D = 256 are fixed by the register and shared-memory
+// budget, at most 102 KiB (dynamic shared memory, opted in per launch). D
+// need only be a multiple of the 8 column lanes, since every load and
+// store is a scalar one: D = 80 (zamba2-2.7b's 2560 / 32 heads) runs as 10
+// accumulator dims per thread in 77 KiB.
 //
 // The tunable (bq, bk) keeps the TPU kernel's meaning: the logical block
 // at which a kv block wholly outside the causal or window mask is
@@ -45,7 +44,6 @@
 // pl.when does, so a coarser logical block visits more masked sub-tiles.
 // Blocks are issued heaviest first (last q tiles first) for causal masks.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,13 +55,7 @@ constexpr int kColLanes = 8;    // tx: columns tx + 8 j, dims tx + 8 n
 constexpr int kThreads = kRowGroups * kColLanes;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void from_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // Max and sum over the 8 lanes that share a row (lanes 8r .. 8r + 7).
 __device__ __forceinline__ float row_max(float x) {
@@ -91,7 +83,7 @@ struct Layout {
 };
 
 template <typename T, int D, int QT, int KT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        int64_t heads, int64_t kv_heads, int64_t seq,
@@ -279,27 +271,23 @@ int launch(const void* q, const void* k, const void* v, void* o,
   X(128, 64, 32)          \
   X(256, 32, 32)
 
-// One extern "C" launcher per (dtype, head dim), named
-// rt_flash_attention_<dtype>_d<D>. Each launcher makes `device` current,
-// enqueues on `stream` and returns cudaGetLastError(); window <= 0 means
-// no window.
-#define RT_FLASH(NAME, T, D, QT, KT)                                        \
-  extern "C" int rt_flash_attention_##NAME##_d##D(                          \
+// One extern "C" launcher per head dim, named rt_flash_attention_f32_d<D>.
+// Each launcher makes `device` current, enqueues on `stream` and returns
+// cudaGetLastError(); window <= 0 means no window.
+#define RT_FLASH_F32(D, QT, KT)                                             \
+  extern "C" int rt_flash_attention_f32_d##D(                               \
       const void* q, const void* k, const void* v, void* o, int64_t batch,  \
       int64_t heads, int64_t kv_heads, int64_t seq, int64_t kv_len,         \
       int64_t bq, int64_t bk, int causal, int64_t window, float sm_scale,   \
       int device, void* stream) {                                           \
-    return launch<T, D, QT, KT>(q, k, v, o, batch, heads, kv_heads, seq,    \
-                                kv_len, bq, bk, causal, window, sm_scale,   \
-                                device, stream);                            \
+    return launch<float, D, QT, KT>(q, k, v, o, batch, heads, kv_heads,    \
+                                    seq, kv_len, bq, bk, causal, window,    \
+                                    sm_scale, device, stream);              \
   }
-#define RT_FLASH_F32(D, QT, KT) RT_FLASH(f32, float, D, QT, KT)
-#define RT_FLASH_BF16(D, QT, KT) RT_FLASH(bf16, __nv_bfloat16, D, QT, KT)
 RT_FLASH_TILES(RT_FLASH_F32)
-RT_FLASH_TILES(RT_FLASH_BF16)
 
-// Dynamic shared memory one block of the head dim's launcher asks for, in
-// bytes, or -1 for a head dim without a launcher.
+// Dynamic shared memory one block of the head dim's f32 launcher asks for,
+// in bytes, or -1 for a head dim without a launcher.
 #define RT_FLASH_SMEM(D, QT, KT) \
   case D: return static_cast<int64_t>(Layout<D, QT, KT>::kBytes);
 extern "C" int64_t rt_flash_attention_smem_bytes(int head_dim) {

@@ -19,9 +19,12 @@ WRAPPERS = {"matmul": matmul, "triad": triad,
 
 
 def reset_launch_counts() -> None:
-    """Set every wrapper's launch count to 0."""
+    """Set every wrapper's launch count, and flash attention's count per
+    route, to 0."""
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for route in flash_attention.route_launches:
+        flash_attention.route_launches[route] = 0
 
 
 def launch_counts() -> dict[str, int]:

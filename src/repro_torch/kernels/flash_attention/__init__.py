@@ -1,5 +1,7 @@
-from .ops import (attention_ref, bytes_moved, flash_attention, flops,
-                  padded_blocks, smem_bytes)
+from .ops import (SM90_TILES, attention_ref, bytes_moved, flash_attention,
+                  flops, padded_blocks, physical_tile, sm90_smem_bytes,
+                  smem_bytes)
 
-__all__ = ["attention_ref", "bytes_moved", "flash_attention", "flops",
-           "padded_blocks", "smem_bytes"]
+__all__ = ["SM90_TILES", "attention_ref", "bytes_moved", "flash_attention",
+           "flops", "padded_blocks", "physical_tile", "sm90_smem_bytes",
+           "smem_bytes"]

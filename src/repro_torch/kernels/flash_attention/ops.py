@@ -1,27 +1,29 @@
-"""Flash attention: the hand-written CUDA forward's wrapper, its
+"""Flash attention: the hand-written CUDA forwards' wrapper, its
 ``torch.autograd.Function`` and its plain PyTorch version.
 
-The kernel (``csrc/flash_attention.cu``) replaces the Pallas
-``flash_attention_pallas`` / ``_attn_kernel`` of the JAX package: the
-online-softmax forward over (B, H, S, D) q and (B, Hkv, S, D) k/v with
-f32 running (m, l, acc) state, GQA (query head h reads kv head
-``h // (H // Hkv)``), causal and sliding-window masks, and skipping of
-wholly masked kv blocks. The JAX package has no backward kernel: its
-custom VJP recomputes through the dense reference, and so does
+Two kernels replace the Pallas ``flash_attention_pallas`` / ``_attn_kernel``
+of the JAX package: the online-softmax forward over (B, H, S, D) q and
+(B, Hkv, S, D) k/v with f32 running (m, l, acc) state, GQA (query head h
+reads kv head ``h // (H // Hkv)``), causal and sliding-window masks, and
+skipping of wholly masked kv blocks. bfloat16 operands run on the tensor
+cores (``csrc/flash_attention_sm90.cu``: wgmma, TMA); float32 operands on
+the CUDA cores (``csrc/flash_attention.cu``), since the tensor cores would
+compute f32 as TF32. The JAX package has no backward kernel: its custom
+VJP recomputes through the dense reference, and so does
 :class:`_FlashAttention` here.
 
-``(bq, bk)`` is the tunable, as on the TPU. On the card the kernel's
-physical tiles are fixed per head dim by its register and shared-memory
-budget; a logical (bq, bk) block is processed in those sub-tiles and
-keeps the TPU kernel's meaning: the granularity at which a kv block
-wholly outside the causal or window mask is skipped. Any positive pair
-is taken (every pair of ``model_step_space(quick=False)``, 64..512, and
-the block equal to S that the padding rule gives below S = 128); a
-non-positive one raises.
+``(bq, bk)`` is the tunable, as on the TPU, and keeps the TPU kernel's
+meaning: the granularity at which a kv block wholly outside the causal or
+window mask is skipped. Any positive pair is taken (every pair of
+``model_step_space(quick=False)``, 64..512, and the block equal to S that
+the padding rule gives below S = 128); a non-positive one raises. On the
+tensor-core kernel it also selects the physical tile (:func:`physical_tile`
+over :data:`SM90_TILES`); the CUDA-core kernel's tiles are fixed per head
+dim.
 
-On CPU tensors :func:`flash_attention` runs the kernel's plain version
+On CPU tensors :func:`flash_attention` runs the kernels' plain version
 (:func:`attention_ref` on the padded operands, padded keys masked); on
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -37,11 +39,19 @@ import torch.nn.functional as F
 
 from .. import build
 
-__all__ = ["attention_ref", "bytes_moved", "flash_attention", "flops",
-           "padded_blocks", "smem_bytes"]
+__all__ = ["SM90_TILES", "attention_ref", "bytes_moved", "flash_attention",
+           "flops", "padded_blocks", "physical_tile", "sm90_smem_bytes",
+           "smem_bytes"]
 
 NEG_INF = -1e30
-_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+#: the tensor-core (bf16) kernel's compiled physical tiles, (q rows, kv
+#: rows) per head dim: csrc/flash_attention_sm90.cu's RT_FLASH_SM90_TILES
+#: lists exactly these (D = 256 takes kv 64 only: its registers)
+SM90_TILES = {**{d: ((64, 64), (64, 128), (128, 64), (128, 128))
+                 for d in (16, 32, 64, 80, 128)},
+              256: ((64, 64), (128, 64))}
+#: the physical tile's largest side
+_MAX_TILE = 128
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 7
              + (ctypes.c_int, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
                 ctypes.c_void_p))
@@ -65,17 +75,52 @@ def bytes_moved(q: torch.Tensor, k: torch.Tensor) -> float:
 
 
 def smem_bytes(head_dim: int) -> int:
-    """Dynamic shared memory one block of the kernel takes at this head
-    dim, as the compiled library reports it (builds the library). Raises
-    for a head dim the kernel is not compiled for: the library's tile
-    list is the only list of head dims."""
+    """Dynamic shared memory one block of the f32 (CUDA-core) kernel takes
+    at this head dim, as the compiled library reports it (builds the
+    library). Raises for a head dim the kernel is not compiled for: the
+    library's tile list is the only list of its head dims."""
     lib = build.library()
     lib.rt_flash_attention_smem_bytes.argtypes = [ctypes.c_int]
     lib.rt_flash_attention_smem_bytes.restype = ctypes.c_int64
     n = lib.rt_flash_attention_smem_bytes(head_dim)
     if n < 0:
-        raise ValueError(f"no flash kernel for head dim {head_dim}")
+        raise ValueError(f"no f32 flash kernel for head dim {head_dim}")
     return n
+
+
+def sm90_smem_bytes(head_dim: int, qt: int, kt: int) -> int:
+    """Dynamic shared memory one block of the bf16 (tensor-core) kernel
+    takes at this head dim and physical tile, as the compiled library
+    reports it (builds the library); raises outside the compiled table."""
+    lib = build.library()
+    fn = lib.rt_flash_attention_sm90_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int64
+    n = fn(head_dim, qt, kt)
+    if n < 0:
+        raise ValueError(f"no bf16 flash kernel for head dim {head_dim} "
+                         f"tile ({qt}, {kt})")
+    return n
+
+
+def physical_tile(bq: int, bk: int,
+                  tiles: Sequence[tuple[int, int]]) -> tuple[int, int]:
+    """The physical (q rows, kv rows) tile that a logical (bq, bk) block
+    runs on: the largest of ``tiles`` not above (min(bq, 128),
+    min(bk, 128)), by area, then q rows. Where no tile is that small, each
+    bound is first raised to the smallest side ``tiles`` has, so a block
+    below 64 rows (the padding rule's block of a short sequence) runs on
+    the smallest tile. The logical block still sets the skip
+    granularity."""
+    if not tiles:
+        raise ValueError("no compiled flash tiles to choose from")
+    cap_q = max(min(bq, _MAX_TILE), min(t[0] for t in tiles))
+    cap_k = max(min(bk, _MAX_TILE), min(t[1] for t in tiles))
+    fits = [t for t in tiles if t[0] <= cap_q and t[1] <= cap_k]
+    if not fits:
+        raise ValueError(f"no compiled flash tile fits the block ({bq}, "
+                         f"{bk}): {tuple(tiles)}")
+    return max(fits, key=lambda t: (t[0] * t[1], t[0]))
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -140,14 +185,41 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{k.device}, {v.device}")
 
 
+def _launcher(dtype: torch.dtype, d: int, bq: int, bk: int):
+    """The ctypes launcher of the kernel that takes ``dtype`` at head dim
+    ``d`` for the logical block (bq, bk), and its route; raises for a
+    dtype or head dim no kernel is compiled for."""
+    if dtype == torch.bfloat16:
+        if d not in SM90_TILES:
+            raise ValueError(f"no bf16 flash kernel for head dim {d}: "
+                             f"compiled for {sorted(SM90_TILES)}")
+        qt, kt = physical_tile(bq, bk, SM90_TILES[d])
+        name, route = f"rt_flash_attention_bf16_d{d}_q{qt}_k{kt}", \
+            "tensor_cores"
+    elif dtype == torch.float32:
+        name, route = f"rt_flash_attention_f32_d{d}", "cuda_cores"
+    else:
+        raise TypeError(f"the flash kernels take float32 or bfloat16, not "
+                        f"{dtype}")
+    fn = _LAUNCHERS.get(name)
+    if fn is None:
+        if route == "cuda_cores":
+            smem_bytes(d)                  # raises for an uncompiled dim
+        fn = _LAUNCHERS[name] = build.kernel_fn(name, _ARGTYPES)
+    return fn, route
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it that starts on a 16-byte boundary (the
+    tensor-core kernel's TMA copies need one)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             sm_scale: float, causal: bool, window: Optional[int], bq: int,
             bk: int, kv_len: int) -> torch.Tensor:
-    """One launch of the CUDA kernel on contiguous padded operands."""
+    """One launch of a CUDA kernel on contiguous padded operands."""
     b, h, s, d = q.shape
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"the flash kernel takes float32 or bfloat16, not "
-                        f"{q.dtype}")
     if b > _MAX_GRID_YZ or h > _MAX_GRID_YZ:
         raise ValueError(f"batch {b} or heads {h} over the grid limit "
                          f"{_MAX_GRID_YZ}")
@@ -156,12 +228,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
     dev = q.device
-    key = (q.dtype, d)
-    fn = _LAUNCHERS.get(key)
-    if fn is None:
-        smem_bytes(d)                      # raises for an uncompiled dim
-        fn = _LAUNCHERS[key] = build.kernel_fn(
-            f"rt_flash_attention_{_DTYPES[q.dtype]}_d{d}", _ARGTYPES)
+    fn, route = _launcher(q.dtype, d, bq, bk)
+    q, k, v = (_aligned(x) for x in (q, k, v))
     o = torch.empty_like(q)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h,
             k.shape[1], s, kv_len, bq, bk, int(causal), window or 0,
@@ -171,6 +239,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"error {rc}")
     with _COUNT_LOCK:
         flash_attention.launches += 1
+        flash_attention.route_launches[route] += 1
     return o
 
 
@@ -227,8 +296,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention over (B, H, S, D); pads S to the block size.
 
     ``use_kernel=False`` is the dense :func:`attention_ref`. Otherwise
-    the forward is the kernel (CUDA operands; each launch counts one in
-    ``flash_attention.launches``) or its plain version (CPU operands),
+    the forward is a kernel (CUDA operands: bfloat16 on the tensor cores,
+    float32 on the CUDA cores; each launch counts one in
+    ``flash_attention.launches`` and one in its route's entry of
+    ``flash_attention.route_launches``) or their plain version (CPU
+    operands),
     inside an autograd function whose backward recomputes through
     :func:`attention_ref`. Padded keys are masked in every mode (the
     Pallas path lets them into a non-causal softmax).
@@ -254,4 +326,6 @@ def _resolve(args: Sequence[Any], bq: int = 512, bk: int = 512, **static):
 
 
 flash_attention.launches = 0
+#: launches per kernel: "tensor_cores" (bf16) and "cuda_cores" (f32)
+flash_attention.route_launches = {"tensor_cores": 0, "cuda_cores": 0}
 flash_attention.resolve = _resolve

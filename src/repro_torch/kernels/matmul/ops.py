@@ -2,7 +2,9 @@
 tile table and its plain PyTorch version.
 
 The kernel (``csrc/matmul.cu``) replaces the Pallas ``matmul_pallas`` of
-the JAX package. Its (bm, bn, bk) tile is the autotuner's tunable, as
+the JAX package: a CUDA-core design (f32 stays full f32) with a two-stage
+shared-memory ring fed by ``cp.async`` and 8 x 8 (16 x 8 on the
+128 x 128 tiles up to bk = 16) register tiles per thread. Its (bm, bn, bk) tile is the autotuner's tunable, as
 the VMEM tile is on the TPU; the tiles are compiled ahead as a fixed
 table (:data:`TILES`) and a tile outside it raises. Ragged edges are
 masked inside the kernel, so no operand is padded on the host. On a CPU
@@ -39,11 +41,13 @@ _LAUNCHERS: dict = {}
 
 
 def smem_bytes(bm: int, bn: int, bk: int) -> int:
-    """Shared memory one block holds: the (bm, bk) slice of A and the
-    (bk, bn) slice of B, both staged as float32 whatever the input dtype.
-    The search-space constraint holds it to the device's per-block limit
-    (the counterpart of the TPU's ``vmem_bytes`` budget)."""
-    return (bm * bk + bk * bn) * 4
+    """Dynamic shared memory one block takes on float32 operands (the
+    tile search's dtype; bf16 takes half): a ring of two stages, each the
+    (bk, bm) slice of A transposed with rows padded by 4 elements and the
+    (bk, bn) slice of B. The search-space constraint holds it to the
+    device's per-block limit (the counterpart of the TPU's ``vmem_bytes``
+    budget)."""
+    return 2 * (bk * (bm + 4) + bk * bn) * 4
 
 
 def flops(m: int, n: int, k: int) -> float:

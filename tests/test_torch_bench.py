@@ -68,13 +68,22 @@ def test_spaces_and_settings_equal_the_reference(quick):
 
 def test_gemm_tiled_space_constraints():
     space = common.gemm_tiled_space()
-    assert space.cardinality == 12          # every table tile fits 48 KiB
+    assert space.cardinality == 12    # every table tile fits the opt-in limit
     tight = common.gemm_tiled_space(smem_limit=16 * 1024)
     from repro_torch.kernels.matmul import smem_bytes
     assert all(smem_bytes(c["bm"], c["bn"], c["bk"]) <= 16 * 1024
                for c in tight.configs())
     assert 0 < tight.cardinality < 12
     assert common.GEMM_TILED_SHAPE == {"m": 4096, "n": 2048, "k": 6144}
+
+
+def test_block_smem_limit_is_the_opt_in_limit():
+    # the host's plain path has no limit: it takes the H100's, so the CPU
+    # space keeps every tile; on a card the property is read
+    assert common.block_smem_limit("cpu") == common.SM90_SMEM_OPTIN_BYTES
+    assert common.SM90_SMEM_OPTIN_BYTES == 232448
+    assert common.gemm_tiled_space(
+        common.block_smem_limit("cpu")).cardinality == 12
 
 
 def test_gemm_tiled_benchmark_tunes_on_the_host(monkeypatch):

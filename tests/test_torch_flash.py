@@ -15,8 +15,9 @@ import torch
 from repro.kernels.flash_attention import attention_ref as jax_attention_ref
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,
-                                                 flops, padded_blocks)
+from repro_torch.kernels.flash_attention import (SM90_TILES, attention_ref,
+                                                 flash_attention, flops,
+                                                 padded_blocks, physical_tile)
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
@@ -149,3 +150,71 @@ def test_flops_formula_matches_reference():
     for causal in (True, False):
         assert flops(1, 32, 4096, 64, causal) == \
             jax_flops(1, 32, 4096, 64, causal)
+
+
+QUAD = ((64, 64), (64, 128), (128, 64), (128, 128))
+
+
+@pytest.mark.parametrize("bq,bk,tiles,want", [
+    (64, 64, QUAD, (64, 64)),
+    (64, 128, QUAD, (64, 128)),
+    (128, 64, QUAD, (128, 64)),
+    (128, 128, QUAD, (128, 128)),
+    (512, 256, QUAD, (128, 128)),            # clamped above 128
+    (256, 64, QUAD, (128, 64)),
+    (96, 200, QUAD, (64, 128)),              # sides outside the table
+    (100, 100, QUAD, (64, 64)),              # a short sequence's block
+    (32, 16, QUAD, (64, 64)),                # below every tile: the smallest
+    (128, 128, ((64, 64), (128, 64)), (128, 64)),   # D = 256: kv 64 only
+    (512, 512, ((64, 64), (128, 64)), (128, 64)),
+    (64, 512, ((64, 64), (128, 64)), (64, 64)),
+])
+def test_physical_tile_rule(bq, bk, tiles, want):
+    assert physical_tile(bq, bk, tiles) == want
+
+
+def test_physical_tile_rule_raises_without_a_fitting_tile():
+    with pytest.raises(ValueError, match="no compiled flash tile"):
+        physical_tile(64, 64, ((64, 128), (128, 64)))
+    with pytest.raises(ValueError, match="no compiled flash tiles"):
+        physical_tile(64, 64, ())
+
+
+@pytest.mark.parametrize("d", [64, 80])
+def test_quick_space_tiles_are_four_kernels(d):
+    from repro_torch.bench.common import model_step_space
+    pairs = {(c["flash_block_q"], c["flash_block_k"])
+             for c in model_step_space(True).configs()}
+    assert {physical_tile(bq, bk, SM90_TILES[d]) for bq, bk in pairs} == \
+        set(QUAD)
+
+
+def test_sm90_tile_table_matches_the_cuda_source():
+    import re
+
+    from repro_torch.kernels import build
+    src = (build.CSRC / "flash_attention_sm90.cu").read_text()
+    table = src[src.index("#define RT_FLASH_SM90_TILES(X)"):]
+    table = table[:table.index("\n\n")]
+    compiled = [tuple(map(int, t)) for t in re.findall(
+        r"X\((\d+), (\d+), (\d+)\)", table)]
+    assert len(compiled) == len(set(compiled))
+    assert set(compiled) == {(d, qt, kt) for d, tiles in SM90_TILES.items()
+                             for qt, kt in tiles}
+    assert "RT_FLASH_SM90_TILES(RT_FLASH_SM90)" in src
+    assert "rt_flash_attention_bf16_d##D##_q##QT##_k##KT" in src
+    # every head dim of the f32 kernel has a bf16 kernel too
+    f32 = (build.CSRC / "flash_attention.cu").read_text()
+    f32_table = f32[f32.index("#define RT_FLASH_TILES(X)"):]
+    f32_table = f32_table[:f32_table.index("\n\n")]
+    f32_dims = {int(d) for d in re.findall(r"X\((\d+),", f32_table)}
+    assert f32_dims == set(SM90_TILES)
+    assert "RT_FLASH_TILES(RT_FLASH_F32)" in f32 and "BF16" not in f32
+
+
+def test_cpu_calls_count_no_route():
+    (tq, tk, tv), _ = _both(_qkv(5, 1, 4, 2, 64, 32), torch.bfloat16)
+    reset_launch_counts()
+    flash_attention(tq, tk, tv, bq=64, bk=64)
+    assert flash_attention.route_launches == {"tensor_cores": 0,
+                                              "cuda_cores": 0}

@@ -1,6 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version on the card, the flash and SSD kernels' gradients, a mamba2
-prefill through the SSD kernel, and tuning sessions through the kernels.
+version on the card (the bf16 flash kernel at every compiled head dim and
+physical tile, the GEMM at every tile), the flash and SSD kernels'
+gradients, a mamba2 prefill through the SSD kernel, and tuning sessions
+through the kernels (the GEMM tile search keeping all 12 tiles).
 
 Marked ``gpu``; each skips from inside the ``card`` fixture when no card
 is visible, so every worker collects the same tests. Run them on a
@@ -29,7 +31,7 @@ def _randn(gen, *shape, dtype, device):
 
 
 @pytest.mark.parametrize("m,n,k", [(300, 450, 200), (1024, 256, 128),
-                                   (129, 65, 33)])
+                                   (129, 65, 33), (257, 128, 66)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_matmul_kernel_matches_plain_on_card(card, m, n, k, dtype):
     from repro_torch.kernels.matmul import TILES, matmul, matmul_ref
@@ -103,15 +105,81 @@ def test_flash_kernel_matches_plain_on_card(card, case, dtype):
     want = attention_ref(q, k, v, causal=causal, window=window)
     tol = dict(rtol=3e-2, atol=3e-2) if dtype == torch.bfloat16 else \
         dict(rtol=2e-5, atol=2e-5)
+    route = "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
     for bq in (64, 128, 256, 512):
         for bk in (64, 128, 256, 512):
             before = flash_attention.launches
+            routed = flash_attention.route_launches[route]
             got = flash_attention(q, k, v, causal=causal, window=window,
                                   bq=bq, bk=bk)
             torch.cuda.synchronize()
             assert flash_attention.launches == before + 1
+            assert flash_attention.route_launches[route] == routed + 1
             torch.testing.assert_close(got.float(), want.float(), **tol)
             got.fill_(float("nan"))
+
+
+@pytest.mark.parametrize("case", [(1, 4, 2, 300, True, 96),
+                                  (2, 4, 1, 250, False, None),
+                                  (1, 4, 2, 200, True, None)], ids=str)
+def test_flash_tensor_core_kernel_every_tile_on_card(card, case):
+    """The bf16 kernel at every compiled (head dim, physical tile), forced
+    by (bq, bk) = the tile, on padded, windowed and GQA cases."""
+    from repro_torch.kernels.flash_attention import (SM90_TILES,
+                                                     attention_ref,
+                                                     flash_attention,
+                                                     physical_tile)
+    b, hq, hkv, s, causal, window = case
+    gen = torch.Generator().manual_seed(s)
+    for d, tiles in SM90_TILES.items():
+        q = _randn(gen, b, hq, s, d, dtype=torch.bfloat16, device=card)
+        k = _randn(gen, b, hkv, s, d, dtype=torch.bfloat16, device=card)
+        v = _randn(gen, b, hkv, s, d, dtype=torch.bfloat16, device=card)
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        for qt, kt in tiles:
+            assert physical_tile(qt, kt, tiles) == (qt, kt)
+            before = flash_attention.launches
+            routed = flash_attention.route_launches["tensor_cores"]
+            got = flash_attention(q, k, v, causal=causal, window=window,
+                                  bq=qt, bk=kt)
+            torch.cuda.synchronize()
+            assert flash_attention.launches == before + 1
+            assert flash_attention.route_launches["tensor_cores"] == \
+                routed + 1
+            torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                                       atol=3e-2)
+            got.fill_(float("nan"))
+
+
+def test_flash_raises_for_an_uncompiled_head_dim_on_card(card):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.zeros(1, 2, 128, 48, dtype=torch.bfloat16, device=card)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="no bf16 flash kernel"):
+        flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.half(), q.half(), q.half())
+    assert flash_attention.launches == before
+
+
+def test_gemm_tiled_session_tunes_all_twelve_tiles_on_card(card,
+                                                           monkeypatch):
+    """The card's opt-in shared-memory limit keeps every tile of the table
+    in the space (the static 48 KiB would drop the 128 x 128 x 32 tile)."""
+    from repro_torch.bench import common
+    from repro_torch.core import Tuner
+    from repro_torch.kernels.matmul import matmul
+    limit = common.block_smem_limit(card)
+    assert limit >= 227 * 1024
+    space = common.gemm_tiled_space(smem_limit=limit)
+    assert space.cardinality == 12
+    monkeypatch.setattr(common, "GEMM_TILED_SHAPE",
+                        {"m": 512, "n": 256, "k": 128})
+    before = matmul.launches
+    result = Tuner(space, common.paper_settings(True)).tune(
+        common.gemm_tiled_benchmark("cuda"))
+    assert len(result.trials) == 12 and result.best_score > 0
+    assert matmul.launches > before
 
 
 def test_flash_gradients_equal_the_plain_version_on_card(card):
@@ -131,19 +199,30 @@ def test_flash_gradients_equal_the_plain_version_on_card(card):
         assert torch.equal(a, b)      # the backward is the plain math
 
 
-def test_model_step_session_goes_through_the_flash_kernel(card):
+@pytest.mark.parametrize("dtype,route", [("float32", "cuda_cores"),
+                                         ("bfloat16", "tensor_cores")])
+def test_model_step_session_goes_through_the_flash_kernel(card, dtype,
+                                                          route):
+    """The SMOKE granite (float32, head dim 16) and its bf16 copy: each
+    session's flash launches all take the kernel of its dtype."""
+    import dataclasses
+
     from repro_torch.bench.common import model_step_family, model_step_space
+    from repro_torch.configs import get_smoke
     from repro_torch.core import Direction, EvaluationSettings, Tuner
     from repro_torch.kernels.flash_attention import flash_attention
+    cfg = dataclasses.replace(get_smoke("granite_3_2b"), dtype=dtype)
     before = flash_attention.launches
+    routes = dict(flash_attention.route_launches)
     settings = EvaluationSettings(max_invocations=2, max_iterations=5,
                                   max_time_s=0.2,
                                   direction=Direction.MAXIMIZE)
     result = Tuner(model_step_space(True), settings).tune(
-        model_step_family("train_step", "granite_3_2b", batch_size=2,
-                          seq_len=256))
+        model_step_family("train_step", cfg, batch_size=2, seq_len=256))
     assert len(result.trials) == 8 and result.best_score > 0
-    assert flash_attention.launches > before
+    launched = flash_attention.launches - before
+    assert launched > 0
+    assert flash_attention.route_launches[route] - routes[route] == launched
 
 
 SSD_CASES = [  # (B, H, C, Q, P, N, with h0)
