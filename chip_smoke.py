@@ -8,12 +8,16 @@ Run from the root of a checkout: the kernels are built from
 run when it fails:
 
 1. card      — ``nvidia-smi`` name and power limit; torch, CUDA, nvcc.
-2. build     — compile the CUDA kernels for sm_90a; print the seconds,
-               every kernel's registers, spills and static shared memory,
-               the kernels that spill, and the dynamic shared memory of
-               the GEMM, flash (both kernels, every bf16 tile) and SSD
-               blocks; the library's bf16 flash tile table must be the
-               wrapper's.
+2. build     — compile the CUDA kernels for sm_90a, and beside them the
+               sequential SSD design the shipped one replaced
+               (``csrc/baseline/ssd_sequential.cu``, its own library, for
+               its time only); print the seconds, every kernel's
+               registers, spills and static shared memory, the kernels
+               that spill, the dynamic shared memory of the GEMM and
+               flash (both kernels, every bf16 tile) blocks, and each of
+               the four SSD kernels' threads, dynamic shared memory and
+               blocks per SM; the library's bf16 flash tile table must be
+               the wrapper's.
 3. checks    — each kernel against its plain PyTorch version on the card:
                GEMM at every tile of the table at 4096x2048x6144 f32 and
                at 300x450x200 and 1024x256x128 in f32 and bf16; TRIAD at
@@ -32,9 +36,9 @@ run when it fails:
                the backward is the plain math); the SSD chunk scan's y
                and final state on SSD_CASES (the cases of
                ``tests/test_kernel_ssd.py``, an odd chunk, mamba2-130m's
-               widths at Q in {128, 256, 512} and zamba2-2.7b's) within
-               SSD_ULPS f32 ulps of the largest element, and its autograd
-               gradients (exact).
+               widths at Q in {128, 256, 512}, zamba2-2.7b's, N = 200,
+               N = 256 and B·H·C = 73,728 blocks) within SSD_ULPS f32 ulps
+               of the largest element, and its autograd gradients (exact).
 4. timing    — CUDA-event times of each kernel at the main path's shapes
                (each checked against its plain version on the same
                tensors first) beside its bound, its plain version and one
@@ -48,8 +52,11 @@ run when it fails:
                attention forward + backward at
                the model step's shape on the flash and plain paths; the
                SSD kernel at SSD_MAIN (mamba2-130m serving, zamba2-2.7b
-               train), checked first, beside its bound and its plain
-               version (no PyTorch call computes it).
+               train), checked first, beside its bounds (3xTF32 tensor
+               cores and CUDA cores), the sequential design it replaced
+               (checked too), its plain version (no PyTorch call computes
+               it) and each of its four kernels' device time
+               (``torch.profiler``).
 5. main path — ``python -m repro_torch.tune`` for ``triad --full``,
                ``dgemm --full --strategy random --budget 16 --seed 0`` and
                ``gemm_tiled --report``, then the roofline-model bench with
@@ -128,7 +135,10 @@ TRIAD_SIZES = {"cache": 1 << 22, "dram": 1 << 28}  # roofline-model bytes
 F32_PEAK = 67e12                           # H100 SXM data sheet, 700 W
 HBM_PEAK = 3.35e12
 BF16_PEAK = 989e12                         # tensor cores, bf16, dense
-SMEM_PER_SM = 228 * 1024                   # H100: shared memory per SM
+TF32_PEAK = 495e12                         # tensor cores, tf32, dense
+#: f32-accurate products from the TF32 tensor cores, three products each
+#: (the SSD kernel's 3xTF32 split)
+SSD_TC_PEAK = TF32_PEAK / 3
 SUBPROCESS_TIMEOUT_S = 420
 FLASH_MAIN = (1, 32, 8, 4096, 64)          # (B, H, Hkv, S, D), granite-3-2b
 FLASH_TOL = {"f32": {"rtol": 2e-5, "atol": 2e-5},   # tests/test_kernels.py
@@ -190,24 +200,30 @@ CONTINUE_TOL = {"rtol": 1e-4, "atol": 1e-4}  # tests/test_ssd.py
 #: (B, H, C, Q, P, N, with h0): the cases of tests/test_kernel_ssd.py (its
 #: four shapes and the state-carry case), an odd chunk (S = 300, Q = 100),
 #: mamba2-130m's widths at S = 4096 with Q in {128, 256, 512} (the config's
-#: chunk and the knob space of src/repro/launch/perf.py:73) and zamba2-2.7b's
+#: chunk and the knob space of src/repro/launch/perf.py:73), zamba2-2.7b's,
+#: N = 200 (a ragged last k slice) and N = 256 (the widest state taken), and
+#: B·H·C = 73,728 blocks, past 65,535 (the flattened grid)
 SSD_CASES = (
     [(2, 3, 4, 16, 8, 16, False), (2, 3, 4, 32, 16, 8, False),
      (1, 8, 2, 16, 8, 16, False), (2, 3, 8, 8, 8, 16, False),
      (1, 1, 3, 8, 4, 4, False), (1, 1, 3, 8, 4, 4, True),
      (1, 24, 3, 100, 64, 128, True)]
     + [(1, 24, 4096 // q, q, 64, 128, False) for q in (128, 256, 512)]
-    + [(1, 80, 32, 128, 64, 64, False)])
+    + [(1, 80, 32, 128, 64, 64, False)]
+    + [(1, 3, 4, 96, 64, 200, True), (2, 2, 3, 128, 32, 256, False),
+       (1, 9, 8192, 8, 8, 16, False)])
 #: the main path's shapes (B, H, C, Q, P, N): mamba2-130m serving and
 #: zamba2-2.7b's train step
 SSD_MAIN = {"mamba2 serving": (4, 24, 128, 256, 64, 128),
             "zamba2 train": (1, 80, 32, 128, 64, 64)}
-# The kernel and the plain version both compute in f32 and differ by the
-# order of their sums only: the limit is SSD_ULPS f32 ulps (2**-23) of the
-# largest output element, per element, far below the reference tests' 2e-5
-# times that magnitude; on an H100 the error reads under 3 such ulps
-# (PERF.md). A dropped or misplaced 64-position sub-tile moves outputs by
-# O(0.1) or more.
+# The kernel's products carry ~22 of f32's 24 bits (3xTF32 on the tensor
+# cores, partial sums added on the CUDA cores) and its sums run in another
+# order than the plain version's: the limit is SSD_ULPS f32 ulps (2**-23)
+# of the largest output element, per element, far below the reference
+# tests. 2e-5 times that magnitude; on an H100 the error reads under 5
+# such ulps (the sequential CUDA-core design read under 3; PERF.md). A
+# dropped or misplaced 64-position sub-tile moves outputs by O(0.1) or
+# more.
 SSD_ULPS = 8
 # The roofline model and the ``dgemm --full`` session time the same random
 # configs with the same sampler, so their F_p differ by run-to-run noise
@@ -789,20 +805,71 @@ def ssd_grad_check(ops: tuple) -> None:
 
 
 def ssd_shape_cost(shape: tuple) -> dict:
-    """Work, bytes and bound of one kernel call at (B, H, C, Q, P, N),
-    returning the final state (the prefill path's call). ``flops`` is the
-    JAX package's formula, the rate's work term; the bound counts only
-    the work the function needs (``needed_flops``: C·Bᵀ once for all
-    heads, the causal triangle of the quadratic terms)."""
-    from repro_torch.kernels.ssd import bytes_moved, flops, needed_flops
+    """Work, bytes, bounds and blocks of one kernel call at (B, H, C, Q,
+    P, N), returning the final state (the prefill path's call). ``flops``
+    is the JAX package's formula, the rate's work term; the bounds count
+    only the work the function needs (``needed_flops``: C·Bᵀ once for all
+    heads, the causal triangle of the quadratic terms): ``bound`` at the
+    rate of f32-accurate products on the tensor cores (SSD_TC_PEAK, the
+    least time for this work at f32 accuracy), ``bound_cuda_cores`` at the
+    CUDA cores' F32_PEAK. ``blocks``: each kernel's grid (``ops.grid``)."""
+    from repro_torch.kernels.ssd import bytes_moved, flops, grid, needed_flops
     b, h, c, q, p, n = shape
     work = needed_flops(b, h, c * q, q, p, n)
     moved = bytes_moved(b, h, c * q, q, p, n, return_state=True)
+
+    def bound(peak: float) -> tuple[float, str]:
+        return (max(work / peak, moved / HBM_PEAK) * 1e3,
+                "operations" if work / peak >= moved / HBM_PEAK else "bytes")
+    (tc, tc_by), (cc, cc_by) = bound(SSD_TC_PEAK), bound(F32_PEAK)
     return {"flops": flops(b, h, c * q, q, p, n), "needed": work,
-            "bytes": moved,
-            "bound": max(work / F32_PEAK, moved / HBM_PEAK) * 1e3,
-            "bound_by": "operations" if work / F32_PEAK >= moved / HBM_PEAK
-            else "bytes", "blocks": b * h * -(-p // 32)}
+            "bytes": moved, "bound": tc, "bound_by": tc_by,
+            "bound_cuda_cores": cc, "bound_by_cuda_cores": cc_by,
+            "blocks": {name: x * y for name, (x, y)
+                       in grid(b, h, c, q, p, n).items()}}
+
+
+def start_ssd_baseline_build(nvcc: str):
+    """Start compiling the sequential SSD design the shipped kernel
+    replaced (``csrc/baseline/ssd_sequential.cu``, outside the kernel
+    library) into a library of its own; returns (process, path)."""
+    from repro_torch.kernels import build
+    src = build.CSRC / "baseline" / "ssd_sequential.cu"
+    out = build.BUILD_ROOT.parent / "ssd_baseline" / (
+        build.source_hash() + "_libssdsequential.so")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-shared", "-o",
+                             str(out), str(src)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def ssd_baseline_fn(lib_path):
+    """The sequential design's launcher as a function of the kernel-layout
+    operands (no h0), returning (y, final state): the time the shipped
+    kernel is compared with (``was_ms``), never a path of the port."""
+    import torch
+    from repro_torch.kernels import build
+    fn = ctypes.CDLL(str(lib_path)).rt_ssd_chunk_scan_f32
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 6
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def run(xdt, bm, cm, cum):
+        b, h, c, q, p = xdt.shape
+        n = bm.shape[-1]
+        y = torch.empty_like(xdt)
+        h_out = xdt.new_empty((b, h, p, n))
+        scores = xdt.new_empty((b, c, q, q))
+        rc = fn(xdt.data_ptr(), bm.data_ptr(), cm.data_ptr(), cum.data_ptr(),
+                None, y.data_ptr(), h_out.data_ptr(), scores.data_ptr(), b, h,
+                c, q, p, n, xdt.device.index,
+                build.current_stream_ptr(xdt.device.index))
+        if rc != 0:
+            fail(f"the sequential SSD baseline failed to launch: CUDA error "
+                 f"{rc}")
+        return y, h_out
+    return run
 
 
 def serving_path() -> dict:
@@ -974,6 +1041,7 @@ def step_trace(spec: dict, tile: tuple[int, int]) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get
+    from repro_torch.kernels.ssd import KERNELS as SSD_KERNELS
     from repro_torch.models.transformer import StepConfig
     from repro_torch.models.workloads import build_workload
     cfg = dataclasses.replace(get(spec["arch"]), n_layers=spec["layers"])
@@ -1018,8 +1086,7 @@ def step_trace(spec: dict, tile: tuple[int, int]) -> dict:
         return total / 1e3
 
     busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
-    parts = {"ssd kernel": named("ssd_scores_kernel",
-                                 "ssd_chunk_scan_kernel"),
+    parts = {"ssd kernel": named(*SSD_KERNELS),
              "ssd plain backward": under("_ChunkScanBackward"),
              "flash kernel": named("flash_attention_kernel",
                                    "flash_attention_sm90_kernel"),
@@ -1112,8 +1179,10 @@ def main() -> int:
         smem_bytes as flash_smem_bytes
     from repro_torch.kernels.triad import triad, triad_ref
     from repro_torch.bench.common import model_step_space
-    from repro_torch.kernels.ssd import chunk_scan, ssd_chunk_scan_ref
-    from repro_torch.kernels.ssd import smem_bytes as ssd_smem_bytes
+    from repro_torch.bench.ssd_probe import kernel_ms
+    from repro_torch.kernels.ssd import (chunk_scan,
+                                         kernel_info as ssd_kernel_info,
+                                         ssd_chunk_scan_ref)
     from repro_torch.models.layers import _attend
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1124,10 +1193,18 @@ def main() -> int:
     phase("build")
     fresh = not build.library_path().exists()
     t0 = time.perf_counter()
+    baseline_proc, baseline_lib = start_ssd_baseline_build(nvcc)
     build.library()
     print(f"kernel library {build.library_path()} "
           f"({'built' if fresh else 'found'} in "
           f"{time.perf_counter() - t0:.2f}s)")
+    baseline_log = baseline_proc.communicate(timeout=SUBPROCESS_TIMEOUT_S)[0]
+    if baseline_proc.returncode != 0:
+        print(baseline_log)
+        fail("the sequential SSD baseline did not build")
+    print(f"sequential SSD baseline {baseline_lib.name} built in "
+          f"{time.perf_counter() - t0:.2f}s (with the library)")
+    ssd_baseline = ssd_baseline_fn(baseline_lib)
     log = build.library_path().parent / "build.log"
     ptxas_rows = []
     if log.exists():
@@ -1156,17 +1233,14 @@ def main() -> int:
             f"{qt}x{kt} {sm90_smem_bytes(d, qt, kt)}" for qt, kt in tiles))
     print("  matmul f32: dynamic shared memory per block " + ", ".join(
         f"{'x'.join(map(str, t))} {gemm_smem_bytes(*t)}" for t in TILES))
-    regs = next((int(m.group(1)) for m in (re.search(
-        r"^ssd_chunk_scan_kernel<f32>: (\d+) registers", row)
-        for row in ptxas_rows) if m), None)
-    for n_state in (64, 128, 256):
-        smem = ssd_smem_bytes(n_state)
-        # an SM holds 65536 registers and 228 KiB of shared memory, 1 KiB
-        # of it reserved per block
-        per_sm = "not known" if regs is None else min(
-            65536 // (regs * 256), SMEM_PER_SM // (smem + 1024))
-        print(f"  ssd N={n_state}: {smem} bytes dynamic shared memory per "
-              f"block; {per_sm} scan blocks per SM")
+    for name, info in ssd_kernel_info().items():
+        rows = [row for row in ptxas_rows if row.startswith(name + "<")]
+        print(f"  {name}: {info['threads']} threads, {info['smem_bytes']} "
+              f"bytes dynamic shared memory and {info['blocks_per_sm']} "
+              f"blocks per SM (any N); " + ("; ".join(
+                  row.split(", 0 bytes stack")[0] + (
+                      "" if ", 0 bytes spill stores" in row else " SPILLS")
+                  for row in rows) or "not in the build log"))
 
     # -- 3. checks ---------------------------------------------------------
     phase("kernel checks")
@@ -1445,23 +1519,44 @@ def main() -> int:
                                             max(errs["ssd_state"], eh))
         n_checks["ssd_chunk_scan"] += 1
         xdt, bm, cm, cum, _ = ops
+        want_y, want_h = ssd_chunk_scan_ref(xdt, bm, cm, cum,
+                                            return_state=True)
+        was_y, was_h = ssd_baseline(xdt, bm, cm, cum)
+        check_close(f"ssd {label} sequential baseline y", was_y, want_y,
+                    ssd_tol(want_y))
+        check_close(f"ssd {label} sequential baseline state", was_h, want_h,
+                    ssd_tol(want_h))
+        del want_y, want_h, was_y, was_h
         cost = ssd_shape_cost(shape)
         with torch.no_grad():
             t = {"kernel": cuda_ms(lambda: chunk_scan(
-                     xdt, bm, cm, cum, return_state=True), iters=5, warmup=1),
+                     xdt, bm, cm, cum, return_state=True), iters=10, warmup=2),
+                 "was": cuda_ms(lambda: ssd_baseline(xdt, bm, cm, cum),
+                                iters=3, warmup=1),
                  "plain": cuda_ms(lambda: ssd_chunk_scan_ref(
                      xdt, bm, cm, cum, return_state=True), iters=2,
                      warmup=1)}
-        ssd_time[label] = {**t, **cost, "shape": shape}
+            parts_ms = kernel_ms(lambda: chunk_scan(
+                xdt, bm, cm, cum, return_state=True))
+        ssd_time[label] = {**t, **cost, "shape": shape, "parts": parts_ms}
         print(f"ssd {label} (B, H, C, Q, P, N)={shape} f32: kernel "
               f"{t['kernel']:.4f} ms ({cost['flops'] / t['kernel'] / 1e9:.2f} "
               f"TFLOP/s of the formula's {cost['flops'] / 1e9:.1f} GFLOP, "
-              f"{cost['blocks']} blocks) | bound {cost['bound']:.4f} ms "
-              f"({cost['bound_by']}: needed {cost['needed'] / 1e9:.2f} GFLOP "
-              f"/ 67 TFLOP/s, {cost['bytes'] / 1e9:.3f} GB / 3.35 TB/s; "
-              f"{cost['bound'] / t['kernel']:.1%} of it) | plain "
-              f"{t['plain']:.4f} ms | library: none (no PyTorch call "
-              f"computes the chunk scan)")
+              f"{cost['needed'] / t['kernel'] / 1e9:.2f} of the needed "
+              f"{cost['needed'] / 1e9:.2f}; {t['was'] / t['kernel']:.2f}x "
+              f"faster than the sequential design's {t['was']:.4f} ms) | "
+              f"bound {cost['bound']:.4f} ms at {SSD_TC_PEAK / 1e12:.0f} "
+              f"TFLOP/s, 3xTF32 ({cost['bound_by']}; "
+              f"{cost['bound'] / t['kernel']:.1%} of it), "
+              f"{cost['bound_cuda_cores']:.4f} ms at "
+              f"{F32_PEAK / 1e12:.0f} TFLOP/s, CUDA cores "
+              f"({cost['bound_by_cuda_cores']}); {cost['bytes'] / 1e9:.4f} "
+              f"GB / 3.35 TB/s | plain {t['plain']:.4f} ms | library: none "
+              f"(no PyTorch call computes the chunk scan)")
+        print("  blocks " + ", ".join(f"{k} {v}" for k, v in
+                                      cost["blocks"].items()))
+        print("  device ms per kernel (torch.profiler) " + ", ".join(
+            f"{k} {v:.4f}" for k, v in parts_ms.items()))
         del ops, xdt, bm, cm, cum
         torch.cuda.empty_cache()
 
@@ -1643,15 +1738,22 @@ def main() -> int:
          "launches_serving": serving["launches"],
          "launches_zamba2_step": hyb["launches"]["ssd_chunk_scan"],
          "max_abs_err": errs["ssd_y"], "max_abs_err_state": errs["ssd_state"],
-         "ms": t_srv["kernel"], "plain_ms": t_srv["plain"],
+         "ms": t_srv["kernel"], "was_ms": t_srv["was"],
+         "plain_ms": t_srv["plain"],
          "bound_ms": t_srv["bound"], "bound_by": t_srv["bound_by"],
-         "library_ms": None,
+         "bound_ms_cuda_cores": t_srv["bound_cuda_cores"],
+         "bound_by_cuda_cores": t_srv["bound_by_cuda_cores"],
+         "library_ms": None, "tensor_cores": True, "products": "3xTF32",
          "library_note": "no single PyTorch call computes the SSD chunk scan",
          "checks_passed": n_checks["ssd_chunk_scan"],
          "shape": list(t_srv["shape"]), "dtype": "float32",
          "bound_flops": t_srv["needed"], "formula_flops": t_srv["flops"],
+         "device_ms_per_kernel": t_srv["parts"],
          "train_shape": list(t_hyb["shape"]), "train_ms": t_hyb["kernel"],
-         "train_plain_ms": t_hyb["plain"], "train_bound_ms": t_hyb["bound"],
+         "train_was_ms": t_hyb["was"], "train_plain_ms": t_hyb["plain"],
+         "train_bound_ms": t_hyb["bound"],
+         "train_bound_ms_cuda_cores": t_hyb["bound_cuda_cores"],
+         "train_device_ms_per_kernel": t_hyb["parts"],
          "serving_prefill_ms": serving["prefill_ms"],
          "serving_decode_ms_per_step": serving["decode_ms"],
          "zamba2_step_ms": {f"use_flash={k[0]} tile=({k[1]}, {k[2]})": ms

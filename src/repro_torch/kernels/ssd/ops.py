@@ -5,10 +5,14 @@ The kernel (``csrc/ssd.cu``) replaces the Pallas ``ssd_chunk_scan_pallas``
 / ``_ssd_kernel`` of the JAX package (the contract is in
 :mod:`repro_torch.kernels.ssd.ref`). It also writes, when asked, the
 state after the last chunk, which the prefill cache needs, and takes an
-optional initial state ``h0``. The JAX package has no backward kernel
-for the scan (no custom VJP), so :class:`_ChunkScan`'s backward
-recomputes through the plain version, as the flash kernel's does: the
-gradients are the plain version's.
+optional initial state ``h0``. One launch enqueues four CUDA kernels
+(:data:`KERNELS`: each chunk's scores, each chunk's own state
+contribution, the sequential state carry, the output), which meet in
+two scratch tensors the wrapper allocates: the scores ``(B, C, Q, Q)``
+and the chunk states ``(B, H, C, P, N)``. The JAX package has no
+backward kernel for the scan (no custom VJP), so :class:`_ChunkScan`'s
+backward recomputes through the plain version, as the flash kernel's
+does: the gradients are the plain version's.
 
 Which device takes which path: CUDA tensors launch the kernel (one count
 in ``ssd_chunk_scan.launches`` per launch) or raise; CPU and ``meta``
@@ -29,31 +33,62 @@ import torch
 from .. import build
 from .ref import ssd_chunk_scan_ref
 
-__all__ = ["MAX_STATE", "bytes_moved", "chunk_scan", "needed_flops",
-           "smem_bytes", "ssd_chunk_scan"]
+__all__ = ["KERNELS", "MAX_STATE", "bytes_moved", "chunk_scan", "grid",
+           "kernel_info", "needed_flops", "ssd_chunk_scan"]
 
-#: the largest state width N the kernel takes (its registers and shared
-#: memory are sized for it); any P >= 1 and Q >= 1 are taken
+#: the largest state width N the kernel takes; any P >= 1 and Q >= 1 are
+#: taken
 MAX_STATE = 256
+#: the CUDA kernels one launch enqueues, in order (their names in a trace)
+KERNELS = ("ssd_scores_kernel", "ssd_states_kernel", "ssd_pass_kernel",
+           "ssd_output_kernel")
+_TILE = 64                    # output tile of the scores, states and output
+_PASS_THREADS = 256           # threads of a state-carry block
+_MAX_GRID_X = 2 ** 31 - 1
+_MAX_GRID_Y = 65535
 _PLAIN_DEVICES = ("cpu", "meta")
-_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int64,) * 6
+_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int64,) * 6
              + (ctypes.c_int, ctypes.c_void_p))
-_MAX_GRID_YZ = 65535
 _COUNT_LOCK = threading.Lock()
 _LAUNCHER: list = []          # the ctypes launcher, filled at first launch
 
 
-def smem_bytes(n_state: int) -> int:
-    """Dynamic shared memory one block of the kernel takes at state width
-    ``n_state``, as the compiled library reports it (builds the
-    library); raises for a width the kernel does not take."""
-    lib = build.library()
-    lib.rt_ssd_chunk_scan_smem_bytes.argtypes = [ctypes.c_int64]
-    lib.rt_ssd_chunk_scan_smem_bytes.restype = ctypes.c_int64
-    n = lib.rt_ssd_chunk_scan_smem_bytes(n_state)
-    if n < 0:
-        raise ValueError(f"no SSD kernel for state width {n_state}")
-    return n
+def grid(B: int, H: int, C: int, Q: int, P: int, N: int) -> dict:
+    """Blocks each kernel of one launch runs at (B, H, C, Q, P, N), as
+    ``(gridDim.x, gridDim.y)`` (``csrc/ssd.cu``'s ``make_grid``): the
+    scores one per (b, c, 64 x 64 tile on or below the diagonal); the
+    chunk states x = B·H·C, y = the 64 x 64 tiles of (P, N); the state
+    carry one per (b, h, 256 threads of 4 state elements, or of 1 where
+    P·N is not a multiple of 4 or ``h0`` not 16-byte aligned); the output
+    one per (b, c, 64 rows, head, 64 columns of P)."""
+    def cdiv(a, b):
+        return -(-a // b)
+    q_tiles = cdiv(Q, _TILE)
+    per_thread = 4 if P * N % 4 == 0 else 1
+    return {"ssd_scores_kernel": (q_tiles * (q_tiles + 1) // 2 * B * C, 1),
+            "ssd_states_kernel": (B * H * C, cdiv(P, _TILE) * cdiv(N, _TILE)),
+            "ssd_pass_kernel": (cdiv(P * N, _PASS_THREADS * per_thread)
+                                * B * H, 1),
+            "ssd_output_kernel": (B * C * q_tiles * H * cdiv(P, _TILE), 1)}
+
+
+def kernel_info() -> dict:
+    """Each kernel's launch shape on the current card, as the compiled
+    library reports it (builds the library): threads a block, dynamic
+    shared memory a block in bytes, and the blocks an SM holds (the CUDA
+    runtime's occupancy)."""
+    fn = build.kernel_fn("rt_ssd_kernel_info",
+                         (ctypes.c_int, ctypes.POINTER(ctypes.c_int64)))
+    out = {}
+    for which, name in enumerate(KERNELS):
+        info = (ctypes.c_int64 * 3)()
+        rc = fn(which, info)
+        if rc != 0:
+            raise RuntimeError(f"rt_ssd_kernel_info({which}) failed: CUDA "
+                               f"error {rc}")
+        out[name] = {"threads": info[0], "smem_bytes": info[1],
+                     "blocks_per_sm": info[2]}
+    return out
 
 
 def bytes_moved(B: int, H: int, S: int, Q: int, P: int, N: int,
@@ -108,9 +143,12 @@ def _launch(xdt, bm, cm, cum, h0, return_state: bool):
     if q < 1 or p < 1:
         raise ValueError(f"chunk length and head dim must be positive, got "
                          f"Q={q}, P={p}")
-    if b > _MAX_GRID_YZ or h > _MAX_GRID_YZ:
-        raise ValueError(f"batch {b} or heads {h} over the grid limit "
-                         f"{_MAX_GRID_YZ}")
+    for name, (gx, gy) in grid(b, h, c, q, p, n).items():
+        if gx > _MAX_GRID_X or gy > _MAX_GRID_Y:
+            raise ValueError(f"(B, H, C, Q, P, N) = {(b, h, c, q, p, n)} "
+                             f"needs a grid of ({gx}, {gy}) blocks for "
+                             f"{name}, over CUDA's ({_MAX_GRID_X}, "
+                             f"{_MAX_GRID_Y})")
     dev = xdt.device
     if not _LAUNCHER:
         _LAUNCHER.append(build.kernel_fn("rt_ssd_chunk_scan_f32", _ARGTYPES))
@@ -118,13 +156,17 @@ def _launch(xdt, bm, cm, cum, h0, return_state: bool):
     h_out = (torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
              if return_state else None)
     # each chunk's C B^T, shared by the heads (only tiles on or below the
-    # diagonal are written and read)
+    # diagonal are written and read), and each chunk's own state
+    # contribution, which the state carry overwrites with the state
+    # entering the chunk
     scores = torch.empty((b, c, q, q), dtype=torch.float32, device=dev)
+    states = torch.empty((b, h, c, p, n), dtype=torch.float32, device=dev)
     rc = _LAUNCHER[0](
         xdt.data_ptr(), bm.data_ptr(), cm.data_ptr(), cum.data_ptr(),
         None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        None if h_out is None else h_out.data_ptr(), scores.data_ptr(), b, h,
-        c, q, p, n, dev.index, build.current_stream_ptr(dev.index))
+        None if h_out is None else h_out.data_ptr(), scores.data_ptr(),
+        states.data_ptr(), b, h, c, q, p, n, dev.index,
+        build.current_stream_ptr(dev.index))
     if rc != 0:
         raise RuntimeError(f"SSD chunk-scan kernel launch failed: CUDA "
                            f"error {rc}")

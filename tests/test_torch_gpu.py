@@ -232,6 +232,9 @@ SSD_CASES = [  # (B, H, C, Q, P, N, with h0)
     (1, 2, 2, 70, 80, 256, False),
     (1, 3, 2, 130, 33, 5, True),
     (2, 4, 2, 256, 64, 128, False),
+    (1, 3, 4, 96, 64, 200, True),       # N = 200: a ragged last k slice
+    (2, 2, 3, 128, 32, 256, False),     # N = 256, the widest state taken
+    (1, 9, 8192, 8, 8, 16, False),      # B·H·C = 73,728 > 65,535 blocks
 ]
 
 

@@ -22,8 +22,8 @@ from repro.kernels.ssd import ssd_chunk_scan as jax_ops_scan
 from repro.kernels.ssd import ssd_chunk_scan_pallas, ssd_chunk_scan_ref as \
     jax_scan_ref
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.ssd import (bytes_moved, chunk_scan, flops,
-                                     needed_flops, ssd_chunk_scan)
+from repro_torch.kernels.ssd import (KERNELS, bytes_moved, chunk_scan, flops,
+                                     grid, needed_flops, ssd_chunk_scan)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 STATE_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -60,6 +60,121 @@ def _state_by_recurrence(xdt, bm, cum):
             h = np.exp(step)[..., None, None] * h + \
                 xdt[:, :, c, t, :, None] * bm[:, None, c, t, None, :]
     return h
+
+
+def _three_phases(xdt, bm, cm, cum, h0=None):
+    """The chunk-parallel decomposition the CUDA kernel follows, in plain
+    torch: (1) each chunk's own state contribution, (2) the sequential
+    state carry, (3) the output from the scores and the entering state.
+    Returns (y, final state, the state entering each chunk)."""
+    B, H, C, Q, P = xdt.shape
+    N = bm.shape[-1]
+    # 1. s_c = (xdt_c ⊙ exp(cum_c[Q-1] - cum_c))ᵀ B_c, every chunk at once
+    w = torch.exp(cum[..., -1:] - cum)                     # (B, H, C, Q)
+    s = torch.einsum("bhcqp,bcqn->bhcpn", xdt * w[..., None], bm)
+    # 2. the carry: the state entering chunk c, then h <- e^{total} h + s_c
+    h = torch.zeros(B, H, P, N) if h0 is None else h0
+    entering = []
+    for c in range(C):
+        entering.append(h)
+        h = torch.exp(cum[:, :, c, -1])[..., None, None] * h + s[:, :, c]
+    entering = torch.stack(entering, dim=2)                # (B, H, C, P, N)
+    # 3. y = (C Bᵀ ⊙ L) xdt + (C hᵀ) ⊙ exp(cum), every chunk at once
+    scores = torch.einsum("bcin,bcjn->bcij", cm, bm)
+    causal = torch.ones(Q, Q, dtype=torch.bool).tril()
+    decay = torch.exp((cum[..., :, None] - cum[..., None, :])
+                      .masked_fill(~causal, float("-inf")))
+    y = torch.einsum("bcij,bhcij,bhcjp->bhcip", scores, decay, xdt) + \
+        torch.einsum("bcin,bhcpn->bhcip", cm, entering) * \
+        torch.exp(cum)[..., None]
+    return y, h, entering
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_chunk_parallel_phases_match_the_reference(shape):
+    """The kernel's three phases give the JAX reference's y, the
+    recurrence's final state and, for every chunk, the recurrence's state
+    entering it; split into two launches at the middle chunk, the second
+    starting from the first's returned state (``h0``, ``return_state``),
+    they give the same y and final state."""
+    arrays = make_inputs(**shape)
+    xdt, bm, cm, cum = arrays
+    want = np.asarray(jax_scan_ref(*map(jnp.asarray, arrays)))
+    y, h_final, entering = _three_phases(*_t(arrays))
+    np.testing.assert_allclose(y.numpy(), want, **TOL)
+    np.testing.assert_allclose(h_final.numpy(),
+                               _state_by_recurrence(xdt, bm, cum),
+                               **STATE_TOL)
+    for c in range(xdt.shape[2]):
+        np.testing.assert_allclose(
+            entering[:, :, c].numpy(),
+            _state_by_recurrence(xdt[:, :, :c], bm[:, :c], cum[:, :, :c]),
+            err_msg=f"state entering chunk {c}", **STATE_TOL)
+    k = xdt.shape[2] // 2
+    y0, h_mid, _ = _three_phases(*_t((xdt[:, :, :k], bm[:, :k], cm[:, :k],
+                                      cum[:, :, :k])))
+    y1, h_end, _ = _three_phases(*_t((xdt[:, :, k:], bm[:, k:], cm[:, k:],
+                                      cum[:, :, k:])), h0=h_mid)
+    np.testing.assert_allclose(torch.cat([y0, y1], dim=2).numpy(), want,
+                               **TOL)
+    np.testing.assert_allclose(h_end.numpy(), h_final.numpy(), **STATE_TOL)
+
+
+def test_grid_flattens_the_chunks_and_puts_the_heads_on_x():
+    """The four kernels' blocks at the main path's shapes and at a shape
+    with B·H·C over 65,535 (the old grid's y/z limit), which now fits."""
+    assert grid(4, 24, 128, 256, 64, 128) == {
+        "ssd_scores_kernel": (10 * 4 * 128, 1),
+        "ssd_states_kernel": (4 * 24 * 128, 2),
+        "ssd_pass_kernel": (8 * 4 * 24, 1),
+        "ssd_output_kernel": (4 * 128 * 4 * 24, 1)}
+    assert grid(1, 80, 32, 128, 64, 64) == {
+        "ssd_scores_kernel": (3 * 32, 1), "ssd_states_kernel": (2560, 1),
+        "ssd_pass_kernel": (4 * 80, 1), "ssd_output_kernel": (2 * 32 * 80, 1)}
+    big = grid(1, 9, 8192, 8, 8, 16)
+    assert big["ssd_states_kernel"] == (73728, 1)
+    assert big["ssd_output_kernel"] == (73728, 1)
+    # P·N not a multiple of 4: one state element a thread
+    assert grid(1, 3, 2, 130, 33, 5)["ssd_pass_kernel"] == (3, 1)
+    assert grid(1, 1, 1, 1, 65, 200)["ssd_states_kernel"] == (1, 8)
+
+
+def test_a_grid_past_cudas_limits_raises_before_the_library():
+    from repro_torch.kernels.ssd import ops
+    b, h, c = 1, 65536, 32768                  # B·H·C = 2**31
+    meta = [torch.empty(shape, device="meta") for shape in
+            ((b, h, c, 1, 1), (b, c, 1, 1), (b, c, 1, 1), (b, h, c, 1))]
+    with pytest.raises(ValueError, match="ssd_states_kernel"):
+        ops._launch(*meta, None, False)
+
+
+def test_kernel_names_are_the_sources_kernels():
+    """``KERNELS`` (the names a trace looks up) are the ``__global__``
+    functions of ``csrc/ssd.cu``, in launch order."""
+    import re
+
+    from repro_torch.kernels import build
+    src = (build.CSRC / "ssd.cu").read_text(encoding="utf-8")
+    defined = re.findall(r"__global__ void __launch_bounds__\([^)]*\)\n"
+                         r"(\w+)\(", src)
+    launched = re.findall(r"\b(ssd_\w+_kernel)\b(?:<[^>]*>)?<<<|"
+                          r"\b(ssd_pass_kernel)<4> :", src)
+    assert tuple(defined) == KERNELS
+    assert [a or b for a, b in launched] == list(KERNELS)
+
+
+@pytest.mark.parametrize("variant", ["tensor_core_sums", "no_split",
+                                     "no_loads", "one_product"])
+def test_probe_edits_still_match_the_kernel_source(variant):
+    """Each variant of ``bench/ssd_probe.py`` is an edit of ``csrc/ssd.cu``
+    that must find its text exactly once, or the probe would measure the
+    shipped kernel under another name."""
+    from repro_torch.bench.ssd_probe import EDITS, variant_source
+    shipped = variant_source("shipped")
+    edited = variant_source(variant)
+    assert edited != shipped
+    for old, new in EDITS[variant]:
+        assert new in edited
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
