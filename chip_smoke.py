@@ -14,10 +14,12 @@ run when it fails:
                its time only); print the seconds, every kernel's
                registers, spills and static shared memory, the kernels
                that spill, the dynamic shared memory of the GEMM and
-               flash (both kernels, every bf16 tile) blocks, and each of
-               the four SSD kernels' threads, dynamic shared memory and
-               blocks per SM; the library's bf16 flash tile table must be
-               the wrapper's.
+               flash blocks (the CUDA-core kernel at each head dim, the
+               bf16 and 3xTF32 tensor-core kernels at every tile, the
+               latter with its registers and spills), and each of the
+               four SSD kernels' threads, dynamic shared memory and
+               blocks per SM; the library's bf16 and tf32x3 flash tile
+               tables must be the wrapper's.
 3. checks    — each kernel against its plain PyTorch version on the card:
                GEMM at every tile of the table at 4096x2048x6144 f32 and
                at 300x450x200 and 1024x256x128 in f32 and bf16; TRIAD at
@@ -26,9 +28,10 @@ run when it fails:
                length of the ``triad --full`` ladder in f32; flash
                attention on the cases of ``tests/test_kernels.py`` and
                at every head dim the configs use, each at every (bq, bk)
-               of the full model-step space (bf16 on the tensor-core
-               kernel, which must run every compiled physical tile; f32
-               on the CUDA cores), then at the model step's
+               of the full model-step space, each on its route (bf16 on
+               the tensor-core kernel and f32 at D <= 128 on the 3xTF32
+               one, each of which must run every compiled physical tile;
+               f32 at D = 256 on the CUDA cores), then at the model step's
                shape (B=1, H=32, Hkv=8, S=4096, D=64, causal) at each
                tile of the quick space, in bf16 and in f32 within
                FLASH_MAIN_TOL, and its
@@ -47,7 +50,10 @@ run when it fails:
                dispatch); the host cost of one tuner sample at
                n = 1024, split into the wrapper's dispatch and the
                sampler's synchronize; the flash kernel at each quick tile
-               beside scaled_dot_product_attention, its f32 route, and
+               beside scaled_dot_product_attention, in bf16 and in f32
+               (the 3xTF32 kernel at each quick tile beside the CUDA-core
+               kernel it replaced, checked first, its bounds at 165 and
+               67 TFLOP/s and scaled_dot_product_attention), and
                zamba2-2.7b's D = 80 at each quick tile (checked first);
                attention forward + backward at
                the model step's shape on the flash and plain paths; the
@@ -79,8 +85,9 @@ run when it fails:
                4-layer loss with ``use_flash=1`` must match
                ``use_flash=0`` on the same weights within
                MODEL_STEP["loss_rtol"]; then the same in float32 (the
-               f32 flash kernel, one launch a layer) within
-               MODEL_STEP["f32_loss_rtol"].
+               3xTF32 flash kernel, one launch a layer) within
+               MODEL_STEP["f32_loss_rtol"], and that f32 step's time on
+               the flash and plain paths.
 7. full depth — one granite-3-2b train step at all 40 layers, B=1,
                S=4096, ``use_flash=1`` at the tuner's best flash tiles:
                loss and gradients finite; step time and peak memory.
@@ -105,8 +112,9 @@ run when it fails:
 Each phase prints its seconds.
 
 The last three lines are the card line, one ``{"kernels": [...]}`` JSON
-object (flash attention split by route: ``flash_attention`` the bf16
-tensor-core kernel, ``flash_attention_f32`` the CUDA-core one) and
+object (flash attention split by dtype: ``flash_attention`` the bf16
+tensor-core kernel, ``flash_attention_f32`` the 3xTF32 one, with the
+CUDA-core kernel it replaced as ``was_ms``) and
 ``{"ok": true, "device": {...}}``. Without a card, or outside
 a checkout, the script exits non-zero and prints neither.
 """
@@ -137,8 +145,8 @@ HBM_PEAK = 3.35e12
 BF16_PEAK = 989e12                         # tensor cores, bf16, dense
 TF32_PEAK = 495e12                         # tensor cores, tf32, dense
 #: f32-accurate products from the TF32 tensor cores, three products each
-#: (the SSD kernel's 3xTF32 split)
-SSD_TC_PEAK = TF32_PEAK / 3
+#: (the 3xTF32 split of the SSD kernel and the f32 flash kernel)
+TF32X3_PEAK = TF32_PEAK / 3
 SUBPROCESS_TIMEOUT_S = 420
 FLASH_MAIN = (1, 32, 8, 4096, 64)          # (B, H, Hkv, S, D), granite-3-2b
 FLASH_TOL = {"f32": {"rtol": 2e-5, "atol": 2e-5},   # tests/test_kernels.py
@@ -149,8 +157,10 @@ FLASH_TOL = {"f32": {"rtol": 2e-5, "atol": 2e-5},   # tests/test_kernels.py
 # bf16; the tensor-core kernel also rounds P to bf16 before P V (its max
 # abs error there reads 7.8e-3 to 1.6e-2 on an H100, by the seeded draw,
 # against 1.95e-3 for the CUDA-core kernel, PERF.md), within two bf16 ulps
-# (2**-8 relative; rtol 1.6e-2) plus atol 4e-3; f32 orders its sums differently only. A kv sub-tile dropped or
-# misweighted at long S moves outputs by ~1e-3.
+# (2**-8 relative; rtol 1.6e-2) plus atol 4e-3. In f32 the kernel differs
+# by its products' rounding (3xTF32, ~22 bits each) and the order of its
+# sums only (see F32_LOSS_RTOL). A kv sub-tile dropped or misweighted at
+# long S moves outputs by ~1e-3.
 FLASH_MAIN_TOL = {"f32": {"rtol": 1e-5, "atol": 1e-5},
                   "bf16": {"rtol": 1.6e-2, "atol": 4e-3}}
 #: (b, hq, hkv, s, d, causal, window, dtype): the flash cases of
@@ -169,11 +179,16 @@ FLASH_CASES = (
     + [(1, 4, 4, 300, 80, True, 96, dt) for dt in ("f32", "bf16")]
     + [(1, 4, 2, 300, 32, True, 96, "bf16"),
        (2, 8, 2, 256, 64, False, None, "bf16")])
-# In float32 the flash kernel (CUDA cores) and the plain attention differ by
-# the order of their f32 sums only (1e-6 relative per element at most at
-# the main shape, FLASH_MAIN_TOL); through 4 layers that is far below the
-# limit, which a kernel wrong in one layer or a share of rows exceeds.
+# In float32 the flash kernel (3xTF32 on the tensor cores: ~22 of f32's 24
+# bits a product) and the plain attention differ by their products'
+# rounding and the order of their sums: at the main shape, where an output
+# element is about 0.03, the largest error reads 1.2e-6 absolute on an H100
+# (7.7e-7 for the CUDA-core kernel it replaced, same run; PERF.md), within
+# FLASH_MAIN_TOL. Through 4 layers that is far below the limit, which a
+# kernel wrong in one layer or a share of rows exceeds.
 F32_LOSS_RTOL = 1e-5
+#: timed runs of each float32 4-layer train step (median)
+F32_STEP_REPEATS = 3
 # The flash and plain attention outputs are each rounded to bf16, and the
 # tensor-core kernel rounds P to bf16 too, so they differ by about one bf16
 # ulp (2**-8 relative) in some elements; through 4 random-weight layers
@@ -430,50 +445,57 @@ def launch_checked(wrapper, call):
 
 def flash_case_checks(randn) -> tuple[int, float]:
     """The flash kernels against ``attention_ref`` on every case of
-    FLASH_CASES, each at every (bq, bk) of the full model-step space: the
-    bf16 cases on the tensor-core kernel, which must have run every
-    compiled physical tile of every head dim, the f32 cases on the CUDA
-    cores. Returns (checks, max abs err over the f32 cases)."""
+    FLASH_CASES, each at every (bq, bk) of the full model-step space, each
+    on the route its dtype and head dim take (``route``): the bf16 cases
+    on the tensor-core kernel and the f32 cases at D <= 128 on the 3xTF32
+    one, which must each have run every compiled physical tile of every
+    head dim, the f32 cases at D = 256 on the CUDA cores. Returns (checks,
+    max abs err over the f32 cases)."""
     import torch
     from repro_torch.bench.common import model_step_space
     from repro_torch.kernels.flash_attention import (SM90_TILES,
+                                                     TF32X3_TILES,
                                                      attention_ref,
                                                      flash_attention,
                                                      padded_blocks,
-                                                     physical_tile)
+                                                     physical_tile, route)
     tiles = sorted({(c["flash_block_q"], c["flash_block_k"])
                     for c in model_step_space(False).configs()})
-    ran = {d: set() for d in SM90_TILES}   # physical tiles run, bf16
+    tables = {"tensor_cores": SM90_TILES, "tf32x3": TF32X3_TILES}
+    # physical tiles run, per tensor-core route and head dim
+    ran = {r: {d: set() for d in t} for r, t in tables.items()}
     checks, worst_f32 = 0, 0.0
     for b, hq, hkv, s, d, causal, window, dt in FLASH_CASES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         q, k, v = (randn(b, h, s, d, dtype=dtype) for h in (hq, hkv, hkv))
         want = attention_ref(q, k, v, causal=causal, window=window)
+        path = route(dtype, d)
         label = (f"flash b={b} h={hq}/{hkv} s={s} d={d} causal={causal} "
-                 f"window={window} {dt}")
-        route = "tensor_cores" if dt == "bf16" else "cuda_cores"
+                 f"window={window} {dt} ({path})")
         worst = 0.0
         for bq, bk in tiles:
-            routed = flash_attention.route_launches[route]
+            routed = flash_attention.route_launches[path]
             got = launch_checked(flash_attention, lambda: flash_attention(
                 q, k, v, causal=causal, window=window, bq=bq, bk=bk))
-            if flash_attention.route_launches[route] != routed + 1:
-                fail(f"{label}: the {route} kernel did not launch")
+            if flash_attention.route_launches[path] != routed + 1:
+                fail(f"{label}: the {path} kernel did not launch")
             worst = max(worst, check_close(f"{label} tile ({bq}, {bk})", got,
                                            want, FLASH_TOL[dt]))
             checks += 1
-            if dt == "bf16":
+            if path in tables:
                 bq_, bk_, _ = padded_blocks(s, bq, bk)
-                ran[d].add(physical_tile(bq_, bk_, SM90_TILES[d]))
+                ran[path][d].add(physical_tile(bq_, bk_, tables[path][d]))
         if dt == "f32":
             worst_f32 = max(worst_f32, worst)
         print(f"{label}: {len(tiles)} tiles ok, max abs err {worst:.3e}")
-    for d, compiled in SM90_TILES.items():
-        if ran[d] != set(compiled):
-            fail(f"flash bf16 d={d}: the cases ran physical tiles "
-                 f"{sorted(ran[d])}, not every compiled one {compiled}")
-    print(f"flash bf16: every compiled (head dim, physical tile) checked: "
-          f"{sum(map(len, ran.values()))} kernels")
+    for path, table in tables.items():
+        for d, compiled in table.items():
+            if ran[path][d] != set(compiled):
+                fail(f"flash {path} d={d}: the cases ran physical tiles "
+                     f"{sorted(ran[path][d])}, not every compiled one "
+                     f"{compiled}")
+        print(f"flash {path}: every compiled (head dim, physical tile) "
+              f"checked: {sum(map(len, ran[path].values()))} kernels")
     return checks, worst_f32
 
 
@@ -623,7 +645,7 @@ def model_step_path(work: pathlib.Path, spec: dict) -> dict:
     print(f"model step: best {result.best_config} score "
           f"{result.best_score:.1f} GFLOP/s; session wall {wall:.1f}s; "
           f"launches {launches}; flash per route {routes}")
-    if routes != {"tensor_cores": launches["flash_attention"],
+    if routes != {"tensor_cores": launches["flash_attention"], "tf32x3": 0,
                   "cuda_cores": 0}:
         fail(f"model step ({cfg.dtype}): flash launches {routes} did not all "
              f"go through the tensor-core kernel")
@@ -661,11 +683,15 @@ def model_step_path(work: pathlib.Path, spec: dict) -> dict:
 def f32_loss(cfg, b: int, s: int, tile: tuple[int, int], rtol: float
              ) -> dict:
     """The same step in float32 (weights, activations, attention): the
-    loss with ``use_flash=1``, which runs the f32 flash kernel on the CUDA
-    cores, against ``use_flash=0`` within ``rtol``. Returns the relative
-    difference and the f32 kernel's launches in these two steps."""
+    loss with ``use_flash=1``, which runs the f32 flash kernel on the
+    tensor cores (3xTF32, the ``tf32x3`` route), against ``use_flash=0``
+    within ``rtol``; then each step's median milliseconds over
+    F32_STEP_REPEATS runs (host clock, synchronized). Returns the relative
+    difference, the f32 kernel's launches in the two loss steps and the
+    step times."""
     import dataclasses
     import gc
+    import statistics
     import torch
     from repro_torch import kernels
     from repro_torch.models.transformer import StepConfig
@@ -673,16 +699,16 @@ def f32_loss(cfg, b: int, s: int, tile: tuple[int, int], rtol: float
     cfg = dataclasses.replace(cfg, dtype="float32")
     w = build_workload("train_step", cfg, batch_size=b, seq_len=s)
     before = dict(kernels.flash_attention.route_launches)
-    losses = {}
-    for label, step in (("plain", StepConfig(remat=False)),
-                        ("flash", StepConfig(use_flash=True,
+    steps = {"plain": w.with_step(StepConfig(remat=False)),
+             "flash": w.with_step(StepConfig(use_flash=True,
                                              flash_block_q=tile[0],
                                              flash_block_k=tile[1],
-                                             remat=False))):
-        losses[label] = float(w.with_step(step).fn(*w.args)[0])
+                                             remat=False))}
+    losses = {label: float(step.fn(*w.args)[0])
+              for label, step in steps.items()}
     torch.cuda.synchronize()
-    after = kernels.flash_attention.route_launches
-    f32_launches = after["cuda_cores"] - before["cuda_cores"]
+    after = dict(kernels.flash_attention.route_launches)
+    f32_launches = after["tf32x3"] - before["tf32x3"]
     rel = abs(losses["flash"] / losses["plain"] - 1.0)
     print(f"{cfg.n_layers}-layer loss in float32: use_flash=1 "
           f"{losses['flash']:.7f} vs use_flash=0 {losses['plain']:.7f} "
@@ -691,14 +717,27 @@ def f32_loss(cfg, b: int, s: int, tile: tuple[int, int], rtol: float
     if not (math.isfinite(rel) and rel <= rtol):
         fail(f"model step f32: flash loss {losses['flash']} vs plain "
              f"{losses['plain']}")
-    if f32_launches != cfg.n_layers or \
-            after["tensor_cores"] != before["tensor_cores"]:
+    if f32_launches != cfg.n_layers or any(
+            after[r] != before[r] for r in ("tensor_cores", "cuda_cores")):
         fail(f"model step f32: flash launches per route went from {before} "
-             f"to {dict(after)}, want {cfg.n_layers} on the CUDA cores")
-    del w
+             f"to {after}, want {cfg.n_layers} on the tf32x3 kernel")
+    step_ms = {}
+    for label, step in steps.items():
+        times = []
+        for _ in range(F32_STEP_REPEATS):
+            t0 = time.perf_counter()
+            step.fn(*w.args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms[label] = statistics.median(times)
+    print(f"{cfg.n_layers}-layer train step in float32, median of "
+          f"{F32_STEP_REPEATS}: use_flash=1 {step_ms['flash']:.2f} ms, "
+          f"use_flash=0 {step_ms['plain']:.2f} ms")
+    del w, steps
     gc.collect()
     torch.cuda.empty_cache()
-    return {"f32_loss_rel": rel, "f32_launches": f32_launches}
+    return {"f32_loss_rel": rel, "f32_launches": f32_launches,
+            "f32_step_ms": step_ms}
 
 
 def full_depth_step(tile: tuple[int, int]) -> dict:
@@ -810,7 +849,7 @@ def ssd_shape_cost(shape: tuple) -> dict:
     is the JAX package's formula, the rate's work term; the bounds count
     only the work the function needs (``needed_flops``: C·Bᵀ once for all
     heads, the causal triangle of the quadratic terms): ``bound`` at the
-    rate of f32-accurate products on the tensor cores (SSD_TC_PEAK, the
+    rate of f32-accurate products on the tensor cores (TF32X3_PEAK, the
     least time for this work at f32 accuracy), ``bound_cuda_cores`` at the
     CUDA cores' F32_PEAK. ``blocks``: each kernel's grid (``ops.grid``)."""
     from repro_torch.kernels.ssd import bytes_moved, flops, grid, needed_flops
@@ -821,7 +860,7 @@ def ssd_shape_cost(shape: tuple) -> dict:
     def bound(peak: float) -> tuple[float, str]:
         return (max(work / peak, moved / HBM_PEAK) * 1e3,
                 "operations" if work / peak >= moved / HBM_PEAK else "bytes")
-    (tc, tc_by), (cc, cc_by) = bound(SSD_TC_PEAK), bound(F32_PEAK)
+    (tc, tc_by), (cc, cc_by) = bound(TF32X3_PEAK), bound(F32_PEAK)
     return {"flops": flops(b, h, c * q, q, p, n), "needed": work,
             "bytes": moved, "bound": tc, "bound_by": tc_by,
             "bound_cuda_cores": cc, "bound_by_cuda_cores": cc_by,
@@ -869,6 +908,33 @@ def ssd_baseline_fn(lib_path):
             fail(f"the sequential SSD baseline failed to launch: CUDA error "
                  f"{rc}")
         return y, h_out
+    return run
+
+
+def cuda_core_flash(d: int):
+    """The f32 CUDA-core flash kernel's launcher at head dim ``d`` as a
+    function of causal (B, H, S, D) q and (B, Hkv, S, D) k/v on the card
+    (S a multiple of the logical block) and the logical (bq, bk): the
+    design the 3xTF32 kernel replaced at D <= 128, timed beside it
+    (``was_ms``) and never a path of the port there. Bypasses the
+    wrapper, so it counts no launch."""
+    import torch
+    from repro_torch.kernels import build
+    fn = build.kernel_fn(f"rt_flash_attention_f32_d{d}", (
+        (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 7
+        + (ctypes.c_int, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
+           ctypes.c_void_p)))
+
+    def run(q, k, v, bq, bk):
+        b, h, s, _ = q.shape
+        o = torch.empty_like(q)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h,
+                k.shape[1], s, s, bq, bk, 1, 0, 1.0 / math.sqrt(d),
+                q.device.index, build.current_stream_ptr(q.device.index))
+        if rc != 0:
+            fail(f"the CUDA-core flash kernel failed to launch: CUDA error "
+                 f"{rc}")
+        return o
     return run
 
 
@@ -1170,10 +1236,12 @@ def main() -> int:
     from repro_torch.kernels.matmul import TILES, matmul, matmul_ref
     from repro_torch.kernels.matmul import smem_bytes as gemm_smem_bytes
     from repro_torch.kernels.flash_attention import (SM90_TILES,
+                                                     TF32X3_TILES,
                                                      attention_ref,
                                                      bytes_moved,
                                                      flash_attention,
-                                                     sm90_smem_bytes)
+                                                     sm90_smem_bytes,
+                                                     tf32x3_smem_bytes)
     from repro_torch.kernels.flash_attention import flops as flash_flops
     from repro_torch.kernels.flash_attention import \
         smem_bytes as flash_smem_bytes
@@ -1219,15 +1287,28 @@ def main() -> int:
               if not re.search(r", 0 bytes spill stores", row)]
     print(f"  kernels that spill: {spills or 'none'}")
     for d in sorted({case[4] for case in FLASH_CASES}):
-        print(f"  flash f32 d={d}: {flash_smem_bytes(d)} bytes dynamic "
-              f"shared memory per block (opt-in limit {limit})")
-    table = (ctypes.c_int * 300)()
-    n_tiles = build.library().rt_flash_attention_sm90_tiles(table, 100)
-    compiled = {tuple(table[3 * i:3 * i + 3]) for i in range(n_tiles)}
-    if compiled != {(d, qt, kt) for d, tiles in SM90_TILES.items()
-                    for qt, kt in tiles}:
-        fail(f"the library's bf16 flash tiles {sorted(compiled)} are not "
-             f"the wrapper's SM90_TILES")
+        print(f"  flash f32 CUDA-core kernel d={d}: {flash_smem_bytes(d)} "
+              f"bytes dynamic shared memory per block (opt-in limit {limit})")
+    for kind, query, wrapper_tiles in (
+            ("bf16", "rt_flash_attention_sm90_tiles", SM90_TILES),
+            ("tf32x3", "rt_flash_attention_tf32x3_tiles", TF32X3_TILES)):
+        table = (ctypes.c_int * 300)()
+        n_tiles = getattr(build.library(), query)(table, 100)
+        compiled = {tuple(table[3 * i:3 * i + 3]) for i in range(n_tiles)}
+        if compiled != {(d, qt, kt) for d, tiles in wrapper_tiles.items()
+                        for qt, kt in tiles}:
+            fail(f"the library's {kind} flash tiles {sorted(compiled)} are "
+                 f"not the wrapper's")
+    for d, tiles in TF32X3_TILES.items():
+        for qt, kt in tiles:
+            # the label may follow digits of the mangled namespace
+            label = f"flash_attention_tf32x3_kernel<f32,{d},{qt},{kt}>: "
+            rows = [row.split(label, 1)[1] for row in ptxas_rows
+                    if label in row]
+            print(f"  flash f32 tf32x3 d={d} tile {qt}x{kt}: "
+                  f"{tf32x3_smem_bytes(d, qt, kt)} bytes dynamic shared "
+                  f"memory per block; "
+                  + ("; ".join(rows) or "not in the build log"))
     for d, tiles in SM90_TILES.items():
         print(f"  flash bf16 d={d}: dynamic shared memory per block " + ", ".join(
             f"{qt}x{kt} {sm90_smem_bytes(d, qt, kt)}" for qt, kt in tiles))
@@ -1453,29 +1534,49 @@ def main() -> int:
           f"{flash['kernel'] / flash['library']:.3f})")
     f32_ops = [x.float() for x in (fq, fk, fv)]
     want = attention_ref(*f32_ops, causal=True)
+    f32_ms = {tile: cuda_ms(lambda t=tile: flash_attention(
+        *f32_ops, causal=True, bq=t[0], bk=t[1]), iters=5, warmup=1)
+        for tile in quick_tiles}
+    f32_tile = min(f32_ms, key=f32_ms.get)
     errs["flash_f32_main"] = max(errs["flash_f32_main"], check_close(
-        f"flash {FLASH_MAIN} f32 tile {flash_tile}", flash_attention(
-            *f32_ops, causal=True, bq=flash_tile[0], bk=flash_tile[1]),
+        f"flash {FLASH_MAIN} f32 tile {f32_tile}", flash_attention(
+            *f32_ops, causal=True, bq=f32_tile[0], bk=f32_tile[1]),
         want, FLASH_MAIN_TOL["f32"]))
+    # the CUDA-core kernel this one replaced at D <= 128, still compiled
+    # for D = 256: checked, then timed on the same operands
+    was = cuda_core_flash(fd)
+    errs["flash_f32_was"] = check_close(
+        f"flash {FLASH_MAIN} f32 CUDA-core kernel", was(*f32_ops, *f32_tile),
+        want, FLASH_MAIN_TOL["f32"])
     del want
     flash32 = {
-        "kernel": cuda_ms(lambda: flash_attention(
-            *f32_ops, causal=True, bq=flash_tile[0], bk=flash_tile[1]),
-            iters=3, warmup=1),
+        "kernel": f32_ms[f32_tile],
+        "was": cuda_ms(lambda: was(*f32_ops, *f32_tile), iters=3, warmup=1),
         "plain": cuda_ms(lambda: attention_ref(*f32_ops, causal=True),
                          iters=2, warmup=1),
         "library": cuda_ms(lambda: torch.nn.functional
                            .scaled_dot_product_attention(
                                *f32_ops, is_causal=True, enable_gqa=True),
                            iters=5, warmup=1),
-        "bound": max(flash["flops"] / F32_PEAK,
-                     2 * flash["bytes"] / HBM_PEAK) * 1e3}
-    print(f"flash {FLASH_MAIN} f32 causal (CUDA cores): kernel "
-          f"{flash32['kernel']:.4f} ms (tile {flash_tile}, "
-          f"{flash['flops'] / flash32['kernel'] / 1e9:.2f} TFLOP/s) | bound "
-          f"{flash32['bound']:.4f} ms (FLOPs / 67 TFLOP/s) | plain "
-          f"{flash32['plain']:.4f} ms | scaled_dot_product_attention "
-          f"{flash32['library']:.4f} ms")
+        "bound": max(flash["flops"] / TF32X3_PEAK,
+                     2 * flash["bytes"] / HBM_PEAK) * 1e3,
+        "bound_cuda_cores": max(flash["flops"] / F32_PEAK,
+                                2 * flash["bytes"] / HBM_PEAK) * 1e3}
+    for tile, ms in f32_ms.items():
+        print(f"flash f32 tile {tile}: {ms:.4f} ms  "
+              f"{flash['flops'] / ms / 1e9:.2f} TFLOP/s")
+    print(f"flash {FLASH_MAIN} f32 causal (3xTF32 on the tensor cores): "
+          f"kernel {flash32['kernel']:.4f} ms (tile {f32_tile}, "
+          f"{flash['flops'] / flash32['kernel'] / 1e9:.2f} TFLOP/s, "
+          f"{flash32['bound'] / flash32['kernel']:.1%} of its bound) | was "
+          f"{flash32['was']:.4f} ms (CUDA-core kernel, same run; "
+          f"{flash32['was'] / flash32['kernel']:.2f}x) | bound "
+          f"{flash32['bound']:.4f} ms (FLOPs / 165 TFLOP/s, 3xTF32), "
+          f"{flash32['bound_cuda_cores']:.4f} ms (FLOPs / 67 TFLOP/s, CUDA "
+          f"cores) | plain {flash32['plain']:.4f} ms | "
+          f"scaled_dot_product_attention {flash32['library']:.4f} ms | max "
+          f"abs err {errs['flash_f32_main']:.3e} (CUDA-core kernel "
+          f"{errs['flash_f32_was']:.3e})")
     del f32_ops
     # zamba2-2.7b's shared attention: D = 80, window 4096 = S
     d80 = [randn(1, 32, 4096, 80, dtype=torch.bfloat16) for _ in range(3)]
@@ -1545,7 +1646,7 @@ def main() -> int:
               f"{cost['needed'] / t['kernel'] / 1e9:.2f} of the needed "
               f"{cost['needed'] / 1e9:.2f}; {t['was'] / t['kernel']:.2f}x "
               f"faster than the sequential design's {t['was']:.4f} ms) | "
-              f"bound {cost['bound']:.4f} ms at {SSD_TC_PEAK / 1e12:.0f} "
+              f"bound {cost['bound']:.4f} ms at {TF32X3_PEAK / 1e12:.0f} "
               f"TFLOP/s, 3xTF32 ({cost['bound_by']}; "
               f"{cost['bound'] / t['kernel']:.1%} of it), "
               f"{cost['bound_cuda_cores']:.4f} ms at "
@@ -1720,17 +1821,23 @@ def main() -> int:
          "full_depth_step_ms": deep["step_ms"],
          "full_depth_peak_gib": deep["peak_gib"]},
         {"name": "flash_attention_f32", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "source": "src/repro_torch/csrc/flash_attention_tf32x3.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:33",
          "launches": step["f32_launches"],
          "launches_granite_f32_step": step["f32_launches"],
          "max_abs_err": errs["flash_f32_main"],
          "max_abs_err_f32_cases": errs["flash_f32_cases"],
-         "ms": flash32["kernel"], "plain_ms": flash32["plain"],
+         "max_abs_err_was": errs["flash_f32_was"],
+         "ms": flash32["kernel"], "was_ms": flash32["was"],
+         "was_source": "src/repro_torch/csrc/flash_attention.cu",
+         "plain_ms": flash32["plain"],
          "bound_ms": flash32["bound"], "bound_by": "operations",
+         "bound_ms_cuda_cores": flash32["bound_cuda_cores"],
          "library_ms": flash32["library"], "shape": list(FLASH_MAIN),
-         "tile": list(flash_tile), "dtype": "float32", "causal": True,
-         "tensor_cores": False, "f32_loss_rel": step["f32_loss_rel"]},
+         "tile": list(f32_tile), "dtype": "float32", "causal": True,
+         "tensor_cores": True, "products": "3xTF32",
+         "f32_loss_rel": step["f32_loss_rel"],
+         "f32_step_ms": step["f32_step_ms"]},
         {"name": "ssd_chunk_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd.cu",
          "replaces": "src/repro/kernels/ssd/ssd.py:36",

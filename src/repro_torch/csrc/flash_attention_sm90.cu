@@ -3,8 +3,9 @@
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py:33,
 // _attn_kernel / flash_attention_pallas, for bfloat16 operands (with the
 // padding of ops.flash_attention, which the Python wrapper keeps). The
-// float32 forward stays on the CUDA-core kernel of flash_attention.cu: on
-// the tensor cores f32 would mean TF32.
+// float32 forward has its own tensor-core kernel, flash_attention_tf32x3.cu
+// (3xTF32 products, f32-accurate), and D = 256 in f32 the CUDA-core kernel
+// of flash_attention.cu. The Hopper building blocks live in hopper.cuh.
 //
 // Computes, per (batch, query head), o = softmax(q k^T * sm_scale + mask) v
 // over (S, D) tiles: GQA (query head h reads kv head h / (H / Hkv)), a
@@ -59,12 +60,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <string.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int kSmemLimit = 232448;  // H100: a block's opt-in maximum
 
 // Width of column chunk c of a head dim: 64 while they last, then the tail.
 __host__ __device__ constexpr int chunk_width(int d, int c) {
@@ -92,91 +93,6 @@ struct Shape {
   static_assert(kSmemBytes <= kSmemLimit, "shared memory");
 };
 
-// Tensor maps of q, k, v: [0] the 64-column chunks, [1] the tail chunk.
-struct Maps {
-  CUtensorMap q[2], k[2], v[2];
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma shared-memory descriptor of a tile of 8-row groups of W-column
-// rows, swizzled across the row's W * 2 bytes (128, 64 or 32).
-template <int W>
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  constexpr uint64_t layout = W == 64 ? 1 : W == 32 ? 2 : 3;
-  constexpr uint64_t sbo = 8 * W * 2;  // bytes from one 8-row group to the next
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
-         ((sbo >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-// TMA: the box at (c0, c1, c2) of a 3-D tensor map into shared memory,
-// completing `bytes` on the mbarrier.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from touching registers that a wgmma still reads or
-// writes until the wait before this fence.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -302,7 +218,7 @@ __device__ __forceinline__ void wgmma_ss(float (&s)[KT / 2], uint64_t da,
 
 template <typename T, int D, int QT, int KT>
 __global__ void __launch_bounds__(Shape<D, QT, KT>::kThreads, 1)
-flash_attention_sm90_kernel(const __grid_constant__ Maps maps,
+flash_attention_sm90_kernel(const __grid_constant__ FlashMaps maps,
                             T* __restrict__ o, int heads, int kv_heads,
                             int seq, int kv_len, int bq, int bk, int causal,
                             int window, float scale_log2) {
@@ -327,24 +243,9 @@ flash_attention_sm90_kernel(const __grid_constant__ Maps maps,
   const int bh_q = b * heads + h;
   const int bh_kv = b * kv_heads + h / (heads / kv_heads);
 
-  // The visited kv tiles, [kt_begin, kt_end): a kv tile is skipped when
-  // its logical kv block(s) lie wholly after the logical q block(s) around
-  // this q tile (causal) or wholly before their window.
-  const int n_tiles = (seq + KT - 1) / KT;
-  const int64_t q_last = min(q0 + QT, seq) - 1;
-  const int64_t lq_lo = (q0 / bq) * static_cast<int64_t>(bq);
-  const int64_t lq_hi = (q_last / bq + 1) * static_cast<int64_t>(bq) - 1;
-  int kt_end = n_tiles;
-  if (causal) {  // tiles starting before the end of lq_hi's kv block
-    const int64_t end = (lq_hi / bk + 1) * static_cast<int64_t>(bk);
-    const int64_t tiles = (end + KT - 1) / KT;
-    if (tiles < n_tiles) kt_end = static_cast<int>(tiles);
-  }
-  int kt_begin = 0;
-  const int64_t w_lo = lq_lo - window + 1;  // oldest key a logical row sees
-  if (window > 0 && w_lo > 0)  // tiles ending in or after w_lo's kv block
-    kt_begin = static_cast<int>((w_lo / bk) * bk / KT);
-  const int n = max(kt_end - kt_begin, 0);
+  int kt_begin;
+  const int n = visited_kv_tiles<KT>(q0, QT, seq, bq, bk, causal, window,
+                                     &kt_begin);
 
   auto load_kv = [&](int i) {  // tile kt_begin + i into its stage
     const int st = i % kStages;
@@ -392,10 +293,7 @@ flash_attention_sm90_kernel(const __grid_constant__ Maps maps,
     const int st = i % kStages;
     mbar_wait(bar_s + 8 * st, (i / kStages) & 1);
     const int k0 = (kt_begin + i) * KT;
-    // nothing of this tile is visible to this warpgroup's rows
-    if (k0 >= kv_len || (causal && k0 > r_lo + 63) ||
-        (window > 0 && r_lo - (k0 + KT - 1) >= window))
-      continue;
+    if (!tile_visible<KT>(k0, r_lo, kv_len, causal, window)) continue;
     const uint32_t k_st = kv_s + st * L::kStageBytes;
     const uint32_t v_st = k_st + L::kKVBytes;
 
@@ -409,68 +307,29 @@ flash_attention_sm90_kernel(const __grid_constant__ Maps maps,
       const uint32_t qa = q_s + QT * 128 * c + 64 * w * 2 * wg + off;
       const uint32_t ka = k_st + KT * 128 * c + off;
       if (w == 64) {
-        wgmma_ss<KT>(s, smem_desc<64>(qa), smem_desc<64>(ka), kk > 0);
+        wgmma_ss<KT>(s, smem_desc<128>(qa), smem_desc<128>(ka), kk > 0);
       } else if (w == 32) {
-        wgmma_ss<KT>(s, smem_desc<32>(qa), smem_desc<32>(ka), kk > 0);
+        wgmma_ss<KT>(s, smem_desc<64>(qa), smem_desc<64>(ka), kk > 0);
       } else {
-        wgmma_ss<KT>(s, smem_desc<16>(qa), smem_desc<16>(ka), kk > 0);
+        wgmma_ss<KT>(s, smem_desc<32>(qa), smem_desc<32>(ka), kk > 0);
       }
     }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
 
-    // masks on the fragment's coordinates: element 4j + e of s is (row_a
-    // + 8 (e / 2), k0 + 8 j + col_l + e % 2)
-    const bool edge = k0 + KT > kv_len || (causal && k0 + KT - 1 > r_lo) ||
-                      (window > 0 && r_lo + 63 - k0 >= window);
-    if (edge) {
-#pragma unroll
-      for (int j = 0; j < KT / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = row_a + 8 * (e / 2);
-          const int col = k0 + 8 * j + col_l + e % 2;
-          const bool ok = col < kv_len && (!causal || row >= col) &&
-                          (window <= 0 || row - col < window);
-          if (!ok) s[4 * j + e] = -INFINITY;
-        }
-    }
-    float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
-      mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-    }
-    const float mn_a = fmaxf(m_a, quad_max(mx_a) * scale_log2);
-    const float mn_b = fmaxf(m_b, quad_max(mx_b) * scale_log2);
-    const float mu_a = mn_a == -INFINITY ? 0.0f : mn_a;  // all masked so far
-    const float mu_b = mn_b == -INFINITY ? 0.0f : mn_b;
-    const float alpha_a = exp2f(m_a - mu_a);
-    const float alpha_b = exp2f(m_b - mu_b);
-    m_a = mn_a;
-    m_b = mn_b;
-    float sum_a = 0.0f, sum_b = 0.0f;
-#pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
-      s[4 * j] = exp2f(fmaf(s[4 * j], scale_log2, -mu_a));
-      s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], scale_log2, -mu_a));
-      s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], scale_log2, -mu_b));
-      s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], scale_log2, -mu_b));
-      sum_a += s[4 * j] + s[4 * j + 1];
-      sum_b += s[4 * j + 2] + s[4 * j + 3];
-    }
-    l_a = l_a * alpha_a + sum_a;  // this thread's share; reduced at the end
-    l_b = l_b * alpha_b + sum_b;
+    const float2 alpha =
+        online_softmax<KT>(s, m_a, m_b, l_a, l_b, row_a, col_l, r_lo, k0,
+                           kv_len, causal, window, scale_log2);
 #pragma unroll
     for (int c = 0; c < kChunks; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         if (8 * j >= chunk_width(D, c)) continue;
-        o_acc[c][4 * j] *= alpha_a;
-        o_acc[c][4 * j + 1] *= alpha_a;
-        o_acc[c][4 * j + 2] *= alpha_b;
-        o_acc[c][4 * j + 3] *= alpha_b;
+        o_acc[c][4 * j] *= alpha.x;
+        o_acc[c][4 * j + 1] *= alpha.x;
+        o_acc[c][4 * j + 2] *= alpha.y;
+        o_acc[c][4 * j + 3] *= alpha.y;
       }
     // P in bf16: the accumulator's columns 16 kk .. 16 kk + 15 are the
     // A fragment of k-step kk
@@ -489,11 +348,11 @@ flash_attention_sm90_kernel(const __grid_constant__ Maps maps,
         const int w = chunk_width(D, c);
         const uint32_t va = v_st + KT * 128 * c + 16 * kk * w * 2;
         if (w == 64) {
-          wgmma_rs_n64(o_acc[c], pa[kk], smem_desc<64>(va));
+          wgmma_rs_n64(o_acc[c], pa[kk], smem_desc<128>(va));
         } else if (w == 32) {
-          wgmma_rs_n32(o_acc[c], pa[kk], smem_desc<32>(va));
+          wgmma_rs_n32(o_acc[c], pa[kk], smem_desc<64>(va));
         } else {
-          wgmma_rs_n16(o_acc[c], pa[kk], smem_desc<16>(va));
+          wgmma_rs_n16(o_acc[c], pa[kk], smem_desc<32>(va));
         }
       }
     wgmma_commit();
@@ -526,60 +385,6 @@ flash_attention_sm90_kernel(const __grid_constant__ Maps maps,
     }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime so
-// that the library need not link libcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A (bh, seq, d) bf16 tensor as a 3-D map with a (w, rows, 1) box: the
-// columns [c0, c0 + w) of `rows` rows of one head, swizzled across the
-// box's w * 2 bytes. Rows past seq read as zeros.
-CUresult make_map(CUtensorMap* map, const void* ptr, int d, int seq, int bh,
-                  int w, int rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(seq) * d * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(w),
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      w == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-              : w == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-// Error codes of the launcher beyond cudaError_t's: a tensor map the
-// driver refused (kMapError + CUresult), or no cuTensorMapEncodeTiled.
-constexpr int kMapError = 100000;
-
 template <int D, int QT, int KT>
 int launch(const void* q, const void* k, const void* v, void* o,
            int64_t batch, int64_t heads, int64_t kv_heads, int64_t seq,
@@ -587,39 +392,15 @@ int launch(const void* q, const void* k, const void* v, void* o,
            int64_t window, float sm_scale, int device, void* stream) {
   using L = Shape<D, QT, KT>;
   if (batch <= 0 || heads <= 0 || seq <= 0) return 0;
-  auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  if (kv_heads <= 0 || heads % kv_heads != 0 || bq <= 0 || bk <= 0 ||
-      kv_len < 0 || kv_len > seq || batch > 65535 || heads > 65535 ||
-      seq > (1 << 30) || bq > (1 << 30) || bk > (1 << 30) ||
-      batch * heads > (1 << 30))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(o))
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  int current = -1;
-  if (cudaGetDevice(&current) != cudaSuccess || current != device) {
-    const cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (encode_tiled() == nullptr) return kMapError - 1;
-  Maps maps;
-  memset(&maps, 0, sizeof(maps));
+  const int checked = flash_launch_check(q, k, v, o, batch, heads, kv_heads,
+                                         seq, kv_len, bq, bk, device);
+  if (checked != 0) return checked;
   const int s = static_cast<int>(seq);
-  const int bhq = static_cast<int>(batch * heads);
-  const int bhk = static_cast<int>(batch * kv_heads);
-  const void* ptrs[3] = {q, k, v};
-  CUtensorMap* dst[3] = {maps.q, maps.k, maps.v};
-  for (int t = 0; t < 3; ++t) {
-    const int rows = t == 0 ? QT : KT;
-    const int bh = t == 0 ? bhq : bhk;
-    for (int m = 0; m < 2; ++m) {
-      const int w = m == 0 ? 64 : D % 64;
-      if ((m == 0 && D < 64) || w == 0) continue;
-      const CUresult r = make_map(&dst[t][m], ptrs[t], D, s, bh, w, rows);
-      if (r != CUDA_SUCCESS) return kMapError + static_cast<int>(r);
-    }
-  }
+  FlashMaps maps;
+  const int mapped = make_flash_maps(
+      &maps, q, k, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, 64, QT, KT, s,
+      static_cast<int>(batch * heads), static_cast<int>(batch * kv_heads));
+  if (mapped != 0) return mapped;
   const cudaError_t attr = cudaFuncSetAttribute(
       flash_attention_sm90_kernel<bf16, D, QT, KT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,

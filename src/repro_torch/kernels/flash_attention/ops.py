@@ -1,15 +1,27 @@
 """Flash attention: the hand-written CUDA forwards' wrapper, its
 ``torch.autograd.Function`` and its plain PyTorch version.
 
-Two kernels replace the Pallas ``flash_attention_pallas`` / ``_attn_kernel``
-of the JAX package: the online-softmax forward over (B, H, S, D) q and
-(B, Hkv, S, D) k/v with f32 running (m, l, acc) state, GQA (query head h
-reads kv head ``h // (H // Hkv)``), causal and sliding-window masks, and
-skipping of wholly masked kv blocks. bfloat16 operands run on the tensor
-cores (``csrc/flash_attention_sm90.cu``: wgmma, TMA); float32 operands on
-the CUDA cores (``csrc/flash_attention.cu``), since the tensor cores would
-compute f32 as TF32. The JAX package has no backward kernel: its custom
-VJP recomputes through the dense reference, and so does
+Three kernels replace the Pallas ``flash_attention_pallas`` /
+``_attn_kernel`` of the JAX package: the online-softmax forward over
+(B, H, S, D) q and (B, Hkv, S, D) k/v with f32 running (m, l, acc) state,
+GQA (query head h reads kv head ``h // (H // Hkv)``), causal and
+sliding-window masks, and skipping of wholly masked kv blocks. The route
+is chosen by dtype and head dim, and each launch counts under its route's
+key of ``flash_attention.route_launches``:
+
+- ``"tensor_cores"``: bfloat16, on the tensor cores
+  (``csrc/flash_attention_sm90.cu``: wgmma, TMA);
+- ``"tf32x3"``: float32 at the head dims of :data:`TF32X3_TILES` (16, 32,
+  64, 80, 128), on the TF32 tensor cores with every product split into
+  three TF32 products, which keeps f32 accuracy
+  (``csrc/flash_attention_tf32x3.cu``);
+- ``"cuda_cores"``: float32 at any other head dim the CUDA-core kernel is
+  compiled for (D = 256, whose hi/lo copies would not fit a block's
+  shared memory; ``csrc/flash_attention.cu``).
+
+A head dim no kernel of its dtype is compiled for raises; no route falls
+back to another. The JAX package has no backward kernel: its custom VJP
+recomputes through the dense reference, and so does
 :class:`_FlashAttention` here.
 
 ``(bq, bk)`` is the tunable, as on the TPU, and keeps the TPU kernel's
@@ -17,13 +29,13 @@ meaning: the granularity at which a kv block wholly outside the causal or
 window mask is skipped. Any positive pair is taken (every pair of
 ``model_step_space(quick=False)``, 64..512, and the block equal to S that
 the padding rule gives below S = 128); a non-positive one raises. On the
-tensor-core kernel it also selects the physical tile (:func:`physical_tile`
-over :data:`SM90_TILES`); the CUDA-core kernel's tiles are fixed per head
-dim.
+tensor-core kernels it also selects the physical tile (:func:`physical_tile`
+over :data:`SM90_TILES` or :data:`TF32X3_TILES`); the CUDA-core kernel's
+tiles are fixed per head dim.
 
 On CPU tensors :func:`flash_attention` runs the kernels' plain version
-(:func:`attention_ref` on the padded operands, padded keys masked); on
-CUDA tensors it launches a kernel or raises.
+(:func:`attention_ref` on the padded operands, padded keys masked) and
+counts no route; on CUDA tensors it launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -39,9 +51,9 @@ import torch.nn.functional as F
 
 from .. import build
 
-__all__ = ["SM90_TILES", "attention_ref", "bytes_moved", "flash_attention",
-           "flops", "padded_blocks", "physical_tile", "sm90_smem_bytes",
-           "smem_bytes"]
+__all__ = ["SM90_TILES", "TF32X3_TILES", "attention_ref", "bytes_moved",
+           "flash_attention", "flops", "padded_blocks", "physical_tile",
+           "route", "sm90_smem_bytes", "smem_bytes", "tf32x3_smem_bytes"]
 
 NEG_INF = -1e30
 #: the tensor-core (bf16) kernel's compiled physical tiles, (q rows, kv
@@ -50,6 +62,12 @@ NEG_INF = -1e30
 SM90_TILES = {**{d: ((64, 64), (64, 128), (128, 64), (128, 128))
                  for d in (16, 32, 64, 80, 128)},
               256: ((64, 64), (128, 64))}
+#: the f32 tensor-core (3xTF32) kernel's compiled physical tiles, (q rows,
+#: kv rows) per head dim: csrc/flash_attention_tf32x3.cu's
+#: RT_FLASH_TF32X3_TILES lists exactly these (D = 128 takes kv 32 only: its
+#: shared memory; D = 256 stays on the CUDA cores)
+TF32X3_TILES = {**{d: ((64, 64), (128, 64)) for d in (16, 32, 64, 80)},
+                128: ((64, 32), (128, 32))}
 #: the physical tile's largest side
 _MAX_TILE = 128
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 7
@@ -101,6 +119,35 @@ def sm90_smem_bytes(head_dim: int, qt: int, kt: int) -> int:
         raise ValueError(f"no bf16 flash kernel for head dim {head_dim} "
                          f"tile ({qt}, {kt})")
     return n
+
+
+def tf32x3_smem_bytes(head_dim: int, qt: int, kt: int) -> int:
+    """Dynamic shared memory one block of the f32 tensor-core (3xTF32)
+    kernel takes at this head dim and physical tile, as the compiled
+    library reports it (builds the library); raises outside the compiled
+    table."""
+    lib = build.library()
+    fn = lib.rt_flash_attention_tf32x3_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int64
+    n = fn(head_dim, qt, kt)
+    if n < 0:
+        raise ValueError(f"no tf32x3 flash kernel for head dim {head_dim} "
+                         f"tile ({qt}, {kt})")
+    return n
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that takes ``dtype`` at ``head_dim``: ``"tensor_cores"``
+    for bfloat16, ``"tf32x3"`` for float32 at a head dim of
+    :data:`TF32X3_TILES`, ``"cuda_cores"`` for float32 at any other (the
+    launch raises there if that kernel is not compiled for it either)."""
+    if dtype == torch.bfloat16:
+        return "tensor_cores"
+    if dtype == torch.float32:
+        return "tf32x3" if head_dim in TF32X3_TILES else "cuda_cores"
+    raise TypeError(f"the flash kernels take float32 or bfloat16, not "
+                    f"{dtype}")
 
 
 def physical_tile(bq: int, bk: int,
@@ -187,26 +234,26 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _launcher(dtype: torch.dtype, d: int, bq: int, bk: int):
     """The ctypes launcher of the kernel that takes ``dtype`` at head dim
-    ``d`` for the logical block (bq, bk), and its route; raises for a
-    dtype or head dim no kernel is compiled for."""
-    if dtype == torch.bfloat16:
+    ``d`` for the logical block (bq, bk), and its route (:func:`route`);
+    raises for a dtype or head dim no kernel is compiled for."""
+    path = route(dtype, d)
+    if path == "tensor_cores":
         if d not in SM90_TILES:
             raise ValueError(f"no bf16 flash kernel for head dim {d}: "
                              f"compiled for {sorted(SM90_TILES)}")
         qt, kt = physical_tile(bq, bk, SM90_TILES[d])
-        name, route = f"rt_flash_attention_bf16_d{d}_q{qt}_k{kt}", \
-            "tensor_cores"
-    elif dtype == torch.float32:
-        name, route = f"rt_flash_attention_f32_d{d}", "cuda_cores"
+        name = f"rt_flash_attention_bf16_d{d}_q{qt}_k{kt}"
+    elif path == "tf32x3":
+        qt, kt = physical_tile(bq, bk, TF32X3_TILES[d])
+        name = f"rt_flash_attention_tf32x3_d{d}_q{qt}_k{kt}"
     else:
-        raise TypeError(f"the flash kernels take float32 or bfloat16, not "
-                        f"{dtype}")
+        name = f"rt_flash_attention_f32_d{d}"
     fn = _LAUNCHERS.get(name)
     if fn is None:
-        if route == "cuda_cores":
+        if path == "cuda_cores":
             smem_bytes(d)                  # raises for an uncompiled dim
         fn = _LAUNCHERS[name] = build.kernel_fn(name, _ARGTYPES)
-    return fn, route
+    return fn, path
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -228,7 +275,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
     dev = q.device
-    fn, route = _launcher(q.dtype, d, bq, bk)
+    fn, path = _launcher(q.dtype, d, bq, bk)
     q, k, v = (_aligned(x) for x in (q, k, v))
     o = torch.empty_like(q)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h,
@@ -239,7 +286,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"error {rc}")
     with _COUNT_LOCK:
         flash_attention.launches += 1
-        flash_attention.route_launches[route] += 1
+        flash_attention.route_launches[path] += 1
     return o
 
 
@@ -296,14 +343,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention over (B, H, S, D); pads S to the block size.
 
     ``use_kernel=False`` is the dense :func:`attention_ref`. Otherwise
-    the forward is a kernel (CUDA operands: bfloat16 on the tensor cores,
-    float32 on the CUDA cores; each launch counts one in
-    ``flash_attention.launches`` and one in its route's entry of
-    ``flash_attention.route_launches``) or their plain version (CPU
-    operands),
-    inside an autograd function whose backward recomputes through
-    :func:`attention_ref`. Padded keys are masked in every mode (the
-    Pallas path lets them into a non-causal softmax).
+    the forward is a kernel (CUDA operands, routed by :func:`route`; each
+    launch counts one in ``flash_attention.launches`` and one in its
+    route's entry of ``flash_attention.route_launches``) or their plain
+    version (CPU operands), inside an autograd function whose backward
+    recomputes through :func:`attention_ref`. Padded keys are masked in
+    every mode (the Pallas path lets them into a non-causal softmax).
     """
     _check(q, k, v)
     if sm_scale is None:
@@ -326,6 +371,8 @@ def _resolve(args: Sequence[Any], bq: int = 512, bk: int = 512, **static):
 
 
 flash_attention.launches = 0
-#: launches per kernel: "tensor_cores" (bf16) and "cuda_cores" (f32)
-flash_attention.route_launches = {"tensor_cores": 0, "cuda_cores": 0}
+#: launches per kernel: "tensor_cores" (bf16), "tf32x3" (f32, D <= 128) and
+#: "cuda_cores" (f32, D = 256)
+flash_attention.route_launches = {"tensor_cores": 0, "tf32x3": 0,
+                                  "cuda_cores": 0}
 flash_attention.resolve = _resolve

@@ -15,9 +15,11 @@ import torch
 from repro.kernels.flash_attention import attention_ref as jax_attention_ref
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.flash_attention import (SM90_TILES, attention_ref,
+from repro_torch.kernels.flash_attention import (SM90_TILES, TF32X3_TILES,
+                                                 attention_ref,
                                                  flash_attention, flops,
-                                                 padded_blocks, physical_tile)
+                                                 padded_blocks, physical_tile,
+                                                 route)
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
@@ -189,32 +191,101 @@ def test_quick_space_tiles_are_four_kernels(d):
         set(QUAD)
 
 
+def _compiled_tiles(source: str, macro: str) -> list[tuple[int, ...]]:
+    """The (D, QT, KT) entries of a tile-table macro of a CUDA source."""
+    import re
+
+    from repro_torch.kernels import build
+    src = (build.CSRC / source).read_text()
+    table = src[src.index(f"#define {macro}(X)"):]
+    table = table[:table.index("\n\n")]
+    return [tuple(map(int, t)) for t in re.findall(
+        r"X\((\d+), (\d+), (\d+)\)", table)]
+
+
 def test_sm90_tile_table_matches_the_cuda_source():
     import re
 
     from repro_torch.kernels import build
     src = (build.CSRC / "flash_attention_sm90.cu").read_text()
-    table = src[src.index("#define RT_FLASH_SM90_TILES(X)"):]
-    table = table[:table.index("\n\n")]
-    compiled = [tuple(map(int, t)) for t in re.findall(
-        r"X\((\d+), (\d+), (\d+)\)", table)]
+    compiled = _compiled_tiles("flash_attention_sm90.cu", "RT_FLASH_SM90_TILES")
     assert len(compiled) == len(set(compiled))
     assert set(compiled) == {(d, qt, kt) for d, tiles in SM90_TILES.items()
                              for qt, kt in tiles}
     assert "RT_FLASH_SM90_TILES(RT_FLASH_SM90)" in src
     assert "rt_flash_attention_bf16_d##D##_q##QT##_k##KT" in src
-    # every head dim of the f32 kernel has a bf16 kernel too
+    # the f32 tensor-core (3xTF32) kernel's table is the wrapper's too
+    tf32x3 = (build.CSRC / "flash_attention_tf32x3.cu").read_text()
+    compiled = _compiled_tiles("flash_attention_tf32x3.cu",
+                               "RT_FLASH_TF32X3_TILES")
+    assert len(compiled) == len(set(compiled))
+    assert set(compiled) == {(d, qt, kt) for d, tiles in TF32X3_TILES.items()
+                             for qt, kt in tiles}
+    assert "RT_FLASH_TF32X3_TILES(RT_FLASH_TF32X3)" in tf32x3
+    assert "rt_flash_attention_tf32x3_d##D##_q##QT##_k##KT" in tf32x3
+    # every head dim of the f32 CUDA-core kernel has a bf16 kernel too, and
+    # every 3xTF32 head dim a CUDA-core one (its replaced design, timed)
     f32 = (build.CSRC / "flash_attention.cu").read_text()
     f32_table = f32[f32.index("#define RT_FLASH_TILES(X)"):]
     f32_table = f32_table[:f32_table.index("\n\n")]
     f32_dims = {int(d) for d in re.findall(r"X\((\d+),", f32_table)}
     assert f32_dims == set(SM90_TILES)
+    assert set(TF32X3_TILES) < f32_dims
     assert "RT_FLASH_TILES(RT_FLASH_F32)" in f32 and "BF16" not in f32
+
+
+@pytest.mark.parametrize("d", sorted(TF32X3_TILES))
+def test_quick_space_runs_every_tf32x3_tile(d):
+    """The model-step space's blocks reach every compiled 3xTF32 tile of
+    the head dim, as chip_smoke.py requires of the card run."""
+    from repro_torch.bench.common import model_step_space
+    pairs = {(c["flash_block_q"], c["flash_block_k"])
+             for c in model_step_space(True).configs()}
+    assert {physical_tile(bq, bk, TF32X3_TILES[d]) for bq, bk in pairs} == \
+        set(TF32X3_TILES[d])
+
+
+def test_route_rule_by_dtype_and_head_dim():
+    """bf16 takes the tensor-core kernel at every head dim; f32 the 3xTF32
+    one up to D = 128 and the CUDA-core one beyond; no other dtype has a
+    kernel. Decided without a card."""
+    assert sorted(TF32X3_TILES) == [16, 32, 64, 80, 128]
+    for d in (16, 32, 64, 80, 128, 256):
+        assert route(torch.bfloat16, d) == "tensor_cores"
+        assert route(torch.float32, d) == \
+            ("cuda_cores" if d == 256 else "tf32x3")
+    assert route(torch.float32, 48) == "cuda_cores"  # raises at launch
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        route(torch.float16, 64)
+    assert set(flash_attention.route_launches) == {"tensor_cores", "tf32x3",
+                                                   "cuda_cores"}
 
 
 def test_cpu_calls_count_no_route():
     (tq, tk, tv), _ = _both(_qkv(5, 1, 4, 2, 64, 32), torch.bfloat16)
     reset_launch_counts()
     flash_attention(tq, tk, tv, bq=64, bk=64)
+    flash_attention(tq.float(), tk.float(), tv.float(), bq=64, bk=64)
     assert flash_attention.route_launches == {"tensor_cores": 0,
-                                              "cuda_cores": 0}
+                                              "tf32x3": 0, "cuda_cores": 0}
+
+
+def _probe_variants():
+    from repro_torch.bench.flash_probe import EDITS
+    return sorted(EDITS)
+
+
+@pytest.mark.parametrize("variant", _probe_variants())
+def test_flash_probe_edits_still_match_the_kernel_source(variant):
+    """Each variant of ``bench/flash_probe.py`` is an edit of
+    ``csrc/flash_attention_tf32x3.cu`` that must still find its text, or
+    the probe would measure the shipped kernel under another name; every
+    variant builds head dim 64 only."""
+    from repro_torch.bench.flash_probe import EDITS, variant_source
+    shipped = variant_source("shipped")
+    edited = variant_source(variant)
+    assert "X(64, 64, 64) X(64, 128, 64)\n\n" in edited
+    assert "X(16, 64, 64)" not in edited
+    assert (edited != shipped) == (variant != "shipped")
+    for old, new in EDITS[variant]:
+        assert old not in edited and (not new or new in edited)

@@ -1,14 +1,17 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version on the card (the bf16 flash kernel at every compiled head dim and
-physical tile, the GEMM at every tile), the flash and SSD kernels'
-gradients, a mamba2 prefill through the SSD kernel, and tuning sessions
-through the kernels (the GEMM tile search keeping all 12 tiles).
+version on the card (the bf16 and the f32 3xTF32 flash kernels at every
+compiled head dim and physical tile, the GEMM at every tile), the flash
+and SSD kernels' gradients, a mamba2 prefill through the SSD kernel, and
+tuning sessions through the kernels (the GEMM tile search keeping all 12
+tiles).
 
 Marked ``gpu``; each skips from inside the ``card`` fixture when no card
-is visible, so every worker collects the same tests. Run them on a
-machine with an NVIDIA card (sm_90a, nvcc on PATH or /usr/local/cuda):
+is visible, so every worker collects the same tests (on the CPU they are
+collected with the rest of the suite and skip). Run them on a machine
+with an NVIDIA card (sm_90a, nvcc on PATH or /usr/local/cuda), without
+the shared conftest, which imports jax:
 
-    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
 
 import pytest
@@ -96,7 +99,7 @@ FLASH_CASES = [  # (b, hq, hkv, s, d, causal, window)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_on_card(card, case, dtype):
     from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention)
+                                                     flash_attention, route)
     b, hq, hkv, s, d, causal, window = case
     gen = torch.Generator().manual_seed(s + d)
     q = _randn(gen, b, hq, s, d, dtype=dtype, device=card)
@@ -105,16 +108,21 @@ def test_flash_kernel_matches_plain_on_card(card, case, dtype):
     want = attention_ref(q, k, v, causal=causal, window=window)
     tol = dict(rtol=3e-2, atol=3e-2) if dtype == torch.bfloat16 else \
         dict(rtol=2e-5, atol=2e-5)
-    route = "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
+    # bf16 on the tensor cores; f32 on the 3xTF32 kernel up to D = 128
+    # (both of its tiles are among these blocks), on the CUDA cores at 256
+    path = route(dtype, d)
+    assert path == ("tensor_cores" if dtype == torch.bfloat16 else
+                    "cuda_cores" if d == 256 else "tf32x3")
     for bq in (64, 128, 256, 512):
         for bk in (64, 128, 256, 512):
             before = flash_attention.launches
-            routed = flash_attention.route_launches[route]
+            routed = dict(flash_attention.route_launches)
             got = flash_attention(q, k, v, causal=causal, window=window,
                                   bq=bq, bk=bk)
             torch.cuda.synchronize()
             assert flash_attention.launches == before + 1
-            assert flash_attention.route_launches[route] == routed + 1
+            assert flash_attention.route_launches == {
+                r: n + (r == path) for r, n in routed.items()}
             torch.testing.assert_close(got.float(), want.float(), **tol)
             got.fill_(float("nan"))
 
@@ -122,32 +130,37 @@ def test_flash_kernel_matches_plain_on_card(card, case, dtype):
 @pytest.mark.parametrize("case", [(1, 4, 2, 300, True, 96),
                                   (2, 4, 1, 250, False, None),
                                   (1, 4, 2, 200, True, None)], ids=str)
-def test_flash_tensor_core_kernel_every_tile_on_card(card, case):
-    """The bf16 kernel at every compiled (head dim, physical tile), forced
-    by (bq, bk) = the tile, on padded, windowed and GQA cases."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_tensor_core_kernel_every_tile_on_card(card, case, dtype):
+    """The tensor-core kernels at every compiled (head dim, physical tile),
+    forced by (bq, bk) = the tile, on padded, windowed and GQA cases: bf16
+    (SM90_TILES) and f32 with 3xTF32 products (TF32X3_TILES)."""
     from repro_torch.kernels.flash_attention import (SM90_TILES,
+                                                     TF32X3_TILES,
                                                      attention_ref,
                                                      flash_attention,
                                                      physical_tile)
     b, hq, hkv, s, causal, window = case
     gen = torch.Generator().manual_seed(s)
-    for d, tiles in SM90_TILES.items():
-        q = _randn(gen, b, hq, s, d, dtype=torch.bfloat16, device=card)
-        k = _randn(gen, b, hkv, s, d, dtype=torch.bfloat16, device=card)
-        v = _randn(gen, b, hkv, s, d, dtype=torch.bfloat16, device=card)
+    table, path, tol = (
+        (SM90_TILES, "tensor_cores", dict(rtol=3e-2, atol=3e-2))
+        if dtype == torch.bfloat16 else
+        (TF32X3_TILES, "tf32x3", dict(rtol=2e-5, atol=2e-5)))
+    for d, tiles in table.items():
+        q = _randn(gen, b, hq, s, d, dtype=dtype, device=card)
+        k = _randn(gen, b, hkv, s, d, dtype=dtype, device=card)
+        v = _randn(gen, b, hkv, s, d, dtype=dtype, device=card)
         want = attention_ref(q, k, v, causal=causal, window=window)
         for qt, kt in tiles:
             assert physical_tile(qt, kt, tiles) == (qt, kt)
             before = flash_attention.launches
-            routed = flash_attention.route_launches["tensor_cores"]
+            routed = flash_attention.route_launches[path]
             got = flash_attention(q, k, v, causal=causal, window=window,
                                   bq=qt, bk=kt)
             torch.cuda.synchronize()
             assert flash_attention.launches == before + 1
-            assert flash_attention.route_launches["tensor_cores"] == \
-                routed + 1
-            torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
-                                       atol=3e-2)
+            assert flash_attention.route_launches[path] == routed + 1
+            torch.testing.assert_close(got.float(), want.float(), **tol)
             got.fill_(float("nan"))
 
 
@@ -157,6 +170,8 @@ def test_flash_raises_for_an_uncompiled_head_dim_on_card(card):
     before = flash_attention.launches
     with pytest.raises(ValueError, match="no bf16 flash kernel"):
         flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="no f32 flash kernel"):
+        flash_attention(q.float(), q.float(), q.float())   # no fallback
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention(q.half(), q.half(), q.half())
     assert flash_attention.launches == before
@@ -199,7 +214,7 @@ def test_flash_gradients_equal_the_plain_version_on_card(card):
         assert torch.equal(a, b)      # the backward is the plain math
 
 
-@pytest.mark.parametrize("dtype,route", [("float32", "cuda_cores"),
+@pytest.mark.parametrize("dtype,route", [("float32", "tf32x3"),
                                          ("bfloat16", "tensor_cores")])
 def test_model_step_session_goes_through_the_flash_kernel(card, dtype,
                                                           route):
