@@ -108,13 +108,39 @@ run when it fails:
                idle share of the step, and the device time of the SSD
                kernel, the flash kernel, their plain backward passes and
                the rest.
+10. device timing — traced ``Tuner`` sessions with
+               ``EvaluationSettings(device_timing=True)``: DGEMM over the
+               card-sized space (8 configs), and TRIAD at 256 KiB, 4 MiB
+               and 256 MiB, each in a one-config session of its own. Every
+               incumbent trial must give one ``device_timing`` instant
+               (``torch.profiler``) with 0 < device time <= host bracket
+               and at least one kernel event, none may give
+               ``device_timing_unavailable``, and at 4 MiB and 256 MiB the
+               profiled TRIAD kernel must lie within
+               DEVICE_TIMING_AGREEMENT of phase 4's graph-replay time;
+               each trial's host bracket, device time and skew are printed.
+11. paper tables — ``repro_torch.bench.run``'s PAPER_BENCHES quick on the
+               card (Tables IV/V, VI, VII, VIII-XI, Fig. 6 and the GEMM
+               tile search): every table non-empty and finite, every
+               technique row of ``optimizations`` present, C+I+O taking
+               fewer samples than Default, the tile search's winner
+               matching ``matmul_ref``; the harness self-benchmark, whose
+               timed-vs-steady agreement at 2048^3 must lie within its 2%
+               (its non-measured ratios are printed, not checked); then
+               ``python -m repro_torch.tune --benchmark dgemm`` over the
+               card space on the serial, ``simulated:4`` and ``process:2``
+               backends: all 8 configs each, and the two new backends'
+               F_p within F_P_AGREEMENT of the serial session's. The
+               phase runs to its end before it fails on any of these.
 
 Each phase prints its seconds.
 
 The last three lines are the card line, one ``{"kernels": [...]}`` JSON
 object (flash attention split by dtype: ``flash_attention`` the bf16
 tensor-core kernel, ``flash_attention_f32`` the 3xTF32 one, with the
-CUDA-core kernel it replaced as ``was_ms``) and
+CUDA-core kernel it replaced as ``was_ms``; ``launches`` counts the main
+path's launches, phase 5's for matmul and triad, with phases 10 and 11's
+beside it as ``launches_device_timing`` and ``launches_paper_tables``) and
 ``{"ok": true, "device": {...}}``. Without a card, or outside
 a checkout, the script exits non-zero and prints neither.
 """
@@ -148,6 +174,16 @@ TF32_PEAK = 495e12                         # tensor cores, tf32, dense
 #: (the 3xTF32 split of the SSD kernel and the f32 flash kernel)
 TF32X3_PEAK = TF32_PEAK / 3
 SUBPROCESS_TIMEOUT_S = 420
+#: TRIAD working sets of the device-timing phase, each in a one-config
+#: session of its own (only a trial that beats the incumbent is profiled)
+DEVICE_TIMING_TRIAD = {"256 KiB": 1 << 18, "cache": 1 << 22, "dram": 1 << 28}
+#: the profiled TRIAD kernel against phase 4's CUDA-event graph-replay
+#: time of the same tensor size (device time without the host's dispatch)
+DEVICE_TIMING_AGREEMENT = 0.25
+#: the paper-table benches phase 11 runs (``distributed_tuner`` is not
+#: ported; ``roofline_model`` ran in phase 5)
+PAPER_BENCHES = ("matmul_peak", "triad", "iteration_counts", "size_sweep",
+                 "optimizations", "kernel_autotune")
 FLASH_MAIN = (1, 32, 8, 4096, 64)          # (B, H, Hkv, S, D), granite-3-2b
 FLASH_TOL = {"f32": {"rtol": 2e-5, "atol": 2e-5},   # tests/test_kernels.py
              "bf16": {"rtol": 3e-2, "atol": 3e-2}}
@@ -1173,10 +1209,10 @@ def step_trace(spec: dict, tile: tuple[int, int]) -> dict:
     return {"wall_ms": wall, "busy_ms": busy, "parts": parts}
 
 
-def run_tune(args: list[str]) -> tuple[str, dict]:
+def run_tune(args: list[str], session: str = "smoke") -> tuple[str, dict]:
     """One ``python -m repro_torch.tune`` session; returns its output and
     the launch counts of its footer's ``kernels`` line."""
-    cmd = [sys.executable, "-m", "repro_torch.tune", "--session", "smoke",
+    cmd = [sys.executable, "-m", "repro_torch.tune", "--session", session,
            "--cache-dir", str(WORK / "sessions"), *args]
     env = dict(os.environ, PYTHONPATH=str(SRC))
     print("$ " + " ".join(cmd[1:]), flush=True)
@@ -1189,8 +1225,8 @@ def run_tune(args: list[str]) -> tuple[str, dict]:
         print(proc.stderr[-6000:], file=sys.stderr)
         fail(f"tune {' '.join(args)} exited {proc.returncode}")
     out = proc.stdout
-    (WORK / f"tune_{args[1]}.log").write_text(out + proc.stderr,
-                                              encoding="utf-8")
+    (WORK / f"tune_{session}_{args[1]}.log").write_text(
+        out + proc.stderr, encoding="utf-8")
     m = re.search(r"^kernels   : (.*) launches$", out, re.M)
     if m is None:
         fail(f"tune {' '.join(args)}: no kernels line in its footer")
@@ -1203,6 +1239,225 @@ def run_tune(args: list[str]) -> tuple[str, dict]:
         print("  " + line)
     print(f"  {m.group(0)}   (process wall {dt:.1f}s)", flush=True)
     return out, counts
+
+
+def traced_session(label: str, space, settings, bench) -> dict:
+    """One ``Tuner`` session under its own ``TraceRecorder``; returns the
+    result and the ``device_timing`` instants of its trials."""
+    from repro_torch.core import Tuner
+    from repro_torch.obs import TraceRecorder
+    path = WORK / "device_timing" / f"{re.sub(r'[^a-z0-9]+', '_', label)}.jsonl"
+    with TraceRecorder(path, session=label) as rec:
+        result = Tuner(space, settings).tune(bench)
+    events = rec.events()
+    unavailable = [e for e in events if e.get("name") ==
+                   "device_timing_unavailable"]
+    if unavailable:
+        fail(f"device timing {label}: {len(unavailable)} trial(s) gave "
+             f"device_timing_unavailable on the card")
+    trials = {e["id"]: e.get("attrs", {}) for e in events
+              if e["type"] == "span" and e.get("cat") == "trial"}
+    timings = [(trials.get(e["parent"], {}).get("config"), e["attrs"])
+               for e in events if e.get("name") == "device_timing"]
+    if len(timings) != len(result.improvements):
+        fail(f"device timing {label}: {len(timings)} device_timing "
+             f"instants for {len(result.improvements)} incumbent trials")
+    for config, t in timings:
+        print(f"  {label} {config}: host bracket {t['host_time_s'] * 1e6:.2f}"
+              f" us, device {t['device_time_s'] * 1e6:.2f} us "
+              f"({t['n_events']} kernel event(s)), skew "
+              f"{t['skew_s'] * 1e6:.2f} us", flush=True)
+        if not (0.0 < t["device_time_s"] <= t["host_time_s"]
+                and t["n_events"] >= 1):
+            fail(f"device timing {label} {config}: device "
+                 f"{t['device_time_s']} s, host {t['host_time_s']} s, "
+                 f"{t['n_events']} events")
+    return {"result": result, "timings": timings}
+
+
+def device_timing_path(triad_ms: dict) -> dict:
+    """Phase 10: traced sessions with ``device_timing=True`` — DGEMM over
+    the card space and TRIAD at each DEVICE_TIMING_TRIAD size alone; the
+    4 MiB and 256 MiB TRIAD device times against phase 4's graph-replay
+    times of the same sizes."""
+    import dataclasses
+    from repro_torch.bench.common import (card_dgemm_space, dgemm_benchmark,
+                                          paper_settings, triad_benchmark)
+    from repro_torch.core import grid
+    from repro_torch.obs import metrics
+    from repro_torch.obs.device_timing import PRIMER
+    counter = "device_timing.lost_kernel_records"
+    lost_before = metrics().snapshot()["counters"].get(counter, 0)
+    retries_before = metrics().snapshot()["counters"].get(
+        "card_clock.retries", 0)
+    settings = dataclasses.replace(paper_settings(True),
+                                   use_ci_convergence=True,
+                                   use_inner_prune=True,
+                                   use_outer_prune=True, device_timing=True)
+    out = {"dgemm": traced_session("dgemm card space", card_dgemm_space(),
+                                   settings, dgemm_benchmark("cuda"))}
+    # the timed sampler's score (the card's clock around the product)
+    # against the profiled product's own rate
+    scores = {tuple(sorted(t.config.items())): t.result.score
+              for t in out["dgemm"]["result"].trials}
+    for config, t in out["dgemm"]["timings"]:
+        score = scores[tuple(sorted(config.items()))]
+        rate = 2.0 * config["n"] * config["m"] * config["k"] / (
+            t["device_time_s"] * 1e9)
+        print(f"  dgemm {config}: timed-sampler score {score:.1f} GFLOP/s, "
+              f"profiled kernel {rate:.1f} GFLOP/s ({score / rate - 1:+.1%})")
+    # each TRIAD size is a measurement, not a competitor: no pruning
+    triad_settings = dataclasses.replace(settings, use_inner_prune=False,
+                                         use_outer_prune=False)
+    for label, n_bytes in DEVICE_TIMING_TRIAD.items():
+        run = traced_session(f"triad {n_bytes >> 10} KiB",
+                             grid(n_bytes=(n_bytes,)), triad_settings,
+                             triad_benchmark("cuda"))
+        out[label] = run
+        if label not in triad_ms:
+            continue
+        device_ms = run["timings"][0][1]["device_time_s"] * 1e3
+        t = triad_ms[label]
+        rel = device_ms / t["graph"] - 1.0
+        print(f"  triad {n_bytes >> 20} MiB: profiled kernel {device_ms:.5f} "
+              f"ms vs phase 4 graph replay {t['graph']:.5f} ms ({rel:+.1%}; "
+              f"back-to-back launches {t['kernel']:.5f} ms)")
+        if abs(rel) > DEVICE_TIMING_AGREEMENT:
+            fail(f"device timing triad {label}: profiled {device_ms:.5f} ms "
+                 f"is {rel:+.1%} off the CUDA-event graph replay "
+                 f"{t['graph']:.5f} ms (limit {DEVICE_TIMING_AGREEMENT:.0%})")
+    counters = metrics().snapshot()["counters"]
+    records = counters.get(counter, 0) - lost_before
+    retries = counters.get("card_clock.retries", 0) - retries_before
+    windows = sum(len(run["timings"]) for run in out.values())
+    print(f"  kernel records the profiler lost from the {PRIMER} throwaway "
+          f"kernels opening each window: {records} over {windows} windows; "
+          f"DGEMM card-clock samples retaken with a longer hold: {retries}")
+    out["lost"] = {"kernel_records": records, "windows": windows}
+    return out
+
+
+def finite_rows(name: str, rows: list, keys: tuple) -> None:
+    if not rows:
+        fail(f"paper table {name}: empty")
+    for row in rows:
+        for key in keys:
+            value = float(row[key])
+            if not (math.isfinite(value) and value > 0):
+                fail(f"paper table {name}: {key}={row[key]!r} in {row}")
+
+
+def paper_tables_path() -> dict:
+    """Phase 11: the paper-table benches quick on the card, the harness,
+    and DGEMM sessions over the card space on the serial, simulated:4 and
+    process:2 backends."""
+    from repro_torch import kernels
+    from repro_torch.bench import harness
+    from repro_torch.bench import run as bench_run
+    from repro_torch.bench.common import card_dgemm_space, paper_settings
+    from repro_torch.bench.optimizations import techniques
+
+    print("$ repro_torch.bench.run --device cuda --only "
+          + ",".join(PAPER_BENCHES), flush=True)
+    kernels.reset_launch_counts()
+    res = bench_run.run_benches(PAPER_BENCHES, quick=True, device="cuda")
+    launches = kernels.launch_counts()
+
+    peak = res["matmul_peak"]
+    finite_rows("matmul_peak", peak["rows"], ("gflops",))
+    finite_rows("triad", res["triad"], ("gbytes_per_s", "samples"))
+    finite_rows("iteration_counts", res["iteration_counts"],
+                ("mean_iters", "min_iters", "total_samples"))
+    finite_rows("size_sweep", res["size_sweep"],
+                ("gflops", "eval_time_s", "samples"))
+    rows = res["optimizations"]
+    finite_rows("optimizations", rows, ("best_gflops", "time_s", "samples"))
+    want = list(techniques(paper_settings(True))) + [
+        "Hand-tuned Time", "Hand-tuned Accuracy"]
+    if [r["technique"] for r in rows] != want:
+        fail(f"optimizations rows {[r['technique'] for r in rows]}, want "
+             f"{want}")
+    for r in rows:
+        for key in ("speedup", "err_raw"):
+            if not math.isfinite(float(r[key].rstrip("x%"))):
+                fail(f"optimizations {r['technique']}: {key} {r[key]}")
+    counts = {r["technique"]: r["total_samples"]
+              for r in res["iteration_counts"]}
+    if not counts["C+I+O"] < counts["Default"]:
+        fail(f"C+I+O took {counts['C+I+O']} samples, Default "
+             f"{counts['Default']}: the optimized pipeline must take fewer")
+    tile = res["kernel_autotune"]
+    if not math.isfinite(tile["err"]) or tile["trials"] < 1:
+        fail(f"kernel_autotune: {tile}")
+    for key in ("triad", "matmul"):
+        if launches[key] == 0:
+            fail(f"the paper benches never launched the {key} kernel")
+
+    print("paper tables (NVIDIA card, quick budgets):")
+    print(f"  matmul peak: autotuned {peak['autotuned']:.1f} GFLOP/s at "
+          f"{peak['dims']}; square {peak['square']:.1f} at "
+          f"{peak['square_dims']} ({peak['square'] / peak['autotuned']:.3f}x)")
+    cache = max(r["gbytes_per_s"] for r in res["triad"]
+                if r["regime"] == "cache")
+    dram = max(r["gbytes_per_s"] for r in res["triad"]
+               if r["regime"] == "dram")
+    print(f"  TRIAD peaks: cache-resident {cache:.1f} GB/s, DRAM {dram:.1f} "
+          f"GB/s")
+    for r in rows:
+        print(f"  {r['technique']:<20s} speedup {r['speedup']:>7s}  error "
+              f"raw {r['err_raw']:>6s} refined {r['err_refined']:>6s}  "
+              f"samples {r['samples']}")
+    print(f"  kernel_autotune: {tile['best']} at {tile['score']:.1f} GFLOP/s "
+          f"over {tile['trials']} tiles, max err vs matmul_ref "
+          f"{tile['err']:.2e}")
+
+    print("$ repro_torch.bench.harness", flush=True)
+    out = WORK / "harness" / "harness.json"
+    rc = harness.main(["--out", str(out)])
+    doc = json.loads(out.read_text(encoding="utf-8"))
+    agr = doc["agreement"]
+    for name, fam in doc["families"].items():
+        print(f"  harness {name}: non-measured per trial legacy "
+              f"{fam['legacy']['non_measured_per_trial_s'] * 1e3:.3f} ms, "
+              f"fast {fam['fast']['non_measured_per_trial_s'] * 1e3:.3f} ms "
+              f"({fam['speedup_non_measured']}x; target "
+              f">= {harness.MIN_SPEEDUP:g}x, reported only)")
+    misses = []
+    if agr["rel_diff"] > harness.MAX_REL_DIFF:
+        misses.append(f"harness: timed vs steady {agr} beyond "
+                      f"{harness.MAX_REL_DIFF:.0%}")
+    print(f"  harness exit {rc}; timed vs steady on {agr['workload']}: "
+          f"timed {agr['timed_gflops']:.1f}, steady {agr['steady_gflops']:.1f}"
+          f" GFLOP/s, rel diff {agr['rel_diff']:.5f} (must lie within "
+          f"{harness.MAX_REL_DIFF:.0%})")
+
+    n_configs = card_dgemm_space().cardinality
+    best = {}
+    for backend in ("serial", "simulated:4", "process:2"):
+        name = "backend_" + backend.replace(":", "")
+        tune_out, _ = run_tune(["--benchmark", "dgemm", "--backend",
+                                backend], session=name)
+        m = re.search(r"^trials    : (\d+)", tune_out, re.M)
+        if m is None or int(m.group(1)) != n_configs:
+            misses.append(f"dgemm --backend {backend}: {m and m.group(1)} "
+                          f"trials, want all {n_configs} card-space configs")
+            continue
+        m = re.search(r"^best      : .*score=([0-9.eE+-]+)$", tune_out, re.M)
+        best[backend] = float(m.group(1))
+    for backend in ("simulated:4", "process:2"):
+        if backend not in best or "serial" not in best:
+            continue
+        ratio = best[backend] / best["serial"]
+        print(f"  F_p {backend} / serial = {ratio:.3f} (must lie in "
+              f"{F_P_AGREEMENT})")
+        if not F_P_AGREEMENT[0] <= ratio <= F_P_AGREEMENT[1]:
+            misses.append(f"dgemm --backend {backend}: F_p "
+                          f"{best[backend]:.1f} is {ratio:.3f}x the serial "
+                          f"session's {best['serial']:.1f}")
+    if misses:
+        fail("; ".join(misses))
+    return {"benches": res, "launches": launches, "harness": doc,
+            "backends": best}
 
 
 def main() -> int:
@@ -1775,6 +2030,18 @@ def main() -> int:
           f" on the plain path")
     trace = step_trace(HYBRID_STEP, hyb["tile"])
 
+    # -- 10. device timing ----------------------------------------------------
+    phase("device timing (torch.profiler, traced sessions)")
+    kernels.reset_launch_counts()
+    timing = device_timing_path(triad_ms)
+    timing_launches = kernels.launch_counts()
+    if timing_launches["triad"] == 0:
+        fail("the device-timing sessions never launched the triad kernel")
+
+    # -- 11. paper tables ------------------------------------------------------
+    phase("paper tables (Tables IV-XI, Fig. 6), harness, backends")
+    tables = paper_tables_path()
+
     # -- result lines ------------------------------------------------------
     phase("result")
     print(f"total wall {time.perf_counter() - t_start:.1f}s")
@@ -1785,7 +2052,9 @@ def main() -> int:
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul/matmul.py:27",
-         "launches": launches["matmul"], "max_abs_err": errs["matmul"],
+         "launches": launches["matmul"],
+         "launches_paper_tables": tables["launches"]["matmul"],
+         "max_abs_err": errs["matmul"],
          "ms": gemm_ms, "plain_ms": gemm_plain_ms,
          "bound_ms": gemm_bound_ms, "bound_by": "operations",
          "library_ms": gemm_lib_ms, "checks_passed": n_checks["matmul"],
@@ -1794,7 +2063,14 @@ def main() -> int:
         {"name": "triad", "route": "cuda",
          "source": "src/repro_torch/csrc/triad.cu",
          "replaces": "src/repro/kernels/triad/triad.py:26",
-         "launches": launches["triad"], "max_abs_err": errs["triad"],
+         "launches": launches["triad"],
+         "launches_device_timing": timing_launches["triad"],
+         "launches_paper_tables": tables["launches"]["triad"],
+         "profiled_ms": {label: run["timings"][0][1]["device_time_s"] * 1e3
+                         for label, run in timing.items()
+                         if label in DEVICE_TIMING_TRIAD},
+         "profiler_lost": timing["lost"],
+         "max_abs_err": errs["triad"],
          "ms": t_dram["kernel"], "plain_ms": t_dram["plain"],
          "bound_ms": t_dram["bound"], "bound_by": "bytes",
          "library_ms": t_dram["library"], "checks_passed": n_checks["triad"],

@@ -22,15 +22,27 @@ the two packages measure the same configurations on the same data.
     as an objective over the flash-attention tiles
     (:func:`model_step_space`); GFLOP/s over one shared work term.
 
-``dgemm_benchmark(device)`` and its siblings return the benchmark
-callable bound to one device, with a ``precompile`` hook for the tuner's
-background pipeline; every one runs on ``cuda`` unless built with
+``dgemm_benchmark(device)`` and its siblings return the benchmark bound
+to one device: a small module-level class holding the device name, so it
+pickles into ``ProcessPoolBackend`` workers, with a ``precompile`` hook
+for the tuner's background pipeline (``dgemm_precompile``,
+``triad_precompile``); every one runs on ``cuda`` unless built with
 ``device="cpu"``.
+
+The paper-table benches tune DGEMM over :func:`paper_dgemm_space`. On
+the host, and in every parity test, its quick space is the JAX
+package's ``dgemm_space(True)`` (n, m <= 1024, k <= 512), which that
+package scales to its host. On a card those products take tens of
+microseconds, which the host clock around launch + synchronize cannot
+tell from the dispatch, so a quick run on ``cuda`` takes
+:func:`card_dgemm_space` instead: the full space's own values n, m in
+{2000, 4000} and k in {1024, 2048}, 8 configs of 8.2-65.5 GFLOP (the
+roofline-model bench departs from the quick corner on a card for the
+same reason).
 """
 
 from __future__ import annotations
 
-import functools
 import itertools
 import threading
 from typing import Callable, Union
@@ -39,7 +51,8 @@ import numpy as np
 import torch
 
 from ..core import (Direction, EvaluationSettings, SearchSpace,
-                    default_cache, grid, timed_sampler)
+                    default_cache, grid, steady_sampler, timed_sampler)
+from ..core.card_clock import CardClock
 from ..core.exec_cache import TensorSpec
 from ..core.profiling import trace_instant
 from ..core.searchspace import doubling_from, powers_of_two
@@ -52,17 +65,43 @@ from ..models.config import ModelConfig
 from ..models.transformer import StepConfig
 from ..models.workloads import ModelWorkload, build_workload, workload_flops
 
-__all__ = ["GEMM_TILED_SHAPE", "SM90_SMEM_OPTIN_BYTES", "dgemm_benchmark",
-           "dgemm_data", "dgemm_flops", "dgemm_space", "emit",
+__all__ = ["CSV_ROWS", "DgemmBenchmark", "GEMM_TILED_SHAPE",
+           "GemmTiledBenchmark", "SM90_SMEM_OPTIN_BYTES", "TriadBenchmark",
+           "bench_main", "card_dgemm_space", "dgemm_benchmark", "dgemm_data",
+           "dgemm_flops", "dgemm_precompile", "dgemm_space", "emit",
            "gemm_tiled_benchmark", "gemm_tiled_space", "model_step_family",
-           "model_step_space", "paper_settings", "print_table",
-           "synthetic_benchmark", "triad_benchmark", "triad_data",
-           "triad_length", "triad_moved_bytes", "triad_sizes"]
+           "model_step_space", "paper_dgemm_space", "paper_settings",
+           "print_table", "synthetic_benchmark", "triad_benchmark",
+           "triad_data", "triad_length", "triad_moved_bytes",
+           "triad_precompile", "triad_sizes", "where"]
+
+#: every row :func:`emit` printed in this process, in order
+CSV_ROWS: list[tuple[str, float, str]] = []
 
 
 def emit(name: str, us_per_call: float, derived: str) -> None:
     """One ``name,us_per_call,derived`` CSV row (the harness contract)."""
+    CSV_ROWS.append((name, us_per_call, derived))
     print(f"{name},{us_per_call:.3f},{derived}")
+
+
+def where(device: str) -> str:
+    """The table titles' name for the measured machine."""
+    return "this card" if device == "cuda" else "this host"
+
+
+def bench_main(run: Callable, doc: str, argv=None) -> int:
+    """``python -m repro_torch.bench.<table> [--full] [--device cpu]``:
+    one paper-table bench on its own."""
+    import argparse
+    ap = argparse.ArgumentParser(description=doc)
+    ap.add_argument("--full", action="store_true",
+                    help="paper Table I budgets (slow)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+    print("name,us_per_call,derived")
+    run(quick=not args.full, device=args.device)
+    return 0
 
 
 def print_table(title: str, rows: list[dict]) -> None:
@@ -138,7 +177,9 @@ def triad_data(n: int, dtype: torch.dtype = torch.float32,
 def dgemm_invocation_factory(n: int, m: int, k: int,
                              dtype: torch.dtype = torch.float32, *,
                              device: "str | torch.device" = "cuda",
-                             exec_cache=None) -> Callable:
+                             exec_cache=None, sampler: str = "timed",
+                             batch=None, reuse_data: bool = False,
+                             ) -> Callable:
     """One 'program invocation' of the DGEMM benchmark: allocate fresh
     matrices, pre-heat the product (the paper pre-heats with one untimed
     call), return a GFLOP/s sampler.
@@ -146,22 +187,53 @@ def dgemm_invocation_factory(n: int, m: int, k: int,
     The product is ``torch.matmul`` in full float32: this sets
     ``torch.backends.cuda.matmul.allow_tf32 = False`` for the process,
     because the paper's reference is a full-precision DGEMM and TF32
-    would silently trade digits for speed."""
+    would silently trade digits for speed.
+
+    ``sampler="steady"`` returns a batched
+    :func:`~repro_torch.core.evaluator.steady_sampler` (B launches, one
+    ``torch.cuda.synchronize`` per observation); the auto-calibrated B
+    is cached across invocations, so calibration runs once per config.
+    ``reuse_data=True`` draws the operands once per *config* instead of
+    once per invocation — sound for GEMM on normal data, whose runtime
+    is data-oblivious, and it removes the dominant setup cost of short
+    trials.
+
+    On a card both samplers time on the card's clock (one
+    :class:`~repro_torch.core.card_clock.CardClock` per config, shared by
+    its invocations): the product's launch and the synchronize's return,
+    tens of microseconds a sample on the host clock, stay out of the
+    score. On the host the samplers keep the host clock."""
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     flops = dgemm_flops(n, m, k)
     invocation = itertools.count()
     cache = exec_cache if exec_cache is not None else default_cache()
     sync = synchronizer(dev)
+    card = CardClock() if dev.type == "cuda" else None
+    state = {"batch": batch, "data": None}
 
     def factory():
-        a, b = dgemm_data(n, m, k, dgemm_seed(n, m, k, next(invocation)),
-                          dtype, dev)
+        seed = dgemm_seed(n, m, k, next(invocation))
+        if reuse_data and state["data"] is not None:
+            a, b = state["data"]
+        else:
+            a, b = dgemm_data(n, m, k, seed, dtype, dev)
+            if reuse_data:
+                state["data"] = (a, b)
         f = cache.compile(torch.matmul, (a, b))
         f(a, b)                              # pre-heat
         sync()
         trace_instant("workload", kernel="dgemm", n=n, m=m, k=k,
                       flops=flops, dtype=str(dtype))
+        if sampler == "steady":
+            s = steady_sampler(lambda: f(a, b), work=flops / 1e9,
+                               sync=sync, batch=state["batch"],
+                               card_clock=card)
+            state["batch"] = s.batch         # calibrate once per config
+            return s
+        if card is not None:
+            return timed_sampler(lambda: f(a, b), work=flops / 1e9,
+                                 card_clock=card)
 
         def run():
             f(a, b)
@@ -250,6 +322,23 @@ def dgemm_space(quick: bool = True) -> SearchSpace:
                 k=powers_of_two(64, 2048))
 
 
+def card_dgemm_space() -> SearchSpace:
+    """The quick paper benches' DGEMM space on a card: the full space's
+    own values n, m in {2000, 4000}, k in {1024, 2048} (8 configs of
+    8.2-65.5 GFLOP; see the module docstring)."""
+    return grid(n=(2000, 4000), m=(2000, 4000), k=(1024, 2048))
+
+
+def paper_dgemm_space(quick: bool = True,
+                      device: "str | torch.device" = "cuda") -> SearchSpace:
+    """The DGEMM space the paper benches and the CLI tune on ``device``:
+    :func:`card_dgemm_space` for a quick run on ``cuda``, otherwise
+    :func:`dgemm_space`."""
+    if quick and resolve_device(device).type == "cuda":
+        return card_dgemm_space()
+    return dgemm_space(quick)
+
+
 def triad_sizes(quick: bool = True) -> tuple[int, ...]:
     """TRIAD working-set sizes in bytes: 64 KiB..16 MiB quick, or the
     16 KiB..64 MiB ladder that crosses every cache level."""
@@ -304,67 +393,119 @@ def gemm_tiled_space(
 # ---------------------------------------------------------------------------
 # Benchmarks (config -> invocation factory), each bound to one device
 # ---------------------------------------------------------------------------
+#
+# Module-level classes holding the device name (not closures), so they
+# pickle into ProcessPoolBackend workers.
 
 
-def dgemm_benchmark(device: str = "cuda") -> Callable:
-    """``dgemm`` on ``device``: config (n, m, k) -> a ``torch.matmul``
-    f32 sampler factory, with the compile pipeline's ``precompile``."""
-
-    def bench(cfg: dict) -> Callable:
-        return dgemm_invocation_factory(cfg["n"], cfg["m"], cfg["k"],
-                                        device=device)
-
-    def precompile(cfg: dict) -> None:
-        n, m, k = cfg["n"], cfg["m"], cfg["k"]
-        default_cache().compile(
-            torch.matmul, (TensorSpec((n, k), torch.float32, device),
-                           TensorSpec((k, m), torch.float32, device)))
-
-    bench.precompile = precompile
-    return bench
+def dgemm_precompile(cfg: dict, device: "str | torch.device" = "cuda",
+                     ) -> None:
+    """Resolve the executable cache's entry for one DGEMM config from
+    tensor specs — nothing is allocated or executed."""
+    n, m, k = cfg["n"], cfg["m"], cfg["k"]
+    default_cache().compile(
+        torch.matmul, (TensorSpec((n, k), torch.float32, device),
+                       TensorSpec((k, m), torch.float32, device)))
 
 
-def triad_benchmark(device: str = "cuda") -> Callable:
-    """``triad`` on ``device``: config (n_bytes,) -> a TRIAD-kernel GB/s
-    sampler factory (float32), with ``precompile``."""
-
-    def bench(cfg: dict) -> Callable:
-        return triad_invocation_factory(cfg["n_bytes"], device=device)
-
-    def precompile(cfg: dict) -> None:
-        spec = TensorSpec((triad_length(cfg["n_bytes"]),), torch.float32,
-                          device)
-        default_cache().compile(triad, (spec, spec), static={"gamma": 3.0})
-
-    bench.precompile = precompile
-    return bench
+def triad_precompile(cfg: dict, device: "str | torch.device" = "cuda",
+                     ) -> None:
+    """Resolve the TRIAD kernel for one working set from tensor specs
+    (on a card this builds the kernel library on its first call)."""
+    spec = TensorSpec((triad_length(cfg["n_bytes"]),), torch.float32,
+                      device)
+    default_cache().compile(triad, (spec, spec), static={"gamma": 3.0})
 
 
-def gemm_tiled_benchmark(device: str = "cuda") -> Callable:
-    """``gemm_tiled`` on ``device``: config (bm, bn, bk) -> the
+class DgemmBenchmark:
+    """``dgemm`` on one device: config (n, m, k) -> a ``torch.matmul``
+    f32 sampler factory (:func:`dgemm_invocation_factory` with this
+    benchmark's ``sampler``, ``batch`` and ``reuse_data``)."""
+
+    def __init__(self, device: str = "cuda", *, sampler: str = "timed",
+                 batch=None, reuse_data: bool = False):
+        self.device = device
+        self.sampler = sampler
+        self.batch = batch
+        self.reuse_data = reuse_data
+
+    def __call__(self, cfg: dict) -> Callable:
+        return dgemm_invocation_factory(
+            cfg["n"], cfg["m"], cfg["k"], device=self.device,
+            sampler=self.sampler, batch=self.batch,
+            reuse_data=self.reuse_data)
+
+    def precompile(self, cfg: dict) -> None:
+        dgemm_precompile(cfg, self.device)
+
+
+class TriadBenchmark:
+    """``triad`` on one device: config (n_bytes,) -> a TRIAD-kernel GB/s
+    sampler factory (float32)."""
+
+    def __init__(self, device: str = "cuda"):
+        self.device = device
+
+    def __call__(self, cfg: dict) -> Callable:
+        return triad_invocation_factory(cfg["n_bytes"], device=self.device)
+
+    def precompile(self, cfg: dict) -> None:
+        triad_precompile(cfg, self.device)
+
+
+class GemmTiledBenchmark:
+    """``gemm_tiled`` on one device: config (bm, bn, bk) -> the
     hand-written GEMM's GFLOP/s at :data:`GEMM_TILED_SHAPE` in float32.
     The operands are drawn once, at the first invocation, and shared by
     every tile (GEMM is data-oblivious), so a tile search pays the large
-    draw once."""
-    m, n, k = (GEMM_TILED_SHAPE[d] for d in "mnk")
+    draw once; a pickled copy draws its own."""
 
-    @functools.cache
-    def operands() -> tuple[torch.Tensor, torch.Tensor]:
-        return dgemm_data(m, n, k, dgemm_seed(m, n, k, 0),
-                          device=device)
+    def __init__(self, device: str = "cuda"):
+        self.device = device
+        self._operands = None
+        self._lock = threading.Lock()
 
-    def bench(cfg: dict) -> Callable:
+    def __getstate__(self) -> dict:
+        return {"device": self.device}
+
+    def __setstate__(self, state: dict) -> None:
+        self.__init__(state["device"])
+
+    def operands(self) -> tuple[torch.Tensor, torch.Tensor]:
+        with self._lock:
+            if self._operands is None:
+                m, n, k = (GEMM_TILED_SHAPE[d] for d in "mnk")
+                self._operands = dgemm_data(m, n, k, dgemm_seed(m, n, k, 0),
+                                            device=self.device)
+            return self._operands
+
+    def __call__(self, cfg: dict) -> Callable:
         return gemm_tiled_invocation_factory(
-            cfg["bm"], cfg["bn"], cfg["bk"], operands, device=device)
+            cfg["bm"], cfg["bn"], cfg["bk"], self.operands,
+            device=self.device)
 
-    def precompile(cfg: dict) -> None:
+    def precompile(self, cfg: dict) -> None:
+        m, n, k = (GEMM_TILED_SHAPE[d] for d in "mnk")
         default_cache().compile(
-            matmul, (TensorSpec((m, k), torch.float32, device),
-                     TensorSpec((k, n), torch.float32, device)),
+            matmul, (TensorSpec((m, k), torch.float32, self.device),
+                     TensorSpec((k, n), torch.float32, self.device)),
             static={"bm": cfg["bm"], "bn": cfg["bn"], "bk": cfg["bk"]})
 
-    bench.precompile = precompile
-    return bench
+
+def dgemm_benchmark(device: str = "cuda", **kwargs) -> DgemmBenchmark:
+    """``dgemm`` on ``device`` (keywords: ``sampler``, ``batch``,
+    ``reuse_data``; see :class:`DgemmBenchmark`)."""
+    return DgemmBenchmark(device, **kwargs)
+
+
+def triad_benchmark(device: str = "cuda") -> TriadBenchmark:
+    """``triad`` on ``device`` (see :class:`TriadBenchmark`)."""
+    return TriadBenchmark(device)
+
+
+def gemm_tiled_benchmark(device: str = "cuda") -> GemmTiledBenchmark:
+    """``gemm_tiled`` on ``device`` (see :class:`GemmTiledBenchmark`)."""
+    return GemmTiledBenchmark(device)
 
 
 # ---------------------------------------------------------------------------

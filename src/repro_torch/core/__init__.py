@@ -16,7 +16,8 @@ from .evaluator import (BatchCalibration, ClockCalibration, EvalResult,
 from .exec_cache import (CompilePipeline, ExecCacheStats, ExecutableCache,
                          TensorSpec, default_cache)
 from .executor import (Batch, BatchStats, ExecutionBackend, ExecutionStats,
-                       IncumbentCell, SerialBackend, ThreadPoolBackend,
+                       IncumbentCell, ProcessPoolBackend, SerialBackend,
+                       SimulatedShardedBackend, ThreadPoolBackend,
                        TrialOutcome)
 from .profiling import (PhaseProfiler, PhaseStats, phase, profiler,
                         record_phase, trace_instant, trace_sink, trace_span)
@@ -61,7 +62,8 @@ __all__ = [
     "PhaseProfiler", "PhaseStats", "phase", "profiler",
     "record_phase", "trace_instant", "trace_sink", "trace_span",
     "Batch", "BatchStats", "ExecutionBackend", "ExecutionStats",
-    "IncumbentCell", "SerialBackend", "ThreadPoolBackend", "TrialOutcome",
+    "IncumbentCell", "ProcessPoolBackend", "SerialBackend",
+    "SimulatedShardedBackend", "ThreadPoolBackend", "TrialOutcome",
     "H100_SXM", "H100_SXM_BF16_FLOPS", "MachineSpec", "RooflineModel",
     "TRIAD_INTENSITY", "attainable", "from_measurements",
     "operational_intensity", "ridge_point",

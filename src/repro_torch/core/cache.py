@@ -550,10 +550,15 @@ class TuningSession:
     the best cached trial. Kill the process at any point and ``run()``
     again — it completes the remaining configs only.
 
-    ``ledger`` (the performance-history run ledger) and ``trace`` (a span
-    trace of every run) keep the JAX package's signature, but neither
-    layer is ported yet: the defaults (``None``, ``False``) are the only
-    accepted values, and anything else raises
+    ``trace=True`` records a span trace of every ``run()`` to
+    ``<cache_dir>/<name>.trace.jsonl`` (a path redirects it); the result
+    carries it as ``TuningResult.trace_path``. When a recorder is
+    already installed (an enclosing campaign or test owns it), the
+    session joins that trace instead of opening its own.
+
+    ``ledger`` (the performance-history run ledger) keeps the JAX
+    package's signature, but the layer is not ported yet: ``None`` is the
+    only accepted value, and anything else raises
     :class:`NotImplementedError`.
     """
 
@@ -567,10 +572,7 @@ class TuningSession:
         if ledger is not None:
             raise NotImplementedError(
                 "TuningSession(ledger=...): the run ledger is not ported "
-                "yet; pass None")
-        if trace:
-            raise NotImplementedError(
-                "TuningSession(trace=...): span tracing is not ported yet")
+                "yet (ROADMAP 'History and search'); pass None")
         self.name = name
         self.tuner = tuner
         self.benchmark = benchmark
@@ -580,6 +582,11 @@ class TuningSession:
         self.warm_start = warm_start
         self.cache = TrialCache(Path(cache_dir) / f"{name}.jsonl",
                                 fingerprint=fingerprint)
+        self.trace = trace
+        self.trace_path: Optional[Path] = None
+        if trace:
+            self.trace_path = (Path(cache_dir) / f"{name}.trace.jsonl"
+                               if trace is True else Path(trace))
 
     def run(self, backend=None, progress=None, seeds=(),
             validate: str = "off"):
@@ -587,8 +594,19 @@ class TuningSession:
         are transfer-tuning warm-start configs (see
         ``TrialCache.suggest_seeds``), forwarded to ``Tuner.tune``, as
         is ``validate`` (see ``Tuner.tune``)."""
-        return self.tuner.tune(self.benchmark, progress=progress,
-                               backend=backend,
-                               cache=self.cache.bound(self.benchmark_name),
-                               warm_start=self.warm_start,
-                               seeds=seeds, validate=validate)
+        import contextlib
+
+        with contextlib.ExitStack() as stack:
+            if self.trace_path is not None:
+                # deferred import + already-active check: an enclosing
+                # campaign/test recorder wins, the session joins its trace
+                from ..obs.trace import TraceRecorder, recorder
+                if recorder() is None:
+                    stack.enter_context(TraceRecorder(self.trace_path,
+                                                      session=self.name))
+            return self.tuner.tune(self.benchmark, progress=progress,
+                                   backend=backend,
+                                   cache=self.cache.bound(
+                                       self.benchmark_name),
+                                   warm_start=self.warm_start,
+                                   seeds=seeds, validate=validate)

@@ -20,13 +20,17 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import Any, Callable, Optional, Sequence, Union
+from typing import TYPE_CHECKING, Any, Callable, Optional, Sequence, Union
 
 from . import welford
-from .profiling import phase, record_phase, trace_span
+from .profiling import (phase, record_phase, trace_instant, trace_sink,
+                        trace_span)
 from .stop_conditions import (CIConverged, Direction, EvalContext, MaxCount,
                               MaxTime, StopCondition, StopDecision,
                               UpperBoundPrune, first_decision)
+
+if TYPE_CHECKING:
+    from .card_clock import CardClock
 
 # ``make_invocation()`` models one outer-loop program invocation: it performs
 # per-invocation setup (allocation, kernel resolution, pre-heat — the paper
@@ -97,9 +101,12 @@ class EvaluationSettings:
     ci_method: str = "welford"
     bootstrap_capacity: int = 256
     bootstrap_resamples: int = 200
-    # Opt-in on-device timing of incumbent candidates. Kept so settings
-    # keys stay identical to the JAX package's; the profiled invocation
-    # behind it is not ported yet, so True raises at evaluate().
+    # Opt-in on-device timing (repro_torch.obs.device_timing): when a
+    # trace recorder is installed, trials that beat the incumbent get one
+    # extra profiled sample whose kernel time and host-vs-device skew land
+    # in the trace. On the host it degrades to an "unavailable"
+    # instant; on the card a lost kernel track raises. Never touches the
+    # measured samples.
     device_timing: bool = False
 
     def label(self) -> str:
@@ -207,10 +214,6 @@ class Evaluator:
     def evaluate(self, make_invocation: InvocationFactory,
                  incumbent: Incumbent = None) -> EvalResult:
         s = self.settings
-        if s.device_timing:
-            raise NotImplementedError(
-                "EvaluationSettings(device_timing=True): on-device timing "
-                "of incumbent candidates is not ported yet")
         inner_conds = s.inner_conditions()
         outer_conds = s.outer_conditions()
         outer_state = welford.init()
@@ -250,6 +253,9 @@ class Evaluator:
             if inv.pruned:
                 decision = StopDecision(reason="inner_pruned", pruned=True)
                 break
+        if s.device_timing and not pruned:
+            self._device_profile(sample_fn, float(outer_state.mean),
+                                 incumbent, direction)
         return EvalResult(score=float(outer_state.mean),
                           best_invocation=float(best_inv),
                           invocations=tuple(invocations),
@@ -258,6 +264,31 @@ class Evaluator:
                           measured_time_s=measured,
                           pruned=pruned,
                           stop_reason=decision.reason)
+
+    # -- on-device timing -----------------------------------------------------
+    def _device_profile(self, sample_fn: Callable[[], float], score: float,
+                        incumbent: Incumbent, direction: Direction) -> None:
+        """One extra profiled sample for incumbent-candidate trials.
+
+        Only runs when a trace recorder is installed (the result is a
+        trace attribute, nothing else consumes it) and only for scores
+        that beat the current incumbent — profiling slows the profiled
+        call, so doomed configurations never pay for it. ``None`` from the
+        profiler (host-only work) becomes a ``device_timing_unavailable``
+        instant; a :class:`~repro_torch.obs.device_timing.DeviceTimingError`
+        (kernels launched, none recorded) propagates.
+        """
+        if trace_sink() is None:
+            return
+        inc = _resolve_incumbent(incumbent)
+        if inc is not None and not direction.better(score, inc):
+            return
+        from ..obs.device_timing import profile_sample
+        timing = profile_sample(sample_fn)
+        if timing is None:
+            trace_instant("device_timing_unavailable")
+        else:
+            trace_instant("device_timing", **timing.to_json())
 
 
 class TimingResolutionWarning(UserWarning):
@@ -323,6 +354,7 @@ def calibrate_clock(clock: Callable[[], float] = time.perf_counter,
 def timed_sampler(fn: Callable[[], None], work: float,
                   clock: Callable[[], float] = time.perf_counter,
                   calibration: Optional[ClockCalibration] = None,
+                  *, card_clock: Optional["CardClock"] = None,
                   ) -> Callable[[], float]:
     """Wrap a side-effecting callable into a metric sampler.
 
@@ -336,7 +368,22 @@ def timed_sampler(fn: Callable[[], None], work: float,
     :class:`TimingResolutionWarning` instead of silently reporting a
     quantization-noise throughput. Custom clocks are taken at face value
     unless an explicit ``calibration`` is passed.
+
+    With a :class:`~repro_torch.core.card_clock.CardClock` the elapsed
+    time is the card's: ``fn`` then only queues its work, and the clock
+    brackets it with CUDA events and synchronizes once (the host bracket
+    still lands in the ``dispatch`` phase).
     """
+    if card_clock is not None:
+        def card_sample() -> float:
+            t0 = clock()
+            dt = card_clock.measure(fn)
+            t1 = clock()
+            record_phase("dispatch", t1 - t0,
+                         at=t1 if clock is time.perf_counter else None)
+            return work / dt
+
+        return card_sample
     if calibration is None and clock is time.perf_counter:
         calibration = calibrate_clock(clock)
     overhead = calibration.overhead_s if calibration else 0.0
@@ -426,6 +473,7 @@ def steady_sampler(dispatch: Callable[[], Any], work: float, *,
                    overhead_frac: float = 0.02,
                    max_batch: int = 1024,
                    calibration: Optional[ClockCalibration] = None,
+                   card_clock: Optional["CardClock"] = None,
                    ) -> Callable[[], float]:
     """Batched low-overhead sampler: B async dispatches, one sync.
 
@@ -449,6 +497,11 @@ def steady_sampler(dispatch: Callable[[], Any], work: float, *,
     averaged down by ~B inside each observation and CIConverged
     typically triggers sooner. Scores remain estimates of the same mean
     rate.
+
+    With a :class:`~repro_torch.core.card_clock.CardClock` each
+    observation is the card's time of the B queued dispatches; the host's
+    queueing and the clock's synchronize land in the ``dispatch`` and
+    ``sync`` phases.
     """
     if batch is None:
         bcal = calibrate_batch(dispatch, sync, clock=clock,
@@ -463,6 +516,19 @@ def steady_sampler(dispatch: Callable[[], Any], work: float, *,
     total_work = work * batch
     b = batch
     default_clock = clock is time.perf_counter
+
+    def enqueue() -> None:
+        for _ in range(b):
+            dispatch()
+
+    def card_sample() -> float:
+        t0 = clock()
+        dt = card_clock.measure(enqueue)
+        t1 = clock()
+        record_phase("dispatch", card_clock.queued_s)
+        record_phase("sync", max(t1 - t0 - card_clock.queued_s, 0.0),
+                     at=t1 if default_clock else None)
+        return total_work / dt
 
     def sample() -> float:
         t0 = clock()
@@ -479,5 +545,7 @@ def steady_sampler(dispatch: Callable[[], Any], work: float, *,
                      at=t1 if default_clock else None)
         return total_work / dt
 
+    if card_clock is not None:
+        sample = card_sample
     sample.batch = batch
     return sample

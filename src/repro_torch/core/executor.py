@@ -4,7 +4,7 @@ The paper's search loop is inherently serial: one configuration at a time,
 each pruned against the incumbent best found so far (stop condition 4).
 This module factors the *scheduling* of configuration evaluations out of
 :class:`~repro_torch.core.tuner.Tuner` so the same search semantics run
-under more than one execution regime:
+under four execution regimes:
 
   * :class:`SerialBackend` — the paper's semantics, one evaluation at a
     time.
@@ -15,33 +15,46 @@ under more than one execution regime:
     benchmarks block on device synchronisation
     (``torch.cuda.synchronize`` releases the GIL), so threads overlap
     genuinely on hardware.
-
-The JAX package's round-synchronized backends (the simulated fleet and
-the spawn-only process pool) are not ported yet.
+  * :class:`ProcessPoolBackend` — configurations evaluate in worker
+    *processes* (started by ``spawn``: CUDA breaks under fork), escaping
+    the GIL for host-bound objectives. The evaluate callable and the
+    benchmark must be picklable; the incumbent is frozen per batch
+    (cross-process live sharing would serialize on IPC), so batch
+    boundaries are this backend's all-reduce rounds, exactly like the
+    simulated fleet.
+  * :class:`SimulatedShardedBackend` — a simulated fleet: one
+    synchronized round per batch, incumbent all-reduced between rounds,
+    faithful per-worker wall-clock accounting (parallel time = max over
+    workers).
 
 Backends consume *batches* — the unit a
 :class:`~repro_torch.core.strategy.SearchStrategy` proposes via ``ask()``
 — not a flat configuration list. A :class:`Batch` carries its
 configurations plus an optional per-batch
 :class:`~repro_torch.core.evaluator.EvaluationSettings` override
-(successive halving raises the iteration budget per rung this way), and
-the strategy's ``tell()`` is guaranteed to have seen every outcome of a
-batch before the next ``ask()``.
+(successive halving raises the iteration budget per rung this way).
+Batch boundaries are semantic: round-synchronized backends (simulated,
+process) freeze the incumbent per batch and all-reduce at the batch end,
+and the strategy's ``tell()`` is guaranteed to have seen every outcome of
+a batch before the next ``ask()``.
 
 Backends receive an ``evaluate(config, incumbent, settings)`` callable
 (built by the tuner; it owns the evaluator) where ``incumbent`` may be a
 float, ``None``, or a zero-arg callable yielding the live best score, and
 ``settings`` is the batch override (``None`` — use the tuner's own). A
 flat ``Sequence[Config]`` is still accepted by :meth:`ExecutionBackend.run`
-and coerced to one batch.
+and coerced to batches reproducing each backend's pre-strategy behaviour
+(one batch, or ``n_workers``-sized rounds on the round-synchronized
+backends).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pickle
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Callable, Iterable, Mapping, Optional, Sequence, Union
 
 from .evaluator import EvalResult, EvaluationSettings, Incumbent
@@ -50,8 +63,8 @@ from .searchspace import Config
 from .stop_conditions import Direction
 
 __all__ = ["Batch", "BatchStats", "ExecutionBackend", "ExecutionStats",
-           "IncumbentCell", "SerialBackend", "ThreadPoolBackend",
-           "TrialOutcome"]
+           "IncumbentCell", "ProcessPoolBackend", "SerialBackend",
+           "SimulatedShardedBackend", "ThreadPoolBackend", "TrialOutcome"]
 
 # (config, incumbent, batch settings override) -> EvalResult; see
 # evaluator.Incumbent for the float-or-live-supplier contract
@@ -366,4 +379,182 @@ class ThreadPoolBackend(ExecutionBackend):
         if observe is not None:
             for out in outcomes:
                 observe(out)
+        return outcomes
+
+
+def shard_configs(configs: Sequence[Config],
+                  n_workers: int) -> list[list[Config]]:
+    """Strided assignment: adjacent (similar-cost) configs spread across
+    workers, balancing the size-correlated evaluation cost (paper Fig. 6)."""
+    configs = list(configs)
+    return [configs[w::n_workers] for w in range(n_workers)]
+
+
+class SimulatedShardedBackend(ExecutionBackend):
+    """Simulated fleet: one synchronized round per batch.
+
+    Workers run lockstep rounds; within a round every worker prunes against
+    the incumbent agreed at the end of the *previous* round (a scalar
+    ``all_reduce`` with ``MAX``/``MIN`` on a real process group). Evaluations execute serially
+    here but per-worker wall clock is accounted faithfully, so
+    ``parallel_time_s`` is the simulated fleet wall clock. Batch boundaries
+    are the all-reduce rounds: a flat config list is coerced to
+    ``n_workers``-sized rounds, reproducing the pre-strategy strided
+    schedule exactly.
+    """
+
+    name = "simulated"
+
+    def __init__(self, n_workers: int = 4,
+                 clock: Callable[[], float] = time.perf_counter):
+        if n_workers < 1:
+            raise ValueError(f"n_workers must be >= 1, got {n_workers}")
+        self.n_workers = n_workers
+        self.batch_hint = n_workers
+        self.legacy_round = n_workers
+        self.clock = clock
+
+    def _start_run(self):
+        return {"worker_time": [0.0] * self.n_workers}
+
+    def _parallel_time(self, ctx, wall: float) -> float:
+        times = ctx["worker_time"]
+        return max(times) if any(t > 0.0 for t in times) else 0.0
+
+    def _run_batch(self, ctx, batch, evaluate, cell, progress, observe,
+                   persist, base_index):
+        frozen = cell.get()  # previous round's all-reduced incumbent
+        outcomes: list[TrialOutcome] = []
+        for j, cfg in enumerate(batch.configs):
+            w = j % self.n_workers
+            res, dt = _traced_trial(self.clock, evaluate, cfg, frozen,
+                                    batch.settings, None, base_index + j,
+                                    worker=w)
+            ctx["worker_time"][w] += dt
+            out = TrialOutcome(index=base_index + j, config=cfg,
+                               result=res, worker=w, elapsed_s=dt)
+            outcomes.append(out)
+            if persist is not None:
+                persist(out)
+            if progress is not None:
+                progress(cfg, res)
+        for out in outcomes:            # the round's all-reduce
+            if not out.result.pruned and cell.offer(out.config,
+                                                    out.result.score):
+                trace_instant("incumbent_improved",
+                              score=out.result.score, trial=out.index)
+        if observe is not None:
+            for out in outcomes:
+                observe(out)
+        return outcomes
+
+
+def _process_trial(evaluate: EvaluateFn, cfg: Config,
+                   incumbent: Optional[float],
+                   settings: Optional[EvaluationSettings],
+                   ) -> tuple[EvalResult, float]:
+    """Worker-side trial: runs in the pool process; the elapsed time is
+    measured inside the worker so IPC overhead never pollutes trial time."""
+    t1 = time.perf_counter()
+    res = evaluate(cfg, incumbent, settings)
+    return res, time.perf_counter() - t1
+
+
+class ProcessPoolBackend(ExecutionBackend):
+    """Evaluations in worker processes — escapes the GIL for CPU-bound
+    objectives (the ROADMAP's process-pool backend).
+
+    The evaluate callable (and therefore the benchmark factory and
+    settings) must be picklable; module-level functions qualify, lambdas
+    and closures do not — :meth:`run` raises a ``TypeError`` naming the
+    offender up front rather than failing inside the pool. The incumbent
+    is frozen per batch and all-reduced at the batch end (live
+    cross-process sharing would serialize every sample on IPC), so this
+    backend has the simulated fleet's round semantics with real
+    parallelism.
+
+    Workers start via the ``spawn`` method by default: CUDA cannot be
+    re-initialized in a forked child of a process that has already
+    initialized it. Spawned workers re-import the evaluate task's modules
+    (the parent's ``sys.path`` is inherited) and each opens its own CUDA
+    context, costing seconds of startup per pool — amortized over a
+    search. The hand kernels' library is built once per source tree:
+    ``repro_torch.kernels.build`` takes a file lock, so workers reaching a
+    cold build together compile it once. Pass ``start_method="fork"``
+    only for objectives that never touch CUDA.
+    """
+
+    name = "process"
+
+    def __init__(self, n_workers: int = 4,
+                 clock: Callable[[], float] = time.perf_counter,
+                 start_method: str = "spawn"):
+        if n_workers < 1:
+            raise ValueError(f"n_workers must be >= 1, got {n_workers}")
+        self.n_workers = n_workers
+        self.batch_hint = n_workers
+        self.legacy_round = n_workers
+        self.clock = clock
+        self.start_method = start_method
+
+    def _make_pool(self) -> ProcessPoolExecutor:
+        import multiprocessing
+        try:
+            mp_ctx = multiprocessing.get_context(self.start_method)
+        except ValueError:                       # platform without it
+            mp_ctx = multiprocessing.get_context()
+        return ProcessPoolExecutor(max_workers=self.n_workers,
+                                   mp_context=mp_ctx)
+
+    def _start_run(self):
+        return {"pool": None, "checked": False}
+
+    def _end_run(self, ctx) -> None:
+        if ctx["pool"] is not None:
+            ctx["pool"].shutdown(wait=True)
+
+    def _check_picklable(self, evaluate: EvaluateFn,
+                         settings: Optional[EvaluationSettings]) -> None:
+        try:
+            pickle.dumps((evaluate, settings))
+        except Exception as e:
+            raise TypeError(
+                "ProcessPoolBackend requires a picklable evaluate task: "
+                "benchmark factories must be module-level callables, not "
+                f"lambdas or closures ({e})") from e
+
+    def _run_batch(self, ctx, batch, evaluate, cell, progress, observe,
+                   persist, base_index):
+        if not ctx["checked"]:
+            self._check_picklable(evaluate, batch.settings)
+            ctx["checked"] = True
+        if ctx["pool"] is None:
+            ctx["pool"] = self._make_pool()
+        frozen = cell.get()  # previous batch's all-reduced incumbent
+        futures = [ctx["pool"].submit(_process_trial, evaluate, cfg, frozen,
+                                      batch.settings)
+                   for cfg in batch.configs]
+        outcomes: list[TrialOutcome] = []
+        for j, (cfg, fut) in enumerate(zip(batch.configs, futures)):
+            res, dt = fut.result()
+            out = TrialOutcome(index=base_index + j, config=cfg, result=res,
+                               worker=j % self.n_workers, elapsed_s=dt)
+            outcomes.append(out)
+            # worker processes carry no recorder, so trials surface as
+            # parent-side instants (timing measured inside the worker)
+            trace_instant("trial_completed", index=out.index,
+                          score=res.score, pruned=res.pruned,
+                          worker=out.worker, elapsed_s=dt)
+            if persist is not None:     # parent-side, as futures land
+                persist(out)
+        for out in outcomes:            # the batch's all-reduce
+            if not out.result.pruned and cell.offer(out.config,
+                                                    out.result.score):
+                trace_instant("incumbent_improved",
+                              score=out.result.score, trial=out.index)
+        for out in outcomes:
+            if observe is not None:
+                observe(out)
+            if progress is not None:
+                progress(out.config, out.result)
         return outcomes

@@ -29,8 +29,8 @@ The module is also the **dual-sink seam** for a span-trace recorder: a
 recorder installs itself via :func:`set_trace_sink`, after which every
 :func:`phase` site feeds both the aggregate buckets (when a profiler is
 active) and a per-thread span in the trace — per-trial attribution the
-folded buckets cannot give. This package ships no recorder yet, so the
-sink stays uninstalled and every trace helper here (:func:`trace_span`,
+folded buckets cannot give (:class:`repro_torch.obs.trace.TraceRecorder`).
+With no recorder installed every trace helper here (:func:`trace_span`,
 :func:`trace_instant`, :func:`record_phase`'s span half) is a no-op.
 """
 

@@ -190,7 +190,8 @@ class Tuner:
                 f"yet; pass validate='off'")
         if ledger is not None:
             raise NotImplementedError(
-                "ledger=: the run ledger is not ported yet; pass None")
+                "ledger=: the run ledger is not ported yet (ROADMAP "
+                "'History and search'); pass None")
         if backend is None:
             backend = SerialBackend(clock=self.clock)
         strategy = self.strategy

@@ -1,8 +1,37 @@
-"""Observability: the process-global metrics registry.
+"""Observability: span tracing, metrics, Chrome-trace export, device timing.
 
-Span tracing, trace export and on-device timing are not ported yet.
+The subsystem is import-light: no module here imports
+``repro_torch.core`` at module level, so core modules may import
+:mod:`repro_torch.obs.metrics` at the top of the file without a cycle.
+The :class:`TraceRecorder` reaches back into
+``repro_torch.core.profiling`` only at install time (``__enter__``) to
+wire itself in as the trace sink behind the dual-sink ``phase()``
+helpers. Per-op attribution is not ported yet.
 """
 
+from .device_timing import (DeviceOps, DeviceTiming, DeviceTimingError,
+                            device_timing_available, profile_ops,
+                            profile_sample)
+from .export import (load_events, to_chrome_trace, trial_summaries,
+                     validate_chrome_trace, write_chrome_trace)
 from .metrics import MetricsRegistry, metrics
+from .trace import TRACE_VERSION, TraceRecorder, recorder
 
-__all__ = ["MetricsRegistry", "metrics"]
+__all__ = [
+    "DeviceOps",
+    "DeviceTiming",
+    "DeviceTimingError",
+    "MetricsRegistry",
+    "TRACE_VERSION",
+    "TraceRecorder",
+    "device_timing_available",
+    "load_events",
+    "metrics",
+    "profile_ops",
+    "profile_sample",
+    "recorder",
+    "to_chrome_trace",
+    "trial_summaries",
+    "validate_chrome_trace",
+    "write_chrome_trace",
+]

@@ -17,8 +17,12 @@ cached trial, so a killed run resumes exactly where it stopped.
 search policy (exhaustive, halving, random, neighborhood), ``--budget``
 caps random/neighborhood proposals, and ``--transfer-from
 SESSION[:BENCHMARK]`` seeds the search with another session's cached
-incumbents. ``--report`` renders the cache-backed roofline from the
-session's ``dgemm`` and ``triad`` trials. Everything runs on the card
+incumbents. ``--backend`` runs the trials serially, on threads, in
+spawned worker processes (``process:N``) or on a simulated fleet of N
+workers (``simulated:N``); ``--trace`` records a span trace of the
+session. ``--report`` renders the cache-backed roofline from the
+session's ``dgemm`` and ``triad`` trials. A quick ``dgemm`` session on
+the card tunes the card-sized space (``bench.common.card_dgemm_space``). Everything runs on the card
 (``--device cuda``, the default) unless ``--device cpu`` is given; the
 footer's ``kernels`` line counts the hand-written kernels' launches in
 this run.
@@ -35,16 +39,22 @@ BENCHMARKS = ("dgemm", "triad", "gemm_tiled", "synthetic")
 
 
 def parse_backend(spec: str):
-    """'serial' or 'thread:N'."""
-    from .core import SerialBackend, ThreadPoolBackend
+    """'serial', 'thread:N', 'process:N', or 'simulated:N'."""
+    from .core import (ProcessPoolBackend, SerialBackend,
+                       SimulatedShardedBackend, ThreadPoolBackend)
     kind, _, arg = spec.partition(":")
     n = int(arg) if arg else 4
     if kind == "serial":
         return SerialBackend()
     if kind == "thread":
         return ThreadPoolBackend(n)
+    if kind == "process":
+        return ProcessPoolBackend(n)
+    if kind == "simulated":
+        return SimulatedShardedBackend(n)
     raise argparse.ArgumentTypeError(
-        f"unknown backend {spec!r} (serial | thread[:N])")
+        f"unknown backend {spec!r} "
+        "(serial | thread[:N] | process[:N] | simulated[:N])")
 
 
 def make_strategy(args):
@@ -73,7 +83,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "instant quadratic objective for smoke-testing "
                          "sessions without timing noise")
     ap.add_argument("--backend", type=parse_backend, default=None,
-                    metavar="SPEC", help="serial | thread[:N]")
+                    metavar="SPEC",
+                    help="serial | thread[:N] | process[:N] | simulated[:N]")
     ap.add_argument("--strategy", default="exhaustive", choices=STRATEGIES)
     ap.add_argument("--budget", type=int, default=None,
                     help="max proposals for --strategy random/neighborhood")
@@ -93,6 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="do not seed the incumbent from cached trials")
     ap.add_argument("--fresh", action="store_true",
                     help="discard this session's cached trials first")
+    ap.add_argument("--trace", nargs="?", const=True, default=False,
+                    metavar="PATH",
+                    help="record a span trace of the whole session "
+                         "(default path <cache-dir>/<session>.trace.jsonl)")
     ap.add_argument("--report", action="store_true",
                     help="after tuning, render the cache-backed roofline "
                          "dashboard from this session's trial cache")
@@ -107,7 +122,7 @@ def main(argv=None) -> int:
 
     from . import kernels
     from .bench.common import (block_smem_limit, dgemm_benchmark,
-                               dgemm_space, gemm_tiled_benchmark,
+                               gemm_tiled_benchmark, paper_dgemm_space,
                                gemm_tiled_space, paper_settings,
                                synthetic_benchmark, triad_benchmark,
                                triad_sizes)
@@ -122,7 +137,8 @@ def main(argv=None) -> int:
                                    use_inner_prune=True,
                                    use_outer_prune=True)
     if args.benchmark == "dgemm":
-        space, benchmark = dgemm_space(quick), dgemm_benchmark(device)
+        space = paper_dgemm_space(quick, device)
+        benchmark = dgemm_benchmark(device)
     elif args.benchmark == "gemm_tiled":
         space = gemm_tiled_space(smem_limit=block_smem_limit(device))
         benchmark = gemm_tiled_benchmark(device)
@@ -153,7 +169,8 @@ def main(argv=None) -> int:
                             cache_dir=args.cache_dir,
                             warm_start=not args.no_warm_start,
                             fingerprint=fingerprint,
-                            benchmark_name=args.benchmark)
+                            benchmark_name=args.benchmark,
+                            trace=args.trace)
 
     seeds = []
     if args.transfer_from is not None:
@@ -201,6 +218,8 @@ def main(argv=None) -> int:
         trail = " -> ".join(f"{score:.2f}"
                             for _, score in result.improvements)
         print(f"incumbent : {trail}")
+    if result.trace_path:
+        print(f"trace     : {result.trace_path}")
     print("kernels   : " + "  ".join(f"{name}={n}"
                                      for name, n in sorted(launches.items()))
           + " launches")

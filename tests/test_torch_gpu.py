@@ -1,9 +1,9 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version on the card (the bf16 and the f32 3xTF32 flash kernels at every
 compiled head dim and physical tile, the GEMM at every tile), the flash
-and SSD kernels' gradients, a mamba2 prefill through the SSD kernel, and
+and SSD kernels' gradients, a mamba2 prefill through the SSD kernel,
 tuning sessions through the kernels (the GEMM tile search keeping all 12
-tiles).
+tiles), and on-device timing of incumbent trials through torch.profiler.
 
 Marked ``gpu``; each skips from inside the ``card`` fixture when no card
 is visible, so every worker collects the same tests (on the CPU they are
@@ -321,3 +321,48 @@ def test_mamba2_prefill_goes_through_the_ssd_kernel(card):
     for key in ("ssm", "conv"):
         torch.testing.assert_close(cache[key].cpu(), want[key], rtol=1e-4,
                                    atol=1e-4)
+
+
+def test_profile_sample_times_the_triad_kernel_on_card(card):
+    from repro_torch.bench.common import triad_invocation_factory
+    from repro_torch.obs import profile_ops, profile_sample
+    sample = triad_invocation_factory(1 << 22, device=card)()
+    timing = profile_sample(sample)
+    assert timing.n_events == 1
+    assert 0.0 < timing.device_time_s <= timing.host_time_s
+    assert timing.skew_s == timing.host_time_s - timing.device_time_s
+    ops = profile_ops(sample)
+    assert list(ops.by_name) == ["triad_vec_kernel"]
+
+
+def test_device_timing_instants_for_incumbent_trials_on_card(card):
+    import dataclasses
+
+    from repro_torch.bench.common import dgemm_benchmark, paper_settings
+    from repro_torch.core import Tuner, grid
+    from repro_torch.obs import TraceRecorder
+    settings = dataclasses.replace(paper_settings(True),
+                                   max_invocations=1, max_iterations=5,
+                                   device_timing=True)
+    with TraceRecorder() as rec:
+        result = Tuner(grid(n=(512, 1024), m=(512,), k=(256,)),
+                       settings).tune(dgemm_benchmark("cuda"))
+    names = [e["name"] for e in rec.events() if e["type"] == "instant"]
+    assert "device_timing_unavailable" not in names
+    assert names.count("device_timing") == len(result.improvements) >= 1
+
+
+def test_card_clock_times_the_product_kernel_on_card(card):
+    """The DGEMM sampler's card clock reads the product kernel's own time
+    (the profiler's kernel event), and its hold is no kernel of the
+    profiled sample."""
+    import statistics
+
+    from repro_torch.bench.common import dgemm_flops, dgemm_invocation_factory
+    from repro_torch.obs import profile_ops
+    sample = dgemm_invocation_factory(2048, 2048, 2048, device=card)()
+    ops = profile_ops(sample)
+    assert ops.n_events == 1 and len(ops.by_name) == 1
+    kernel_gflops = dgemm_flops(2048, 2048, 2048) / 1e9 / ops.total_s
+    gflops = statistics.median(sample() for _ in range(9))
+    assert gflops == pytest.approx(kernel_gflops, rel=0.04)
