@@ -132,6 +132,27 @@ run when it fails:
                backends: all 8 configs each, and the two new backends'
                F_p within F_P_AGREEMENT of the serial session's. The
                phase runs to its end before it fails on any of these.
+12. history and search — in fresh cache dirs: ``python -m
+               repro_torch.tune --benchmark gemm_tiled --history``
+               exhaustively (all 12 tiles) twice, the second ``--fresh``:
+               the run ledger must hold both runs, both must launch the
+               GEMM kernel, and ``python -m repro_torch.perf_gate`` must
+               exit 0 on them; after a copy of the newest record with its
+               mean scaled by 0.9 is appended, it must exit 1 naming that
+               series (each verdict's Welch interval is printed). Then
+               ``--strategy surrogate --budget 8 --seed 0`` over the tiles
+               (its best tile and the trial that found it, beside the
+               exhaustive winner) and ``--strategy bandit`` over the
+               card's DGEMM space, each with a finite best; ``python -m
+               repro_torch.sweep --benchmark dgemm`` over SWEEP (a finite
+               best for every tuned shape, the oracle's answer for the
+               held-out shape, its gap and the trials spent against the
+               exhaustive count); and ``python -m
+               repro_torch.roofline_report`` over phase 5's cache dir
+               (which now holds its run ledger) with ``--html``,
+               ``--history`` (the gate's ledger) and ``--trace`` (phase
+               10's DGEMM trace): the page must show phase 5's F_p, the
+               gemm_tiled trend, the verdicts and the trial drill-down.
 
 Each phase prints its seconds.
 
@@ -139,8 +160,9 @@ The last three lines are the card line, one ``{"kernels": [...]}`` JSON
 object (flash attention split by dtype: ``flash_attention`` the bf16
 tensor-core kernel, ``flash_attention_f32`` the 3xTF32 one, with the
 CUDA-core kernel it replaced as ``was_ms``; ``launches`` counts the main
-path's launches, phase 5's for matmul and triad, with phases 10 and 11's
-beside it as ``launches_device_timing`` and ``launches_paper_tables``) and
+path's launches, phase 5's for matmul and triad, with phases 10, 11 and
+12's beside it as ``launches_device_timing``, ``launches_paper_tables``
+and ``launches_history_search``) and
 ``{"ok": true, "device": {...}}``. Without a card, or outside
 a checkout, the script exits non-zero and prints neither.
 """
@@ -280,6 +302,10 @@ SSD_ULPS = 8
 # configs with the same sampler, so their F_p differ by run-to-run noise
 # and the model's smaller per-config budget only.
 F_P_AGREEMENT = (0.8, 1.25)
+#: phase 12's DGEMM shape sweep: a 3x3 grid at K = 1024, three proposals a
+#: shape, the middle shape held out for the oracle (9 - 1 tuned shapes)
+SWEEP = {"grid": "m=1024,2048,4096;n=1024,2048,4096;k=1024", "budget": 3,
+         "holdout": "m=2048,n=2048,k=1024", "tuned": 8}
 
 
 def fail(msg: str) -> None:
@@ -1209,24 +1235,39 @@ def step_trace(spec: dict, tile: tuple[int, int]) -> dict:
     return {"wall_ms": wall, "busy_ms": busy, "parts": parts}
 
 
-def run_tune(args: list[str], session: str = "smoke") -> tuple[str, dict]:
-    """One ``python -m repro_torch.tune`` session; returns its output and
-    the launch counts of its footer's ``kernels`` line."""
-    cmd = [sys.executable, "-m", "repro_torch.tune", "--session", session,
-           "--cache-dir", str(WORK / "sessions"), *args]
+def run_module(module: str, args: list[str], log: str,
+               codes: tuple[int, ...] = (0,)) -> tuple[str, int]:
+    """``python -m <module> <args>`` from the checkout; fails the run on an
+    exit code outside ``codes``; returns its output and exit code (the
+    output is also kept in ``WORK/<log>.log``)."""
+    cmd = [sys.executable, "-m", module, *args]
     env = dict(os.environ, PYTHONPATH=str(SRC))
     print("$ " + " ".join(cmd[1:]), flush=True)
-    t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
                           text=True, timeout=SUBPROCESS_TIMEOUT_S)
-    dt = time.perf_counter() - t0
-    if proc.returncode != 0:
+    (WORK / f"{log}.log").write_text(proc.stdout + proc.stderr,
+                                     encoding="utf-8")
+    if proc.returncode not in codes:
         print(proc.stdout[-6000:])
         print(proc.stderr[-6000:], file=sys.stderr)
-        fail(f"tune {' '.join(args)} exited {proc.returncode}")
-    out = proc.stdout
-    (WORK / f"tune_{session}_{args[1]}.log").write_text(
-        out + proc.stderr, encoding="utf-8")
+        fail(f"{module} {' '.join(args)} exited {proc.returncode}, want "
+             f"{codes}")
+    return proc.stdout, proc.returncode
+
+
+def run_tune(args: list[str], session: str = "smoke",
+             cache_dir: "pathlib.Path | None" = None,
+             log: "str | None" = None) -> tuple[str, dict]:
+    """One ``python -m repro_torch.tune`` session (cache dir
+    ``WORK/sessions`` unless given); returns its output and the launch
+    counts of its footer's ``kernels`` line."""
+    t0 = time.perf_counter()
+    out, _ = run_module(
+        "repro_torch.tune",
+        ["--session", session, "--cache-dir",
+         str(cache_dir or WORK / "sessions"), *args],
+        log or f"tune_{session}_{args[1]}")
+    dt = time.perf_counter() - t0
     m = re.search(r"^kernels   : (.*) launches$", out, re.M)
     if m is None:
         fail(f"tune {' '.join(args)}: no kernels line in its footer")
@@ -1458,6 +1499,171 @@ def paper_tables_path() -> dict:
         fail("; ".join(misses))
     return {"benches": res, "launches": launches, "harness": doc,
             "backends": best}
+
+
+def progress_lines(out: str) -> list[tuple[str, str]]:
+    """(config, score or PRUNED) of each trial line a tune run printed."""
+    return re.findall(r"^  \[\s*\d+/\d+\] (\{.*?\}) -> +(\S+)", out, re.M)
+
+
+def best_line(out: str) -> tuple[str, float]:
+    """(config, score) of a tune run's ``best`` line."""
+    m = re.search(r"^best      : (\{.*\})  score=(\S+)$", out, re.M)
+    if m is None:
+        fail("a tune run printed no best line")
+    return m.group(1), float(m.group(2))
+
+
+def history_search_path(roofline_fp: float) -> dict:
+    """Phase 12: the run ledger and its gate over two exhaustive
+    ``gemm_tiled`` runs (then an injected 10% drop), the surrogate and
+    bandit strategies, a DGEMM shape sweep with its oracle, and the HTML
+    dashboard over phase 5's cache, item 1's ledger and a phase-10 trace.
+    ``roofline_fp`` is phase 5's F_p, which the dashboard must show."""
+    import dataclasses
+    from repro_torch.core import hardware_fingerprint
+    from repro_torch.history import RunLedger, detect_regressions
+    from repro_torch.kernels.matmul import TILES as GEMM_TILES
+
+    fingerprint = hardware_fingerprint("cuda")
+    gate_dir = WORK / "history"
+    ledger_path = gate_dir / "history.jsonl"
+    launches = 0
+    # 1. the gate series: two exhaustive runs of the same code
+    runs = []
+    for k, extra in enumerate(([], ["--fresh"])):
+        out, counts = run_tune(["--benchmark", "gemm_tiled", "--history",
+                                *extra], session="gate", cache_dir=gate_dir,
+                               log=f"gate_run{k}")
+        if counts.get("matmul", 0) == 0:
+            fail(f"gate run {k}: gemm_tiled launched no GEMM kernel")
+        launches += counts["matmul"]
+        trials = progress_lines(out)
+        if len(trials) != len(GEMM_TILES):
+            fail(f"gate run {k}: {len(trials)} trials, want all "
+                 f"{len(GEMM_TILES)} tiles")
+        runs.append({"out": out, "best": best_line(out),
+                     "trials": trials, "matmul": counts["matmul"]})
+        print("  " + next(ln for ln in out.splitlines()
+                          if ln.startswith("perf-gate:")))
+    series = RunLedger(ledger_path).series("gemm_tiled", fingerprint)
+    if len(series) != 2:
+        fail(f"the ledger holds {len(series)} gemm_tiled runs, want 2")
+    gate_out, _ = run_module("repro_torch.perf_gate", [str(ledger_path)],
+                             "perf_gate_flat", codes=(0,))
+    flat = detect_regressions(RunLedger(ledger_path),
+                              benchmark="gemm_tiled").series[0].comparison
+    newest = series[-1]
+    RunLedger(ledger_path).append(dataclasses.replace(
+        newest, score=newest.score * 0.9, mean=newest.mean * 0.9,
+        invocation_means=tuple(0.9 * x for x in newest.invocation_means)))
+    drop_out, _ = run_module("repro_torch.perf_gate", [str(ledger_path)],
+                             "perf_gate_drop", codes=(1,))
+    name = f"gemm_tiled @ {fingerprint}"
+    if not any(name in ln and "REGRESSED" in ln
+               for ln in drop_out.splitlines()):
+        fail(f"perf_gate exited 1 but named no regressed {name!r}")
+    drop = detect_regressions(RunLedger(ledger_path),
+                              benchmark="gemm_tiled").series[0].comparison
+    for label, c in (("two runs, same code", flat),
+                     ("injected 10% drop", drop)):
+        print(f"  gate {label}: {c.verdict} ({c.method}), run "
+              f"{c.candidate.run} mean {c.candidate.mean:.2f} vs best run "
+              f"{c.baseline.run} {c.baseline.mean:.2f} GFLOP/s, "
+              f"{c.rel_delta:+.3%}, {c.confidence:.0%} CI of the difference "
+              f"[{c.interval.lo:.3f}, {c.interval.hi:.3f}]")
+    print("  " + gate_out.splitlines()[0])
+    print("  " + drop_out.splitlines()[0])
+    winner = runs[0]["best"]
+
+    # 2. surrogate over the GEMM tiles, bandit over the card's DGEMM space
+    search_dir = WORK / "search"
+    out, counts = run_tune(["--benchmark", "gemm_tiled", "--strategy",
+                            "surrogate", "--budget", "8", "--seed", "0"],
+                           session="surrogate", cache_dir=search_dir)
+    launches += counts.get("matmul", 0)
+    if counts.get("matmul", 0) == 0:
+        fail("the surrogate session launched no GEMM kernel")
+    sur_best = best_line(out)
+    sur_trials = progress_lines(out)
+    found_at = 1 + [cfg for cfg, _ in sur_trials].index(sur_best[0])
+    reached = next((i + 1 for i, (cfg, _) in enumerate(sur_trials)
+                    if cfg == winner[0]), None)
+    print(f"  surrogate: best {sur_best[0]} at {sur_best[1]:.1f} GFLOP/s, "
+          f"found at trial {found_at} of {len(sur_trials)}; exhaustive "
+          f"winner {winner[0]} at {winner[1]:.1f} GFLOP/s (12 trials) "
+          + (f"proposed at trial {reached}" if reached else
+             "not proposed within the budget"))
+    out, _ = run_tune(["--benchmark", "dgemm", "--strategy", "bandit",
+                       "--budget", "6", "--seed", "0"], session="bandit",
+                      cache_dir=search_dir)
+    bandit_best = best_line(out)
+    bandit_trials = progress_lines(out)
+    print(f"  bandit (card DGEMM space, 8 configs): best {bandit_best[0]} "
+          f"at {bandit_best[1]:.1f} GFLOP/s over {len(bandit_trials)} trials")
+    for label, (_, score) in (("surrogate", sur_best),
+                              ("bandit", bandit_best)):
+        if not (math.isfinite(score) and score > 0):
+            fail(f"{label}: best score {score}")
+
+    # 3. the DGEMM shape sweep and its oracle
+    out, _ = run_module("repro_torch.sweep", [
+        "--session", "sweep", "--cache-dir", str(WORK / "sweep"),
+        "--benchmark", "dgemm", "--grid", SWEEP["grid"],
+        "--budget-per-shape", str(SWEEP["budget"]), "--oracle-eval",
+        SWEEP["holdout"], "--seed", "0"], "sweep")
+    shapes = re.findall(r"^ +(\S+): best=(\{.*?\}) score=(\S+) trials=(\d+)",
+                        out, re.M)
+    if len(shapes) != SWEEP["tuned"]:
+        fail(f"sweep: {len(shapes)} tuned shapes, want {SWEEP['tuned']}")
+    for key, cfg, score, _ in shapes:
+        if not (math.isfinite(float(score)) and float(score) > 0):
+            fail(f"sweep: shape {key} best {cfg} score {score}")
+    gap = re.search(r"^eval +: optimum=(\{.*?\}) score=(\S+); oracle config "
+                    r"scored (\S+) \(gap (\S+)%\)$", out, re.M)
+    spent = re.search(r"^eval +: campaign spent (\d+) trials vs (\d+) "
+                      r"exhaustive", out, re.M)
+    oracle = re.search(r"^(oracle +: .*)$", out, re.M)
+    answer = re.search(r"^(eval +: \S+ -> .*)$", out, re.M)
+    if not (gap and spent and oracle and answer) \
+            or not math.isfinite(float(gap.group(4))):
+        print(out[-4000:])
+        fail("sweep: no oracle answer, finite gap or trial count")
+    for ln in out.splitlines():
+        if ln.startswith(("  ", "total", "oracle", "eval")):
+            print("  " + ln.strip())
+
+    # 4. the dashboard over phase 5's cache, item 1's ledger, a phase-10
+    # trace; phase 5's report beside the ledger it now holds
+    html_path = WORK / "dash.html"
+    trace = WORK / "device_timing" / "dgemm_card_space.jsonl"
+    md, _ = run_module("repro_torch.roofline_report", [
+        str(WORK / "roofline"), "--html", str(html_path), "--history",
+        str(ledger_path), "--trace", str(trace)], "dashboard")
+    html = html_path.read_text(encoding="utf-8")
+    fp_cell = f"<td>peak compute F_p (dgemm)</td><td>{roofline_fp:.4g}</td>"
+    wanted = {"roofline F_p": fp_cell,
+              "trend": f"Trend — gemm_tiled @ <code>{fingerprint}</code>",
+              "verdicts": "verdict-regressed",
+              "trial drill-down": "<h2>Trial drill-down</h2>"}
+    missing = [k for k, needle in wanted.items() if needle not in html]
+    if missing:
+        fail(f"dashboard {html_path}: no {missing}")
+    if not (WORK / "roofline" / "history.jsonl").exists():
+        fail("phase 5's cache dir holds no run ledger")
+    m = re.search(r"peak compute F_p \(dgemm\) \| (\S+) GFLOP/s", md)
+    print(f"  dashboard {html_path.stat().st_size} bytes: roofline F_p "
+          f"{roofline_fp:.4g} GFLOP/s (markdown beside history.jsonl: "
+          f"{m and m.group(1)}), the gemm_tiled trend, the verdicts and "
+          f"the trial drill-down")
+    return {"launches": launches, "gate": {"flat": flat, "drop": drop},
+            "winner": winner, "surrogate": {"best": sur_best,
+                                            "found_at": found_at,
+                                            "reached_winner_at": reached},
+            "bandit": bandit_best, "sweep": {
+                "gap_pct": float(gap.group(4)),
+                "spent": int(spent.group(1)),
+                "exhaustive": int(spent.group(2))}}
 
 
 def main() -> int:
@@ -2042,6 +2248,11 @@ def main() -> int:
     phase("paper tables (Tables IV-XI, Fig. 6), harness, backends")
     tables = paper_tables_path()
 
+    # -- 12. history and search ------------------------------------------------
+    phase("history and search (ledger, gate, surrogate, bandit, sweep, "
+          "dashboard)")
+    search = history_search_path(report.dgemm.score)
+
     # -- result lines ------------------------------------------------------
     phase("result")
     print(f"total wall {time.perf_counter() - t_start:.1f}s")
@@ -2054,6 +2265,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/matmul/matmul.py:27",
          "launches": launches["matmul"],
          "launches_paper_tables": tables["launches"]["matmul"],
+         "launches_history_search": search["launches"],
          "max_abs_err": errs["matmul"],
          "ms": gemm_ms, "plain_ms": gemm_plain_ms,
          "bound_ms": gemm_bound_ms, "bound_by": "operations",

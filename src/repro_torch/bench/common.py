@@ -17,6 +17,11 @@ the two packages measure the same configurations on the same data.
     (bm, bn, bk) tile is the tunable and the score is measured GFLOP/s
     (the JAX package tunes the same tiles against a cost model).
   * ``synthetic`` — an instant quadratic objective for session mechanics.
+  * the shape-sweep families (:mod:`repro_torch.sweep`):
+    ``synthetic_gemm_family``, an instant shape-conditioned objective,
+    and ``chunked_dgemm_family``, a measured f32 product with K split
+    into ``k_chunk``-wide chunks (``torch.einsum``, TF32 off), over the
+    shape grid :func:`gemm_shape_space`.
   * ``model_step_family`` — a whole-model step (the train step's loss
     and gradients, or a prefill or decode step where the family has one)
     as an objective over the flash-attention tiles
@@ -44,6 +49,7 @@ same reason).
 from __future__ import annotations
 
 import itertools
+import math
 import threading
 from typing import Callable, Union
 
@@ -66,14 +72,18 @@ from ..models.transformer import StepConfig
 from ..models.workloads import ModelWorkload, build_workload, workload_flops
 
 __all__ = ["CSV_ROWS", "DgemmBenchmark", "GEMM_TILED_SHAPE",
-           "GemmTiledBenchmark", "SM90_SMEM_OPTIN_BYTES", "TriadBenchmark",
-           "bench_main", "card_dgemm_space", "dgemm_benchmark", "dgemm_data",
+           "GemmTiledBenchmark", "SM90_SMEM_OPTIN_BYTES", "SWEEP_TILES",
+           "TriadBenchmark", "bench_main", "card_dgemm_space",
+           "chunked_dgemm_data", "chunked_dgemm_family",
+           "chunked_dgemm_kernel", "dgemm_benchmark", "dgemm_data",
            "dgemm_flops", "dgemm_precompile", "dgemm_space", "emit",
-           "gemm_tiled_benchmark", "gemm_tiled_space", "model_step_family",
-           "model_step_space", "paper_dgemm_space", "paper_settings",
-           "print_table", "synthetic_benchmark", "triad_benchmark",
-           "triad_data", "triad_length", "triad_moved_bytes",
-           "triad_precompile", "triad_sizes", "where"]
+           "gemm_shape_space", "gemm_tiled_benchmark", "gemm_tiled_space",
+           "model_step_family", "model_step_space", "paper_dgemm_space",
+           "paper_settings", "print_table", "sweep_chunk_space",
+           "sweep_config_space", "synthetic_benchmark",
+           "synthetic_gemm_family", "triad_benchmark", "triad_data",
+           "triad_length", "triad_moved_bytes", "triad_precompile",
+           "triad_sizes", "where"]
 
 #: every row :func:`emit` printed in this process, in order
 CSV_ROWS: list[tuple[str, float, str]] = []
@@ -506,6 +516,150 @@ def triad_benchmark(device: str = "cuda") -> TriadBenchmark:
 def gemm_tiled_benchmark(device: str = "cuda") -> GemmTiledBenchmark:
     """``gemm_tiled`` on ``device`` (see :class:`GemmTiledBenchmark`)."""
     return GemmTiledBenchmark(device)
+
+
+# ---------------------------------------------------------------------------
+# Shape-sweep families (repro_torch.sweep): shape -> benchmark factory
+# ---------------------------------------------------------------------------
+#
+# A *family* specializes the objective to one problem shape; the sweep
+# campaign calls it once per grid point. Family closures capture the shape
+# (not picklable) — drive campaigns with the serial or thread backend.
+
+#: shared tile ladder of the sweep config space (powers of two, so every
+#: k_chunk divides every power-of-two K)
+SWEEP_TILES = (16, 32, 64, 128, 256, 512)
+
+
+def gemm_shape_space(quick: bool = True) -> SearchSpace:
+    """The (M, N[, K]) shape grid a sweep campaign tunes: a 3×3 grid of
+    the paper's host-scaled DGEMM dims for CI, the full power-of-two
+    ladder (with K) otherwise."""
+    if quick:
+        return grid(m=(256, 512, 1024), n=(256, 512, 1024))
+    return grid(m=powers_of_two(256, 4096), n=powers_of_two(256, 4096),
+                k=powers_of_two(64, 1024))
+
+
+def sweep_config_space() -> SearchSpace:
+    """Per-shape tunables shared by the sweep families."""
+    return grid(bm=SWEEP_TILES, bn=SWEEP_TILES)
+
+
+def synthetic_gemm_family(shape: dict) -> Callable:
+    """Instant shape-conditioned objective for sweep mechanics tests.
+
+    The optimal (bm, bn) tile *level* moves linearly with the shape's
+    position on the (log-scale) 256..1024 ladder, and the score is
+    quadratic around it — so in the joint encoder's features (config
+    level index × log-normalized shape coordinate, both linear) the whole
+    surface is exactly degree-2. The ridge surrogate can therefore
+    represent it exactly, which makes oracle-interpolation acceptance
+    tests sharp: any gap to the true optimum is a harness bug, not model
+    bias. Peak score is 100 when the ideal tile lands on a ladder level.
+    """
+    levels = {v: i for i, v in enumerate(SWEEP_TILES)}
+    top = len(SWEEP_TILES) - 1
+
+    def ideal(dim_value: float, lo: float = 256.0, hi: float = 1024.0):
+        t = (math.log(dim_value) - math.log(lo)) / (math.log(hi)
+                                                    - math.log(lo))
+        return top * min(max(t, 0.0), 1.0)
+
+    ia, ib = ideal(shape["m"]), ideal(shape.get("n", shape["m"]))
+
+    def bench(cfg: dict) -> Callable:
+        mu = (100.0 - (levels[cfg["bm"]] - ia) ** 2
+              - 0.5 * (levels[cfg["bn"]] - ib) ** 2)
+
+        def factory():
+            return lambda: mu
+
+        return factory
+
+    return bench
+
+
+def chunked_dgemm_kernel(a3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
+    """DGEMM with the K axis pre-split into (chunks, k_chunk) — one
+    einsum contracting both: identical 2·M·N·K flops to ``torch.matmul``,
+    different layout (the tunable). A library product, as the JAX
+    package's ``jnp.einsum`` is: no Pallas kernel computes it there."""
+    return torch.einsum("mck,ckn->mn", a3, b3)
+
+
+def chunked_dgemm_data(m: int, n: int, k: int, k_chunk: int, seed: int,
+                       device: "str | torch.device" = "cuda",
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded (m, k/k_chunk, k_chunk) and (k/k_chunk, k_chunk, n) f32
+    operands of :func:`chunked_dgemm_kernel`: numpy normals (drawn in
+    float64, cast to float32), moved to the device."""
+    chunks = k // k_chunk
+    rng = np.random.default_rng(seed)
+    a = np.asarray(rng.standard_normal((m, chunks, k_chunk)),
+                   dtype=np.float32)
+    b = np.asarray(rng.standard_normal((chunks, k_chunk, n)),
+                   dtype=np.float32)
+    dev = resolve_device(device)
+    return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+
+
+def chunked_dgemm_family(shape: dict,
+                         device: "str | torch.device" = "cuda") -> Callable:
+    """Real measured DGEMM family on ``device``: C = A·B with A's K axis
+    split into ``k_chunk``-wide chunks (snapped down to K when larger).
+    Scores are GFLOP/s over the same useful work regardless of chunking,
+    so configs compare on time alone.
+
+    The product runs in full float32 (TF32 off for the process, as
+    :func:`dgemm_invocation_factory` sets it) on fresh seeded operands
+    per invocation (the JAX package's seed formula, numpy's generator),
+    and on a card each sample is timed on the card's clock (one
+    :class:`~repro_torch.core.card_clock.CardClock` per config, as the
+    DGEMM samplers are: the host clock would add the product's launch and
+    the synchronize's return to every sample). The JAX family's workload
+    audit spec and precompile hook are left out: the audit belongs to the
+    lint layer, which is not ported yet (ROADMAP 'Observability and
+    lint')."""
+    dev = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, n, k = shape["m"], shape["n"], shape.get("k", 256)
+    flops = dgemm_flops(m, n, k)
+    cache = default_cache()
+    sync = synchronizer(dev)
+
+    def bench(cfg: dict) -> Callable:
+        kc = min(cfg["k_chunk"], k)
+        invocation = itertools.count()
+        card = CardClock() if dev.type == "cuda" else None
+
+        def factory():
+            seed = (m * 1_000_003 + n * 10_007 + k * 101 + kc * 13
+                    + next(invocation)) % (2 ** 31)
+            a, b = chunked_dgemm_data(m, n, k, kc, seed, dev)
+            f = cache.compile(chunked_dgemm_kernel, (a, b))
+            f(a, b)                              # pre-heat
+            sync()
+            trace_instant("workload", kernel="dgemm_sweep", m=m, n=n, k=k,
+                          k_chunk=kc, flops=flops)
+            if card is not None:
+                return timed_sampler(lambda: f(a, b), work=flops / 1e9,
+                                     card_clock=card)
+
+            def run():
+                f(a, b)
+                sync()
+
+            return timed_sampler(run, work=flops / 1e9)  # GFLOP/s
+
+        return factory
+
+    return bench
+
+
+def sweep_chunk_space(k_max: int = 512) -> SearchSpace:
+    """Config space of :func:`chunked_dgemm_family`."""
+    return grid(k_chunk=powers_of_two(16, k_max))
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,11 @@ the default quick mode preserves every comparison's structure at CI-scale
 budgets. Everything runs on the card unless ``--device cpu`` is given.
 
     python -m repro_torch.bench.run [--full] [--only <name>] [--device cpu]
+        [--resume DIR [--report] [--html PATH]]
+
+``--html`` writes the self-contained HTML dashboard (rooflines, and the
+run ledger's trends and regression verdicts when ``DIR/history.jsonl``
+exists) from the ``--resume`` cache dir.
 
 ``distributed_tuner`` keeps its key but is not ported yet: ``--only
 distributed_tuner`` raises, and a run of every bench leaves it out.
@@ -85,15 +90,13 @@ def main(argv=None) -> int:
                     help="after the benches, render the cache-backed "
                          "roofline dashboard from the --resume cache dir")
     ap.add_argument("--html", default=None, metavar="PATH",
-                    help="not ported yet: raises")
+                    help="after the benches, write a self-contained HTML "
+                         "dashboard (rooflines + run-ledger trends and "
+                         "regression verdicts) from the --resume cache dir")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where every bench runs (default: cuda; raises "
                          "when no card is visible)")
     args = ap.parse_args(argv)
-    if args.html:
-        raise NotImplementedError(
-            "--html: the HTML dashboard is not ported yet (ROADMAP "
-            "'History and search')")
 
     print("name,us_per_call,derived")
     names = [args.only] if args.only else [n for n in BENCHES
@@ -101,7 +104,7 @@ def main(argv=None) -> int:
     run_benches(names, quick=not args.full, device=args.device,
                 resume=args.resume)
 
-    if args.report:
+    if args.report or args.html:
         import pathlib
 
         from ..core import build_reports, load_trials, render_markdown
@@ -109,18 +112,30 @@ def main(argv=None) -> int:
         cache_dir = pathlib.Path(args.resume or ".tuning_sessions")
         trials = load_trials(cache_dir) if cache_dir.is_dir() else []
         reports, skipped = build_reports(trials)
-        if reports:
-            print()
-            print(render_markdown(reports, skipped))
-        elif skipped:
-            print(f"\n[report] no reportable fingerprint under "
-                  f"{cache_dir}/:", file=sys.stderr)
-            for fp, reason in skipped:
-                print(f"[report]   {fp}: {reason}", file=sys.stderr)
-        else:
-            print(f"\n[report] no cached trials under {cache_dir}/ — "
-                  "run with --resume so roofline_model persists its "
-                  "dgemm/triad sessions first.", file=sys.stderr)
+        if args.report:
+            if reports:
+                print()
+                print(render_markdown(reports, skipped))
+            elif skipped:
+                print(f"\n[report] no reportable fingerprint under "
+                      f"{cache_dir}/:", file=sys.stderr)
+                for fp, reason in skipped:
+                    print(f"[report]   {fp}: {reason}", file=sys.stderr)
+            else:
+                print(f"\n[report] no cached trials under {cache_dir}/ — "
+                      "run with --resume so roofline_model persists its "
+                      "dgemm/triad sessions first.", file=sys.stderr)
+        if args.html:
+            from ..history import RunLedger, write_dashboard
+
+            ledger_path = cache_dir / "history.jsonl"
+            ledger = RunLedger(ledger_path) if ledger_path.exists() else None
+            stamp = time.strftime("%Y-%m-%d %H:%M UTC", time.gmtime())
+            write_dashboard(args.html, reports, skipped, ledger=ledger,
+                            title="Benchmark dashboard",
+                            subtitle=f"generated {stamp} from "
+                                     f"{cache_dir}/")
+            print(f"[report] wrote {args.html}")
     return 0
 
 

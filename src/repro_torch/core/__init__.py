@@ -3,9 +3,10 @@
 Public API re-exports; each module mirrors its ``repro.core`` namesake.
 """
 
-from .cache import (CACHE_VERSION, BoundCache, CachedTrial, TrialCache,
-                    TuningSession, config_key, hardware_fingerprint,
-                    iter_trials, load_trials, settings_key)
+from .cache import (AUTO_LEDGER, CACHE_VERSION, BoundCache, CachedTrial,
+                    TrialCache, TuningSession, config_key,
+                    hardware_fingerprint, iter_trials, load_trials,
+                    settings_key)
 from .confidence import (Interval, ReservoirBootstrap, ci_mean,
                          median_of_means, normal_quantile,
                          sign_test_median_ci, spearman, t_quantile)
@@ -44,7 +45,7 @@ from .welford import (WelfordState, batch_state, from_samples, init, merge,
                       tree_merge, update)
 
 __all__ = [
-    "BoundCache", "CACHE_VERSION", "CachedTrial", "TrialCache",
+    "AUTO_LEDGER", "BoundCache", "CACHE_VERSION", "CachedTrial", "TrialCache",
     "TuningSession", "config_key", "hardware_fingerprint", "iter_trials",
     "load_trials", "settings_key",
     "Interval", "ReservoirBootstrap", "ci_mean", "median_of_means",

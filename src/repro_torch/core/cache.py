@@ -51,7 +51,7 @@ from .evaluator import EvalResult, InvocationResult
 from .searchspace import Config
 from .stop_conditions import Direction
 
-__all__ = ["BoundCache", "CACHE_VERSION", "CachedTrial",
+__all__ = ["AUTO_LEDGER", "BoundCache", "CACHE_VERSION", "CachedTrial",
            "TrialCache", "TuningSession", "config_key",
            "hardware_fingerprint", "iter_trials", "load_trials",
            "settings_key"]
@@ -541,6 +541,11 @@ class BoundCache:
                                         limit=limit)
 
 
+#: Default sentinel for ``TuningSession(ledger=...)``: create/append the
+#: shared run ledger next to the session caches (``<cache_dir>/history.jsonl``).
+AUTO_LEDGER = object()
+
+
 class TuningSession:
     """A named, resumable tuning run.
 
@@ -550,16 +555,19 @@ class TuningSession:
     the best cached trial. Kill the process at any point and ``run()``
     again — it completes the remaining configs only.
 
+    Every completed ``run()`` also appends one record to the
+    performance-history **run ledger** (``<cache_dir>/history.jsonl`` by
+    default — a shared longitudinal file, unlike the per-session trial
+    caches), so drift across runs of the same benchmark × fingerprint is
+    detectable later (``repro_torch.history``, ``python -m
+    repro_torch.perf_gate``). Pass ``ledger=None`` to disable, or a
+    :class:`~repro_torch.history.ledger.RunLedger` (or path) to redirect.
+
     ``trace=True`` records a span trace of every ``run()`` to
     ``<cache_dir>/<name>.trace.jsonl`` (a path redirects it); the result
     carries it as ``TuningResult.trace_path``. When a recorder is
     already installed (an enclosing campaign or test owns it), the
     session joins that trace instead of opening its own.
-
-    ``ledger`` (the performance-history run ledger) keeps the JAX
-    package's signature, but the layer is not ported yet: ``None`` is the
-    only accepted value, and anything else raises
-    :class:`NotImplementedError`.
     """
 
     def __init__(self, name: str, tuner, benchmark,
@@ -567,35 +575,50 @@ class TuningSession:
                  warm_start: bool = True,
                  fingerprint: Optional[str] = None,
                  benchmark_name: Optional[str] = None,
-                 ledger=None,
+                 ledger=AUTO_LEDGER,
+                 campaign: Optional[str] = None,
                  trace: "bool | str | os.PathLike" = False):
-        if ledger is not None:
-            raise NotImplementedError(
-                "TuningSession(ledger=...): the run ledger is not ported "
-                "yet (ROADMAP 'History and search'); pass None")
         self.name = name
         self.tuner = tuner
         self.benchmark = benchmark
         # distinct cache namespace per objective: a session file reused with
         # a different benchmark must not warm-start across metrics
         self.benchmark_name = benchmark_name or name
+        # sweep campaigns stamp their name on every ledger record so one
+        # grid-tuning pass is recognizable as a unit in history tooling
+        self.campaign = campaign
         self.warm_start = warm_start
-        self.cache = TrialCache(Path(cache_dir) / f"{name}.jsonl",
-                                fingerprint=fingerprint)
         self.trace = trace
         self.trace_path: Optional[Path] = None
         if trace:
             self.trace_path = (Path(cache_dir) / f"{name}.trace.jsonl"
                                if trace is True else Path(trace))
+        self.cache = TrialCache(Path(cache_dir) / f"{name}.jsonl",
+                                fingerprint=fingerprint)
+        if ledger is AUTO_LEDGER or isinstance(ledger, (str, os.PathLike)):
+            # deferred import: the history layer depends on core
+            from ..history.ledger import RunLedger
+            path = (Path(cache_dir) / "history.jsonl"
+                    if ledger is AUTO_LEDGER else ledger)
+            ledger = RunLedger(path)
+        self.ledger = ledger
 
-    def run(self, backend=None, progress=None, seeds=(),
+    def run(self, backend=None, progress=None, seeds=(), timestamp=None,
             validate: str = "off"):
         """Execute the wrapped tuner against the session cache. ``seeds``
         are transfer-tuning warm-start configs (see
         ``TrialCache.suggest_seeds``), forwarded to ``Tuner.tune``, as
-        is ``validate`` (see ``Tuner.tune``)."""
+        is ``validate`` (see ``Tuner.tune``). ``timestamp``
+        (caller-supplied epoch seconds — core never reads a clock for
+        records) stamps the ledger entry this run appends."""
         import contextlib
 
+        bound_ledger = None
+        if self.ledger is not None:
+            bound_ledger = self.ledger.bound(self.benchmark_name,
+                                             self.cache.fingerprint,
+                                             session=self.name,
+                                             campaign=self.campaign)
         with contextlib.ExitStack() as stack:
             if self.trace_path is not None:
                 # deferred import + already-active check: an enclosing
@@ -609,4 +632,5 @@ class TuningSession:
                                    cache=self.cache.bound(
                                        self.benchmark_name),
                                    warm_start=self.warm_start,
-                                   seeds=seeds, validate=validate)
+                                   seeds=seeds, ledger=bound_ledger,
+                                   timestamp=timestamp, validate=validate)

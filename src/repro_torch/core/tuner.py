@@ -142,7 +142,8 @@ class Tuner:
              backend: Optional[ExecutionBackend] = None,
              cache=None, warm_start: bool = False,
              seeds: Sequence[Config] = (),
-             ledger=None, validate: str = "off",
+             ledger=None, timestamp: Optional[float] = None,
+             validate: str = "off",
              pipeline: "str | CompilePipeline | None" = "auto",
              ) -> TuningResult:
         """Search the space for the best configuration.
@@ -156,13 +157,17 @@ class Tuner:
         transfer-tuning warm-start configurations (e.g. a related
         benchmark's cached incumbents from ``TrialCache.suggest_seeds``);
         they are projected into the space and handed to the strategy,
-        which evaluates them first.
+        which evaluates them first. ``ledger`` is a
+        :class:`~repro_torch.history.ledger.BoundLedger`: on completion the
+        run's incumbent (config, pooled moments, strategy, settings key)
+        is appended to the performance-history ledger, stamped with the
+        caller-supplied ``timestamp`` — the engine itself never reads a
+        clock for record content.
 
-        ``ledger`` (the performance-history run ledger) and ``validate``
-        (the pre-run workload audit) keep the JAX package's signature,
-        but neither layer is ported yet: ``ledger`` must be ``None`` and
-        ``validate`` must be ``"off"`` (the default here); anything else
-        raises :class:`NotImplementedError`.
+        ``validate`` (the pre-run workload audit) keeps the JAX package's
+        signature, but the audit is not ported yet: it must be ``"off"``
+        (the default here); anything else raises
+        :class:`NotImplementedError`.
 
         ``pipeline`` controls **pipelined compilation**: when the
         benchmark exposes a ``precompile(config)`` hook (the standard
@@ -187,11 +192,8 @@ class Tuner:
         if validate != "off":
             raise NotImplementedError(
                 f"validate={validate!r}: the workload audit is not ported "
-                f"yet; pass validate='off'")
-        if ledger is not None:
-            raise NotImplementedError(
-                "ledger=: the run ledger is not ported yet (ROADMAP "
-                "'History and search'); pass None")
+                f"yet (ROADMAP 'Observability and lint'); pass "
+                f"validate='off'")
         if backend is None:
             backend = SerialBackend(clock=self.clock)
         strategy = self.strategy
@@ -353,6 +355,10 @@ class Tuner:
             metrics=metrics_delta,
             exec_cache=exec_delta.to_json(),
         )
+        if ledger is not None:
+            # duck-typed BoundLedger so core never imports the history layer
+            ledger.record(result, settings_key=session_key,
+                          timestamp=timestamp, direction=direction)
         return result
 
     def _project_seeds(self, seeds: Sequence[Config]) -> tuple[Config, ...]:

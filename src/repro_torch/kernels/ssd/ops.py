@@ -34,7 +34,7 @@ from .. import build
 from .ref import ssd_chunk_scan_ref
 
 __all__ = ["KERNELS", "MAX_STATE", "bytes_moved", "chunk_scan", "grid",
-           "kernel_info", "needed_flops", "ssd_chunk_scan"]
+           "h0_aligned", "kernel_info", "needed_flops", "ssd_chunk_scan"]
 
 #: the largest state width N the kernel takes; any P >= 1 and Q >= 1 are
 #: taken
@@ -53,18 +53,27 @@ _COUNT_LOCK = threading.Lock()
 _LAUNCHER: list = []          # the ctypes launcher, filled at first launch
 
 
-def grid(B: int, H: int, C: int, Q: int, P: int, N: int) -> dict:
+def h0_aligned(h0: Optional[torch.Tensor]) -> bool:
+    """Whether the state carry may read ``h0`` 4 elements at a time: no
+    initial state, or one whose data starts on a 16-byte boundary (the
+    launcher's test in ``csrc/ssd.cu``)."""
+    return h0 is None or h0.data_ptr() % 16 == 0
+
+
+def grid(B: int, H: int, C: int, Q: int, P: int, N: int,
+         h0_aligned: bool = True) -> dict:
     """Blocks each kernel of one launch runs at (B, H, C, Q, P, N), as
     ``(gridDim.x, gridDim.y)`` (``csrc/ssd.cu``'s ``make_grid``): the
     scores one per (b, c, 64 x 64 tile on or below the diagonal); the
     chunk states x = B·H·C, y = the 64 x 64 tiles of (P, N); the state
     carry one per (b, h, 256 threads of 4 state elements, or of 1 where
-    P·N is not a multiple of 4 or ``h0`` not 16-byte aligned); the output
-    one per (b, c, 64 rows, head, 64 columns of P)."""
+    P·N is not a multiple of 4 or ``h0`` is not 16-byte aligned: pass
+    ``h0_aligned=False`` then, as :func:`h0_aligned` decides it); the
+    output one per (b, c, 64 rows, head, 64 columns of P)."""
     def cdiv(a, b):
         return -(-a // b)
     q_tiles = cdiv(Q, _TILE)
-    per_thread = 4 if P * N % 4 == 0 else 1
+    per_thread = 4 if P * N % 4 == 0 and h0_aligned else 1
     return {"ssd_scores_kernel": (q_tiles * (q_tiles + 1) // 2 * B * C, 1),
             "ssd_states_kernel": (B * H * C, cdiv(P, _TILE) * cdiv(N, _TILE)),
             "ssd_pass_kernel": (cdiv(P * N, _PASS_THREADS * per_thread)
@@ -143,7 +152,8 @@ def _launch(xdt, bm, cm, cum, h0, return_state: bool):
     if q < 1 or p < 1:
         raise ValueError(f"chunk length and head dim must be positive, got "
                          f"Q={q}, P={p}")
-    for name, (gx, gy) in grid(b, h, c, q, p, n).items():
+    for name, (gx, gy) in grid(b, h, c, q, p, n,
+                               h0_aligned(h0)).items():
         if gx > _MAX_GRID_X or gy > _MAX_GRID_Y:
             raise ValueError(f"(B, H, C, Q, P, N) = {(b, h, c, q, p, n)} "
                              f"needs a grid of ({gx}, {gy}) blocks for "

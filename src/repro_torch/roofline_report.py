@@ -2,6 +2,8 @@
 
     python -m repro_torch.roofline_report .tuning_sessions/nightly.jsonl
     python -m repro_torch.roofline_report .tuning_sessions --csv roofline.csv
+    python -m repro_torch.roofline_report .tuning_sessions \\
+        --html roofline.html --history .tuning_sessions/history.jsonl
 
 (with ``src`` on ``PYTHONPATH``). Takes one or more cache files (or
 directories of ``*.jsonl`` session caches), groups the trials by
@@ -14,9 +16,13 @@ side-by-side comparison across fingerprints; ``--csv`` also writes the
 flat CSV. The output is the JAX package's ``scripts/roofline_report.py``
 output, byte for byte, on the same caches.
 
-``--html`` and ``--history`` (the HTML dashboard and the run ledger),
-``--trace`` (its per-trial drill-down) and ``--attribute`` (per-op
-attribution) are not ported yet and raise.
+``--html`` additionally writes a **self-contained HTML dashboard** (inline
+CSS/JS/SVG, no external deps); with ``--history LEDGER`` it also embeds
+per-series trend lines with CI bands and the regression verdicts from the
+performance-history ledger; with ``--trace TRACE`` it embeds a per-trial
+drill-down table from a session trace (``python -m repro_torch.tune
+--trace``). The report reads records only and needs no card.
+``--attribute`` (per-op attribution) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -31,9 +37,7 @@ from .core.report import (DGEMM_BENCHMARK, TRIAD_BENCHMARK, render_csv,
 
 #: flags kept from the JAX CLI whose layer is not ported, and the ROADMAP
 #: entry each waits for
-UNPORTED = {"html": "History and search", "history": "History and search",
-            "trace": "History and search",
-            "attribute": "Observability and lint"}
+UNPORTED = {"attribute": "Observability and lint"}
 
 
 def main(argv=None) -> int:
@@ -51,6 +55,20 @@ def main(argv=None) -> int:
                     help="write the markdown dashboard here (default stdout)")
     ap.add_argument("--csv", default=None, metavar="PATH",
                     help="also write the flat CSV (curves, marks, gaps)")
+    ap.add_argument("--html", default=None, metavar="PATH",
+                    help="also write a self-contained HTML dashboard "
+                         "(inline CSS/JS/SVG, no external deps)")
+    ap.add_argument("--history", default=None, metavar="LEDGER",
+                    help="run-ledger JSONL to embed trend lines and "
+                         "regression verdicts into the --html dashboard")
+    ap.add_argument("--trace", default=None, metavar="TRACE",
+                    help="session trace JSONL (python -m repro_torch.tune "
+                         "--trace) to embed a per-trial drill-down table "
+                         "into the --html dashboard")
+    ap.add_argument("--max-trial-rows", type=int, default=200,
+                    metavar="N",
+                    help="row cap of the --trace drill-down table "
+                         "(default 200)")
     for flag, entry in UNPORTED.items():
         ap.add_argument(f"--{flag}", default=None,
                         help=f"not ported yet (ROADMAP '{entry}'): raises")
@@ -76,24 +94,60 @@ def main(argv=None) -> int:
         trials, dgemm_benchmark=args.dgemm_benchmark,
         triad_benchmark=args.triad_benchmark, confidence=args.confidence)
     if not reports:
+        # a --history ledger can still carry an HTML trend dashboard even
+        # when no fingerprint has roofline-complete (dgemm+triad) trials
         print("no reportable fingerprint — need unpruned trials of "
               f"both {args.dgemm_benchmark!r} and {args.triad_benchmark!r}:",
               file=sys.stderr)
         for fp, reason in skipped:
             print(f"  {fp}: {reason}", file=sys.stderr)
-        print("error: nothing to render", file=sys.stderr)
-        return 1
+        if not (args.html and args.history):
+            print("error: nothing to render", file=sys.stderr)
+            return 1
 
+    # in the ledger-only continue-path reports is empty: --out/--csv still
+    # write (a header-only dashboard/CSV), never silently skip a requested
+    # artifact while exiting 0
     markdown = render_markdown(reports, skipped)
     if args.out:
         pathlib.Path(args.out).write_text(markdown, encoding="utf-8")
         print(f"wrote {args.out}")
-    else:
+    elif reports:
         sys.stdout.write(markdown)
     if args.csv:
         pathlib.Path(args.csv).write_text(render_csv(reports),
                                           encoding="utf-8")
         print(f"wrote {args.csv}")
+    if args.html:
+        import time
+
+        from .history import RunLedger, write_dashboard
+
+        ledger = None
+        if args.history:
+            history_path = pathlib.Path(args.history)
+            if not history_path.exists():
+                print(f"error: no such ledger: {args.history}",
+                      file=sys.stderr)
+                return 2
+            ledger = RunLedger(history_path)
+        trial_rows = ()
+        if args.trace:
+            trace_path = pathlib.Path(args.trace)
+            if not trace_path.exists():
+                print(f"error: no such trace: {args.trace}",
+                      file=sys.stderr)
+                return 2
+            from .obs import load_events, trial_summaries
+            trial_rows = trial_summaries(load_events(trace_path))
+        stamp = time.strftime("%Y-%m-%d %H:%M UTC", time.gmtime())
+        write_dashboard(args.html, reports, skipped, ledger=ledger,
+                        title="Roofline & performance history",
+                        subtitle=f"generated {stamp} from "
+                                 f"{len(trials)} cached trials",
+                        confidence=args.confidence, trials=trial_rows,
+                        max_trial_rows=args.max_trial_rows)
+        print(f"wrote {args.html}")
     return 0
 
 

@@ -7,6 +7,9 @@
         --report
     python -m repro_torch.tune --session smoke --benchmark synthetic \\
         --device cpu
+    python -m repro_torch.tune --session adaptive --benchmark gemm_tiled \\
+        --strategy surrogate --budget 8 --seed 0 --history
+    python -m repro_torch.tune --compact-history 20
 
 (with ``src`` on ``PYTHONPATH``). Trials persist to
 ``<cache-dir>/<session>.jsonl`` keyed by (benchmark, config, hardware
@@ -14,18 +17,29 @@ fingerprint), in the JAX package's format; re-running the same session
 skips every completed config and warm-starts the incumbent from the best
 cached trial, so a killed run resumes exactly where it stopped.
 ``--fresh`` discards the session's cache first. ``--strategy`` picks the
-search policy (exhaustive, halving, random, neighborhood), ``--budget``
-caps random/neighborhood proposals, and ``--transfer-from
-SESSION[:BENCHMARK]`` seeds the search with another session's cached
-incumbents. ``--backend`` runs the trials serially, on threads, in
-spawned worker processes (``process:N``) or on a simulated fleet of N
-workers (``simulated:N``); ``--trace`` records a span trace of the
-session. ``--report`` renders the cache-backed roofline from the
-session's ``dgemm`` and ``triad`` trials. A quick ``dgemm`` session on
-the card tunes the card-sized space (``bench.common.card_dgemm_space``). Everything runs on the card
-(``--device cuda``, the default) unless ``--device cpu`` is given; the
-footer's ``kernels`` line counts the hand-written kernels' launches in
-this run.
+search policy (exhaustive, halving, random, neighborhood, or the
+model-guided surrogate/bandit), ``--budget`` caps
+random/neighborhood/surrogate/bandit proposals, ``--acquisition`` picks
+the surrogate's scoring rule, and ``--transfer-from SESSION[:BENCHMARK]``
+seeds the search with another session's cached incumbents.
+``--backend`` runs the trials serially, on threads, in spawned worker
+processes (``process:N``) or on a simulated fleet of N workers
+(``simulated:N``); ``--trace`` records a span trace of the session.
+``--report`` renders the cache-backed roofline from the session's
+``dgemm`` and ``triad`` trials. A quick ``dgemm`` session on the card
+tunes the card-sized space (``bench.common.card_dgemm_space``).
+
+Every completed run also appends its incumbent to the performance-history
+ledger (``<cache-dir>/history.jsonl``, the JAX package's format);
+``--history`` prints the series' trend (sparkline + per-run CIs) and
+regression verdict afterwards (see ``python -m repro_torch.perf_gate``).
+``--compact-history N`` compacts that ledger (keep each series' best run
+plus its N most recent, drop older superseded runs); it also works
+standalone, without ``--session``, and then touches no device.
+
+Everything runs on the card (``--device cuda``, the default) unless
+``--device cpu`` is given; the footer's ``kernels`` line counts the
+hand-written kernels' launches in this run.
 """
 
 from __future__ import annotations
@@ -33,8 +47,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import pathlib
+import time
 
-STRATEGIES = ("exhaustive", "halving", "random", "neighborhood")
+STRATEGIES = ("exhaustive", "halving", "random", "neighborhood",
+              "surrogate", "bandit")
 BENCHMARKS = ("dgemm", "triad", "gemm_tiled", "synthetic")
 
 
@@ -68,15 +84,38 @@ def make_strategy(args):
         return SuccessiveHalvingStrategy()
     if args.strategy == "random":
         return RandomSearchStrategy(budget=args.budget, seed=args.seed)
+    if args.strategy == "surrogate":
+        from .surrogate import SurrogateStrategy
+        return SurrogateStrategy(budget=args.budget, seed=args.seed,
+                                 acquisition=args.acquisition)
+    if args.strategy == "bandit":
+        from .surrogate import BanditStrategy
+        return BanditStrategy(budget=args.budget, seed=args.seed)
     return NeighborhoodStrategy(budget=args.budget)
+
+
+def compact_history(args) -> int:
+    """Apply ``RunLedger.compact`` to the cache dir's shared ledger."""
+    from .history import RunLedger
+    path = pathlib.Path(args.cache_dir) / "history.jsonl"
+    if not path.exists():
+        print(f"compact    : no ledger at {path} — nothing to do")
+        return 0
+    ledger = RunLedger(path)
+    n_before = len(ledger)
+    dropped = ledger.compact(keep_last=args.compact_history)
+    print(f"compact    : {path} — dropped {dropped} of {n_before} run(s), "
+          f"kept {len(ledger)}")
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.tune", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--session", required=True,
-                    help="session name; trials persist under this name")
+    ap.add_argument("--session", default=None,
+                    help="session name; trials persist under this name "
+                         "(required unless only --compact-history is asked)")
     ap.add_argument("--benchmark", default="dgemm", choices=BENCHMARKS,
                     help="'gemm_tiled' tunes the hand-written GEMM's tile "
                          "at 4096x2048x6144 f32; 'synthetic' is an "
@@ -85,9 +124,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", type=parse_backend, default=None,
                     metavar="SPEC",
                     help="serial | thread[:N] | process[:N] | simulated[:N]")
-    ap.add_argument("--strategy", default="exhaustive", choices=STRATEGIES)
+    ap.add_argument("--strategy", default="exhaustive", choices=STRATEGIES,
+                    help="search strategy")
     ap.add_argument("--budget", type=int, default=None,
-                    help="max proposals for --strategy random/neighborhood")
+                    help="max proposals for --strategy random/neighborhood/"
+                         "surrogate/bandit")
+    ap.add_argument("--acquisition", default="ei", choices=("ei", "ucb"),
+                    help="acquisition rule for --strategy surrogate: "
+                         "expected improvement against the incumbent's CI "
+                         "bound, or UCB at the settings' confidence level")
     ap.add_argument("--transfer-from", default=None, metavar="SESSION[:BENCH]",
                     help="seed the search with another session's cached "
                          "incumbents (default: same benchmark name)")
@@ -111,6 +156,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--report", action="store_true",
                     help="after tuning, render the cache-backed roofline "
                          "dashboard from this session's trial cache")
+    ap.add_argument("--history", action="store_true",
+                    help="after tuning, print this series' run-ledger "
+                         "trend (sparkline + per-run CIs) and its "
+                         "regression verdict")
+    ap.add_argument("--compact-history", type=int, default=None, metavar="N",
+                    help="compact <cache-dir>/history.jsonl: keep each "
+                         "series' best run plus its N most recent, drop "
+                         "older superseded runs; runs after tuning, or "
+                         "standalone when --session is omitted")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where every benchmark runs (default: cuda; "
                          "raises when no card is visible)")
@@ -118,7 +172,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.session is None:
+        if args.compact_history is None:
+            ap.error("--session is required (unless only compacting: "
+                     "--compact-history N)")
+        return compact_history(args)
 
     from . import kernels
     from .bench.common import (block_smem_limit, dgemm_benchmark,
@@ -188,6 +248,8 @@ def main(argv=None) -> int:
     print(f"fingerprint: {fingerprint}")
     print(f"strategy   : {args.strategy}"
           + (f" (order={args.order})" if args.strategy == "exhaustive" else "")
+          + (f" (acquisition={args.acquisition})"
+             if args.strategy == "surrogate" else "")
           + (f" (budget={args.budget})" if args.budget is not None else ""))
     print(f"space      : {space!r}  ({space.cardinality} configs)")
     print(f"cached     : {len(session.cache)} trials "
@@ -204,7 +266,7 @@ def main(argv=None) -> int:
 
     kernels.reset_launch_counts()
     result = session.run(backend=args.backend, progress=progress,
-                         seeds=seeds)
+                         seeds=seeds, timestamp=time.time())
     launches = kernels.launch_counts()
     print(f"\nbest      : {result.best_config}  score={result.best_score}")
     print(f"trials    : {len(result.trials)}  cached={result.n_cached}  "
@@ -224,6 +286,16 @@ def main(argv=None) -> int:
                                      for name, n in sorted(launches.items()))
           + " launches")
 
+    if args.history:
+        from .history import detect_regressions, render_trend_text
+        runs = session.ledger.series(args.benchmark, fingerprint)
+        print()
+        print(render_trend_text(runs))
+        report = detect_regressions(session.ledger,
+                                    benchmark=args.benchmark,
+                                    fingerprint=fingerprint)
+        print(report.render_text(), end="")
+
     if args.report:
         from .core import build_reports, load_trials, render_markdown
         reports, skipped = build_reports(load_trials(cache_path))
@@ -236,6 +308,9 @@ def main(argv=None) -> int:
                   "this session name).")
             for fp, reason in skipped:
                 print(f"[report]   {fp}: {reason}")
+
+    if args.compact_history is not None:
+        compact_history(args)
     return 0
 
 

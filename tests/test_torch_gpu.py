@@ -3,7 +3,8 @@ version on the card (the bf16 and the f32 3xTF32 flash kernels at every
 compiled head dim and physical tile, the GEMM at every tile), the flash
 and SSD kernels' gradients, a mamba2 prefill through the SSD kernel,
 tuning sessions through the kernels (the GEMM tile search keeping all 12
-tiles), and on-device timing of incumbent trials through torch.profiler.
+tiles, and a surrogate search over them recording its run in the
+ledger), and on-device timing of incumbent trials through torch.profiler.
 
 Marked ``gpu``; each skips from inside the ``card`` fixture when no card
 is visible, so every worker collects the same tests (on the CPU they are
@@ -195,6 +196,35 @@ def test_gemm_tiled_session_tunes_all_twelve_tiles_on_card(card,
         common.gemm_tiled_benchmark("cuda"))
     assert len(result.trials) == 12 and result.best_score > 0
     assert matmul.launches > before
+
+
+def test_gemm_tiled_surrogate_session_records_a_ledger_run_on_card(
+        card, tmp_path, monkeypatch):
+    """A surrogate session over the GEMM tiles launches the hand kernel
+    and appends one run-ledger record under the card's fingerprint."""
+    from repro_torch.bench import common
+    from repro_torch.core import Tuner, TuningSession, hardware_fingerprint
+    from repro_torch.history import RunLedger
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.surrogate import SurrogateStrategy
+    monkeypatch.setattr(common, "GEMM_TILED_SHAPE",
+                        {"m": 512, "n": 256, "k": 128})
+    space = common.gemm_tiled_space(smem_limit=common.block_smem_limit(card))
+    fingerprint = hardware_fingerprint("cuda")
+    before = matmul.launches
+    result = TuningSession(
+        "surrogate", Tuner(space, common.paper_settings(True),
+                           strategy=SurrogateStrategy(budget=6, seed=0)),
+        common.gemm_tiled_benchmark("cuda"), cache_dir=tmp_path,
+        fingerprint=fingerprint, benchmark_name="gemm_tiled").run(
+        timestamp=1.0)
+    assert len(result.trials) == 6 and result.best_score > 0
+    assert matmul.launches > before
+    runs = RunLedger(tmp_path / "history.jsonl").series("gemm_tiled",
+                                                       fingerprint)
+    assert len(runs) == 1 and fingerprint.startswith("cuda:")
+    assert runs[0].strategy == "surrogate"
+    assert runs[0].config == result.best_config
 
 
 def test_flash_gradients_equal_the_plain_version_on_card(card):

@@ -84,6 +84,30 @@ raise SystemExit(main(["--session", "s", "--benchmark", "synthetic",
     assert "best      : {'x': 7}" in proc.stdout
 
 
+def test_history_and_search_clis_with_jax_and_reference_blocked(tmp_path):
+    """The sweep CLI runs on the host when asked and refuses the card it
+    does not find; the gate reads a ledger; neither imports jax."""
+    proc = _run_blocked(f"""
+import sys
+from repro_torch import perf_gate
+from repro_torch.sweep.__main__ import main
+argv = ["--session", "s", "--benchmark", "synthetic", "--cache-dir",
+        {str(tmp_path)!r}, "--grid", "m=256,1024;n=256", "--budget-per-shape",
+        "3", "--predict", "m=512,n=256"]
+assert main(argv + ["--device", "cpu"]) == 0
+assert perf_gate.main([{str(tmp_path / "history.jsonl")!r}]) == 0
+assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
+try:
+    main(argv)
+except RuntimeError as e:
+    print("refused:", e)
+""", cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert "predict    : m=512,n=256 -> " in proc.stdout
+    assert "perf-gate: 2 series, 0 confirmed regression(s)" in proc.stdout
+    assert "refused: device 'cuda' requested" in proc.stdout
+
+
 def test_cuda_without_a_card_raises(monkeypatch):
     from repro_torch import resolve_device
     from repro_torch.bench import common
@@ -102,6 +126,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
         port_cache.hardware_fingerprint()
     with pytest.raises(RuntimeError, match="is_available"):
         common.model_step_family("train_step")
+    with pytest.raises(RuntimeError, match="is_available"):
+        common.chunked_dgemm_family({"m": 8, "n": 8, "k": 8})
     assert resolve_device("cpu").type == "cpu"
 
 

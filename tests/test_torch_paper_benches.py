@@ -265,16 +265,24 @@ def test_bench_run_triad_on_the_host_end_to_end(tmp_path):
     assert "## Table VI analog: TRIAD bandwidth (this host)" in proc.stdout
 
 
-def test_bench_run_keys_and_unported_entries():
+def test_bench_run_keys_and_unported_entries(tmp_path, monkeypatch,
+                                             capsys):
     import benchmarks.run as ref_run
     assert list(bench_run.BENCHES) == list(ref_run.BENCHES)
     with pytest.raises(NotImplementedError,
                        match="Distribution and launch topology"):
         bench_run.main(["--only", "distributed_tuner", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="History and search"):
-        bench_run.main(["--html", "x.html", "--device", "cpu"])
     with pytest.raises(RuntimeError, match="is_available"):
         bench_run.main(["--only", "triad"])
+    # --html now writes the dashboard from the --resume cache dir
+    monkeypatch.setitem(bench_run.BENCHES, "triad", lambda **_: None)
+    out = tmp_path / "x.html"
+    assert bench_run.main(["--only", "triad", "--device", "cpu", "--resume",
+                           str(tmp_path), "--html", str(out)]) == 0
+    assert f"[report] wrote {out}" in capsys.readouterr().out
+    html = out.read_text(encoding="utf-8")
+    assert html.startswith("<!DOCTYPE html>")
+    assert "<title>Benchmark dashboard</title>" in html
 
 
 def _deterministic(cfg):
@@ -319,8 +327,11 @@ def test_roofline_report_is_the_reference_byte_for_byte(tmp_path,
         ours = (tmp_path / f"ours.{ext}").read_bytes()
         assert ours == (tmp_path / f"ref.{ext}").read_bytes()
     assert b"peak compute F_p (dgemm)" in (tmp_path / "ours.md").read_bytes()
-    with pytest.raises(NotImplementedError, match="History and search"):
-        roofline_report.main([cache, "--html", str(tmp_path / "x.html")])
+    # --html is ported: the dashboard carries the same roofline section
+    assert roofline_report.main([cache, *extra, "--out", str(tmp_path / "x"),
+                                 "--html", str(tmp_path / "x.html")]) == 0
+    assert "Roofline — <code>cuda:NVIDIA H100 80GB HBM3:sm90:n1</code>" in \
+        (tmp_path / "x.html").read_text(encoding="utf-8")
     with pytest.raises(NotImplementedError, match="Observability and lint"):
         roofline_report.main([cache, "--attribute", "train_step"])
 

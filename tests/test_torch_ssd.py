@@ -148,6 +148,31 @@ def test_a_grid_past_cudas_limits_raises_before_the_library():
         ops._launch(*meta, None, False)
 
 
+def test_a_misaligned_h0_gives_the_one_element_state_carry_grid(
+        monkeypatch):
+    """The launcher reads ``h0`` 4 elements a thread only from a 16-byte
+    boundary (``csrc/ssd.cu``), so the limit check must count the 4x
+    larger state-carry grid of a misaligned ``h0``."""
+    from repro_torch.kernels.ssd import ops
+    b, h, c, q, p, n = 1, 2, 1, 1, 64, 64
+    storage = torch.zeros(b * h * p * n + 1)
+    aligned = storage[:-1].view(b, h, p, n)
+    shifted = storage[1:].view(b, h, p, n)      # 4 bytes off the boundary
+    assert ops.h0_aligned(None) and ops.h0_aligned(aligned)
+    assert not ops.h0_aligned(shifted)
+    assert grid(b, h, c, q, p, n)["ssd_pass_kernel"] == (8, 1)
+    assert grid(b, h, c, q, p, n, ops.h0_aligned(shifted)) == {
+        **grid(b, h, c, q, p, n), "ssd_pass_kernel": (32, 1)}
+    # a grid limit the aligned launch meets rejects the misaligned one
+    # before the library is touched
+    monkeypatch.setattr(ops, "_MAX_GRID_X", 8)
+    ins = [torch.zeros(shape) for shape in
+           ((b, h, c, q, p), (b, c, q, n), (b, c, q, n), (b, h, c, q))]
+    with pytest.raises(ValueError, match=r"\(32, 1\) blocks for "
+                                         r"ssd_pass_kernel"):
+        ops._launch(*ins, shifted, False)
+
+
 def test_kernel_names_are_the_sources_kernels():
     """``KERNELS`` (the names a trace looks up) are the ``__global__``
     functions of ``csrc/ssd.cu``, in launch order."""

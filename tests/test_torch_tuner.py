@@ -3,6 +3,7 @@ instant quadratic and a seeded noisy one) under every ported strategy
 must visit the same configurations in the same order, prune the same
 ones for the same reasons, and pick the same best configuration."""
 
+import dataclasses
 import itertools
 
 import numpy as np
@@ -109,12 +110,33 @@ def test_seeded_transfer_and_warm_start_match(tmp_path):
     assert results[0] == results[1]
 
 
-def test_unported_layers_raise_instead_of_running():
+def test_unported_layers_raise_instead_of_running(tmp_path):
+    """The workload audit still raises, naming its ROADMAP entry; the run
+    ledger is ported, so ``ledger=`` records the run the reference would
+    record, through ``Tuner.tune`` and through ``TuningSession``."""
+    import repro.history as ref_history
+    import repro_torch.history as port_history
+
     tuner = port.Tuner(port.grid(x=(1, 2)), _settings(port))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="Observability and lint"):
         tuner.tune(synthetic, validate="warn")
-    with pytest.raises(NotImplementedError, match="History and search"):
-        tuner.tune(synthetic, ledger=object())
-    with pytest.raises(NotImplementedError, match="History and search"):
-        port.TuningSession("s", tuner, synthetic, fingerprint="fp",
-                           ledger=object())
+    records = []
+    for mod, hist in ((port, port_history), (ref, ref_history)):
+        led = hist.RunLedger(tmp_path / f"{mod.__name__}.jsonl")
+        result = mod.Tuner(mod.grid(x=(1, 2)), _settings(mod)).tune(
+            synthetic, validate="off", ledger=led.bound("b", "fp"),
+            timestamp=5.0)
+        session = mod.TuningSession(
+            "s", mod.Tuner(mod.grid(x=(1, 2)), _settings(mod)), synthetic,
+            cache_dir=tmp_path / mod.__name__, fingerprint="fp",
+            benchmark_name="b")
+        session.run(validate="off", timestamp=6.0)
+        auto = hist.RunLedger(tmp_path / mod.__name__ / "history.jsonl")
+        assert result.best_config == {"x": 2}
+        records.append((led.series("b", "fp"), auto.series("b", "fp")))
+    (port_direct, port_auto), (ref_direct, ref_auto) = records
+    assert len(port_direct) == len(port_auto) == 1
+    for ours, theirs in ((port_direct, ref_direct), (port_auto, ref_auto)):
+        assert [dataclasses.asdict(r) for r in ours] == \
+            [dataclasses.asdict(r) for r in theirs]
+    assert port_auto[0].session == "s" and port_auto[0].timestamp == 6.0
