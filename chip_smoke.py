@@ -153,6 +153,30 @@ run when it fails:
                ``--history`` (the gate's ledger) and ``--trace`` (phase
                10's DGEMM trace): the page must show phase 5's F_p, the
                gemm_tiled trend, the verdicts and the trial drill-down.
+13. observability and lint — each of the four ``repro_torch::*`` ops on
+               the card: ``FlopCounterMode`` and ``count_ops`` must see
+               exactly that op with its formula's FLOPs, and its output
+               must equal the wrapper's launch on the same inputs bit for
+               bit; the host microseconds a call of TRIAD through the op
+               (n = 1024), beside the launch function without the op and
+               the bare ctypes launch. ``python -m repro_torch.lint
+               --json`` (pass 1 bound to the card) must report no warning
+               or error; ``python -m repro_torch.tune --benchmark triad
+               --validate strict --live`` and a 3-tile random
+               ``gemm_tiled`` session the same way must finish with their
+               live lines, and a mis-declared benchmark under
+               ``validate="strict"`` must raise before its first trial. Then measured
+               attribution at full width on phase 5's roofs (OBSERVE):
+               granite-3-2b's train step (4 layers, B=1, S=4096,
+               ``use_flash=1`` at phase 6's tile), mamba2-130m's prefill
+               (4 x 32768 tokens) and zamba2-2.7b's train step (6 layers,
+               B=1, S=4096, flash at the same tile): each prints its top
+               ops, its time by op kind, its subsystem shares and
+               ``unattributed_frac`` and writes its JSON, and the flash op
+               and the SSD op must each hold device time where the model
+               runs them. Last, ``python -m
+               repro_torch.roofline_report --attribute train_step --html``
+               (the tiny step, measured on the card).
 
 Each phase prints its seconds.
 
@@ -160,9 +184,10 @@ The last three lines are the card line, one ``{"kernels": [...]}`` JSON
 object (flash attention split by dtype: ``flash_attention`` the bf16
 tensor-core kernel, ``flash_attention_f32`` the 3xTF32 one, with the
 CUDA-core kernel it replaced as ``was_ms``; ``launches`` counts the main
-path's launches, phase 5's for matmul and triad, with phases 10, 11 and
-12's beside it as ``launches_device_timing``, ``launches_paper_tables``
-and ``launches_history_search``) and
+path's launches, phase 5's for matmul and triad, with phases 10, 11,
+12 and 13's beside it as ``launches_device_timing``,
+``launches_paper_tables``, ``launches_history_search`` and
+``launches_observability``) and
 ``{"ok": true, "device": {...}}``. Without a card, or outside
 a checkout, the script exits non-zero and prints neither.
 """
@@ -196,6 +221,19 @@ TF32_PEAK = 495e12                         # tensor cores, tf32, dense
 #: (the 3xTF32 split of the SSD kernel and the f32 flash kernel)
 TF32X3_PEAK = TF32_PEAK / 3
 SUBPROCESS_TIMEOUT_S = 420
+#: phase 13's measured attributions: granite-3-2b's and zamba2-2.7b's
+#: train steps at phases 6 and 9's depth and shape on the flash path, and
+#: mamba2-130m's prefill at phase 8's batch and prompt length; each must
+#: give its hand-kernel ops device time
+OBSERVE = {"granite": {"arch": "granite_3_2b", "layers": 4, "batch": 1,
+                       "seq": 4096, "workload": "train_step",
+                       "ops": ("flash_attention_fwd",)},
+           "mamba2": {"arch": "mamba2_130m", "layers": 24, "batch": 4,
+                      "seq": 32768, "workload": "prefill_step",
+                      "ops": ("ssd_chunk_scan_fwd",)},
+           "zamba2": {"arch": "zamba2_2_7b", "layers": 6, "batch": 1,
+                      "seq": 4096, "workload": "train_step",
+                      "ops": ("flash_attention_fwd", "ssd_chunk_scan_fwd")}}
 #: TRIAD working sets of the device-timing phase, each in a one-config
 #: session of its own (only a trial that beats the incumbent is profiled)
 DEVICE_TIMING_TRIAD = {"256 KiB": 1 << 18, "cache": 1 << 22, "dram": 1 << 28}
@@ -624,6 +662,7 @@ def counting(bench, per_config: dict):
         return counted_factory
 
     wrapped.precompile = bench.precompile
+    wrapped.audit_spec = bench.audit_spec
     wrapped.__name__ = bench.__name__
     return wrapped
 
@@ -888,7 +927,8 @@ def ssd_grad_check(ops: tuple) -> None:
     import torch
     from repro_torch.kernels.ssd import (chunk_scan, ssd_chunk_scan,
                                          ssd_chunk_scan_ref)
-    g = torch.randn_like(ops[0])
+    gen = torch.Generator(device=ops[0].device).manual_seed(6)
+    g = torch.randn(ops[0].shape, device=ops[0].device, generator=gen)
     grads = {}
     for name, fn in (("kernel", lambda *x: launch_checked(
             ssd_chunk_scan, lambda: chunk_scan(*x))),
@@ -1129,7 +1169,7 @@ def hybrid_layer_parts(tile: tuple[int, int]) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(5)
     ops = ssd_inputs(gen, *SSD_MAIN["zamba2 train"])[:4]
     leaves = [t.detach().clone().requires_grad_() for t in ops]
-    g = torch.randn_like(ops[0])
+    g = torch.randn(ops[0].shape, generator=gen, device="cuda")
     s = HYBRID_STEP["seq"]
     shape = (HYBRID_STEP["batch"], cfg.n_heads, s, cfg.head_dim_)
     q, k, v, ga = (torch.randn(shape, generator=gen, device="cuda")
@@ -1666,6 +1706,271 @@ def history_search_path(roofline_fp: float) -> dict:
                 "exhaustive": int(spent.group(2))}}
 
 
+def op_checks() -> dict:
+    """Each ``repro_torch::*`` op on the card: FlopCounterMode and
+    count_ops see that one op with its formula's FLOPs, and the op's
+    output equals the wrapper's launch bit for bit; then TRIAD's host
+    microseconds a call (n = 1024) through the wrapper, the op, the launch
+    function without the op, and the bare ctypes launch."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.analysis import count_ops
+    from repro_torch.kernels import build, registry
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flops as fa_flops
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.kernels.matmul import flops as mm_flops
+    from repro_torch.kernels.ssd import chunk_scan, needed_flops
+    from repro_torch.kernels.triad import flops as triad_flops
+    from repro_torch.kernels.triad import ops as triad_ops
+    from repro_torch.kernels.triad import triad
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    b, h, hkv, s, d = FLASH_MAIN
+    q, k, v = (randn(b, n, s, d, dtype=torch.bfloat16)
+               for n in (h, hkv, hkv))
+    x, y = randn(1 << 20), randn(1 << 20)
+    ga, gb = randn(1024, 768), randn(768, 512)
+    ssd = ssd_inputs(gen, 1, 8, 16, 256, 64, 128)[:4]
+    B_, H_, C_, Q_, P_, N_ = ssd[0].shape + (ssd[1].shape[-1],)
+    cases = {
+        "triad": (lambda: triad(x, y, gamma=3.0),
+                  lambda: registry.OPS["triad"](x, y, 3.0),
+                  triad_flops(x.numel())),
+        "matmul": (lambda: matmul(ga, gb, bm=128, bn=128, bk=16),
+                   lambda: registry.OPS["matmul"](ga, gb, 128, 128, 16),
+                   mm_flops(1024, 512, 768)),
+        "flash_attention_fwd": (
+            lambda: flash_attention(q, k, v, causal=True, bq=128, bk=128),
+            lambda: registry.OPS["flash_attention_fwd"](
+                q, k, v, 1.0 / math.sqrt(d), True, None, 128, 128),
+            fa_flops(b, h, s, d, True)),
+        "ssd_chunk_scan_fwd": (
+            lambda: chunk_scan(*ssd),
+            lambda: registry.OPS["ssd_chunk_scan_fwd"](*ssd, None,
+                                                       False)[0],
+            needed_flops(B_, H_, C_ * Q_, Q_, P_, N_)),
+    }
+    out = {}
+    for name, (wrapper, op, formula) in cases.items():
+        with FlopCounterMode(display=False) as counter:
+            wrapper()
+        counted = {str(key): n for key, n in
+                   counter.get_flop_counts()["Global"].items()}
+        module = count_ops(wrapper)
+        kinds = [o.kind for o in module.ops]
+        if counted != {f"repro_torch.{name}": int(formula)}:
+            fail(f"op {name}: FlopCounterMode counted {counted}, want "
+                 f"{{repro_torch.{name}: {int(formula)}}}")
+        if kinds != [f"repro_torch::{name}"] or module.flops != formula:
+            fail(f"op {name}: count_ops saw {kinds} with "
+                 f"{module.flops:.6g} FLOPs, want the op alone with "
+                 f"{formula:.6g}")
+        got, want = op(), wrapper()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"op {name}: the op's output differs from the wrapper's "
+                 f"launch on the same inputs")
+        out[name] = {"flops": formula, "bytes": module.bytes_accessed}
+        print(f"op repro_torch::{name}: FlopCounterMode and count_ops see "
+              f"it alone, {formula:.6g} FLOPs (its formula), "
+              f"{module.bytes_accessed:.6g} bytes; bit-identical to the "
+              f"wrapper's launch")
+    del q, k, v, x, y, ga, gb, ssd
+    xs, ys = randn(1024), randn(1024)
+    c = torch.empty_like(xs)
+    launcher = build.kernel_fn("rt_triad_f32", (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+    ptrs = (xs.data_ptr(), ys.data_ptr(), c.data_ptr(), xs.numel(), 3.0, 0,
+            build.current_stream_ptr(0))
+    host = {
+        "triad wrapper (through the op)": host_us_per_call(
+            lambda: triad(xs, ys, gamma=3.0)),
+        "the op alone": host_us_per_call(
+            lambda: registry.OPS["triad"](xs, ys, 3.0)),
+        "launch function without the op": host_us_per_call(
+            lambda: triad_ops._launch(xs, ys, 3.0)),
+        "ctypes launch alone": host_us_per_call(lambda: launcher(*ptrs)),
+    }
+    print("TRIAD dispatch at n=1024 through the op (host us/call, back to "
+          "back): " + " | ".join(f"{name} {us:.2f}"
+                                 for name, us in host.items()))
+    return {"ops": out, "host_us": host}
+
+
+def print_attribution(label: str, report, path: pathlib.Path) -> dict:
+    """Top ops, time by op kind, subsystem shares and the unattributed
+    share of one report; writes its JSON to ``path``."""
+    path.write_text(json.dumps(report.to_json(), indent=2),
+                    encoding="utf-8")
+    total = report.device_total_s or 0.0
+    print(f"{label}: {len(report.ops)} ops, device total "
+          f"{total * 1e3:.3f} ms, attributed {report.attributed_s * 1e3:.3f}"
+          f" ms, unattributed_frac {report.unattributed_frac:.4f}; "
+          f"{report.total_flops:.6g} FLOPs, {report.total_bytes:.6g} bytes "
+          f"-> {path}")
+    print("  top ops (device ms, % of roof):")
+    for op in report.top_ops(10):
+        pct = "—" if op.pct_of_roof is None else f"{op.pct_of_roof:.1f}%"
+        print(f"    {op.name:40s} {(op.time_s or 0.0) * 1e3:9.3f} ms  "
+              f"{op.bound:8s} {pct}")
+    kinds: dict = {}
+    for op in report.ops:
+        t, n = kinds.get(op.kind, (0.0, 0))
+        kinds[op.kind] = (t + (op.time_s or 0.0), n + 1)
+    print("  by op kind (device ms, ops, share of the device total):")
+    for kind, (t, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"    {kind:40s} {t * 1e3:9.3f} ms  {n:5d}  "
+              f"{t / total if total else 0.0:6.1%}")
+    sized: dict = {}
+    for op in report.ops:
+        key = (op.kind, op.bytes_accessed)
+        t, n = sized.get(key, (0.0, 0))
+        sized[key] = (t + (op.time_s or 0.0), n + 1)
+    print("  by op kind and bytes an op (device ms, ops, achieved TB/s):")
+    for (kind, moved), (t, n) in sorted(sized.items(),
+                                        key=lambda kv: -kv[1][0])[:12]:
+        print(f"    {kind:32s} {moved / 1e9:8.3f} GB  {t * 1e3:9.3f} ms  "
+              f"{n:5d}  {moved * n / t / 1e12 if t else 0.0:6.3f}")
+    shares = {sub: secs / total if total else 0.0
+              for sub, secs in sorted(report.subsystem_seconds.items())}
+    print("  subsystem shares: " + ", ".join(
+        f"{sub} {share:.1%}" for sub, share in shares.items())
+        + f", unattributed {report.unattributed_frac:.1%}")
+    return {"device_ms": total * 1e3,
+            "unattributed_frac": report.unattributed_frac,
+            "shares": shares,
+            "top": [(op.name, (op.time_s or 0.0) * 1e3, op.pct_of_roof)
+                    for op in report.top_ops(10)],
+            "by_kind_ms": {kind: t * 1e3 for kind, (t, _) in kinds.items()}}
+
+
+def observability_path(tile: tuple[int, int]) -> dict:
+    """Phase 13: the four ops, the linter with pass 1 on the card, a
+    strict ``--live`` TRIAD session and a strict mis-declared one, the
+    measured attributions of OBSERVE on phase 5's roofs (``tile``: phase
+    6's flash tile), and the report CLI's ``--attribute``."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get
+    from repro_torch.core import EvaluationSettings, Tuner, grid
+    from repro_torch.lint import WorkloadAuditError, WorkloadSpec
+    from repro_torch.models.transformer import StepConfig
+    from repro_torch.models.workloads import build_workload
+    from repro_torch.obs.attribution import attribute, roofs_from_trials
+
+    ops = op_checks()
+
+    # -- the linter, pass 1 bound to the card
+    out, _ = run_module("repro_torch.lint", ["--json"], "lint", codes=(0,))
+    doc = json.loads(out)
+    if doc["summary"]["error"] or doc["summary"]["warning"]:
+        fail(f"repro_torch.lint: {doc['summary']}")
+    print(f"  lint: {doc['summary']} ({len(doc['findings'])} findings)")
+
+    # -- strict, live TRIAD and tile-search sessions; a strict
+    # mis-declared benchmark
+    tune_counts = {}
+    for bench, extra in (("triad", []),
+                         ("gemm_tiled", ["--strategy", "random", "--budget",
+                                         "3", "--seed", "0"])):
+        _, tune_counts[bench] = run_tune(
+            ["--benchmark", bench, "--validate", "strict", "--live",
+             "--fresh", *extra], session="observe",
+            log=f"tune_observe_{bench}")
+        # the log's text holds the status line's carriage returns as
+        # line ends
+        live = [ln for ln in (WORK / f"tune_observe_{bench}.log").read_text(
+            encoding="utf-8").splitlines() if ln.startswith("[live] ")]
+        if not live:
+            fail(f"tune --benchmark {bench} --live printed no live line")
+        print(f"  last live line: {live[-1].strip()}")
+    calls = []
+
+    def mis_declared(cfg):
+        calls.append(cfg)
+        return lambda: (lambda: 1.0)
+
+    mis_declared.audit_spec = lambda cfg: WorkloadSpec(
+        fn=torch.matmul, args=(torch.empty(64, 64, device="meta"),) * 2,
+        work=64.0 ** 3, unit="flops", dtype="float32", name="mis")
+    try:
+        Tuner(grid(x=(0, 1)), EvaluationSettings(
+            max_invocations=1, max_iterations=1)).tune(
+                mis_declared, validate="strict")
+        fail("a mis-declared benchmark under validate='strict' ran")
+    except WorkloadAuditError as e:
+        if calls:
+            fail(f"the strict audit raised after {len(calls)} trial(s)")
+        print(f"  strict audit of a mis-declared benchmark raised before "
+              f"any trial: {e.findings[0].code}")
+
+    # -- measured attribution at full width
+    roofs = roofs_from_trials([str(WORK / "roofline")])
+    if roofs is None:
+        fail("phase 5's cache gave no roofs")
+    print(f"roofs (phase 5): F_p {roofs.peak_flops / 1e12:.3f} TFLOP/s, "
+          + ", ".join(f"{k} {v / 1e12:.3f} TB/s"
+                      for k, v in sorted(roofs.bandwidths.items())))
+    reports = {}
+    launches = {}
+    for label, spec in OBSERVE.items():
+        cfg = dataclasses.replace(get(spec["arch"]),
+                                  n_layers=spec["layers"])
+        step = StepConfig(use_flash=True, flash_block_q=tile[0],
+                          flash_block_k=tile[1], remat=False)
+        w = build_workload(spec["workload"], cfg, step=step,
+                           batch_size=spec["batch"], seq_len=spec["seq"],
+                           device="cuda")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        report = attribute(w, roofs, log_dir=str(WORK / f"attr_{label}"))
+        wall = time.perf_counter() - t0
+        launches[label] = kernels.launch_counts()
+        print(f"{spec['arch']} {spec['workload']} ({cfg.n_layers} layers, "
+              f"B={spec['batch']}, S={spec['seq']}): attribution wall "
+              f"{wall:.1f}s (warm-up + profiled call), launches "
+              f"{launches[label]}")
+        reports[label] = print_attribution(
+            label, report, WORK / f"attribution_{label}.json")
+        held = {name: sum(op.time_s or 0.0 for op in report.ops
+                          if op.kind == f"repro_torch::{name}")
+                for name in spec["ops"]}
+        for name, secs in held.items():
+            if report.mode != "measured" or secs <= 0:
+                fail(f"{label}: repro_torch::{name} holds no device time "
+                     f"({report.mode})")
+        reports[label]["kernel_op_ms"] = {name: secs * 1e3
+                                          for name, secs in held.items()}
+        del w, report
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- the report CLI's --attribute (the tiny step, on the card)
+    html = WORK / "attribution.html"
+    out, _ = run_module("repro_torch.roofline_report", [
+        str(WORK / "roofline"), "--attribute", "train_step", "--out",
+        str(WORK / "attribution.md"), "--html", str(html),
+        "--attribution-json", str(WORK / "attribution_cli.json")],
+        "roofline_report_attribute")
+    cli = json.loads((WORK / "attribution_cli.json").read_text())
+    if "Attribution —" not in html.read_text(encoding="utf-8") or \
+            cli["mode"] != "measured":
+        fail(f"roofline_report --attribute: mode {cli['mode']}, html "
+             f"without the attribution section")
+    print(f"  roofline_report --attribute train_step: {len(cli['ops'])} "
+          f"ops, measured, unattributed_frac "
+          f"{cli['unattributed_frac']:.4f}")
+    return {"ops": ops, "reports": reports, "launches": launches,
+            "tune_launches": tune_counts}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -1750,11 +2055,12 @@ def main() -> int:
     for d in sorted({case[4] for case in FLASH_CASES}):
         print(f"  flash f32 CUDA-core kernel d={d}: {flash_smem_bytes(d)} "
               f"bytes dynamic shared memory per block (opt-in limit {limit})")
+    lib = build.library()
     for kind, query, wrapper_tiles in (
             ("bf16", "rt_flash_attention_sm90_tiles", SM90_TILES),
             ("tf32x3", "rt_flash_attention_tf32x3_tiles", TF32X3_TILES)):
         table = (ctypes.c_int * 300)()
-        n_tiles = getattr(build.library(), query)(table, 100)
+        n_tiles = getattr(lib, query)(table, 100)
         compiled = {tuple(table[3 * i:3 * i + 3]) for i in range(n_tiles)}
         if compiled != {(d, qt, kt) for d, tiles in wrapper_tiles.items()
                         for qt, kt in tiles}:
@@ -2253,6 +2559,10 @@ def main() -> int:
           "dashboard)")
     search = history_search_path(report.dgemm.score)
 
+    # -- 13. observability and lint ---------------------------------------------
+    phase("observability and lint (ops, linter, audit, attribution)")
+    observe = observability_path(step["tile"])
+
     # -- result lines ------------------------------------------------------
     phase("result")
     print(f"total wall {time.perf_counter() - t_start:.1f}s")
@@ -2266,6 +2576,8 @@ def main() -> int:
          "launches": launches["matmul"],
          "launches_paper_tables": tables["launches"]["matmul"],
          "launches_history_search": search["launches"],
+         "launches_observability": (
+             observe["tune_launches"]["gemm_tiled"]["matmul"]),
          "max_abs_err": errs["matmul"],
          "ms": gemm_ms, "plain_ms": gemm_plain_ms,
          "bound_ms": gemm_bound_ms, "bound_by": "operations",
@@ -2278,6 +2590,9 @@ def main() -> int:
          "launches": launches["triad"],
          "launches_device_timing": timing_launches["triad"],
          "launches_paper_tables": tables["launches"]["triad"],
+         "launches_observability": (
+             observe["tune_launches"]["triad"]["triad"]),
+         "host_us_per_call": observe["ops"]["host_us"],
          "profiled_ms": {label: run["timings"][0][1]["device_time_s"] * 1e3
                          for label, run in timing.items()
                          if label in DEVICE_TIMING_TRIAD},
@@ -2294,6 +2609,12 @@ def main() -> int:
                       + hyb["routes"]["tensor_cores"]),
          "launches_granite_step": step["routes"]["tensor_cores"],
          "launches_zamba2_step": hyb["routes"]["tensor_cores"],
+         "launches_observability": (
+             observe["launches"]["granite"]["flash_attention"]
+             + observe["launches"]["zamba2"]["flash_attention"]),
+         "attributed_ms": {
+             label: observe["reports"][label]["kernel_op_ms"][
+                 "flash_attention_fwd"] for label in ("granite", "zamba2")},
          "max_abs_err": errs["flash_attention"],
          "ms": flash["kernel"],
          "plain_ms": flash["plain"], "bound_ms": flash["bound"],
@@ -2332,6 +2653,12 @@ def main() -> int:
          "launches": serving["launches"] + hyb["launches"]["ssd_chunk_scan"],
          "launches_serving": serving["launches"],
          "launches_zamba2_step": hyb["launches"]["ssd_chunk_scan"],
+         "launches_observability": (
+             observe["launches"]["mamba2"]["ssd_chunk_scan"]
+             + observe["launches"]["zamba2"]["ssd_chunk_scan"]),
+         "attributed_ms": {
+             label: observe["reports"][label]["kernel_op_ms"][
+                 "ssd_chunk_scan_fwd"] for label in ("mamba2", "zamba2")},
          "max_abs_err": errs["ssd_y"], "max_abs_err_state": errs["ssd_state"],
          "ms": t_srv["kernel"], "was_ms": t_srv["was"],
          "plain_ms": t_srv["plain"],

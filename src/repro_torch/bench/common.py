@@ -31,8 +31,11 @@ the two packages measure the same configurations on the same data.
 to one device: a small module-level class holding the device name, so it
 pickles into ``ProcessPoolBackend`` workers, with a ``precompile`` hook
 for the tuner's background pipeline (``dgemm_precompile``,
-``triad_precompile``); every one runs on ``cuda`` unless built with
-``device="cpu"``.
+``triad_precompile``) and an ``audit_spec`` for the workload audit
+(:mod:`repro_torch.lint`: the kernel it times on ``meta`` operands and
+the work term it divides by, from the same helper); every one runs on
+``cuda`` unless built with ``device="cpu"``. :func:`audited_workloads`
+is the audit's registry.
 
 The paper-table benches tune DGEMM over :func:`paper_dgemm_space`. On
 the host, and in every parity test, its quick space is the JAX
@@ -48,6 +51,7 @@ same reason).
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 import threading
@@ -67,23 +71,25 @@ from ..kernels import build
 from ..kernels.matmul import matmul, smem_bytes
 from ..kernels.matmul import TILES as GEMM_TILES
 from ..kernels.triad import triad
+from ..lint.workload import WorkloadSpec
 from ..models.config import ModelConfig
 from ..models.transformer import StepConfig
-from ..models.workloads import ModelWorkload, build_workload, workload_flops
+from ..models.workloads import (ModelWorkload, build_workload, meta_step,
+                                resolve_arch, step_flops, workload_flops)
 
-__all__ = ["CSV_ROWS", "DgemmBenchmark", "GEMM_TILED_SHAPE",
-           "GemmTiledBenchmark", "SM90_SMEM_OPTIN_BYTES", "SWEEP_TILES",
-           "TriadBenchmark", "bench_main", "card_dgemm_space",
-           "chunked_dgemm_data", "chunked_dgemm_family",
-           "chunked_dgemm_kernel", "dgemm_benchmark", "dgemm_data",
-           "dgemm_flops", "dgemm_precompile", "dgemm_space", "emit",
-           "gemm_shape_space", "gemm_tiled_benchmark", "gemm_tiled_space",
-           "model_step_family", "model_step_space", "paper_dgemm_space",
-           "paper_settings", "print_table", "sweep_chunk_space",
-           "sweep_config_space", "synthetic_benchmark",
-           "synthetic_gemm_family", "triad_benchmark", "triad_data",
-           "triad_length", "triad_moved_bytes", "triad_precompile",
-           "triad_sizes", "where"]
+__all__ = ["AUDITED_WORKLOADS", "CSV_ROWS", "DgemmBenchmark",
+           "GEMM_TILED_SHAPE", "GemmTiledBenchmark", "SM90_SMEM_OPTIN_BYTES",
+           "SWEEP_TILES", "TriadBenchmark", "audited_workloads", "bench_main",
+           "card_dgemm_space", "chunked_dgemm_data", "chunked_dgemm_family",
+           "chunked_dgemm_kernel", "dgemm_audit_spec", "dgemm_benchmark",
+           "dgemm_data", "dgemm_flops", "dgemm_precompile", "dgemm_space",
+           "emit", "gemm_shape_space", "gemm_tiled_audit_spec",
+           "gemm_tiled_benchmark", "gemm_tiled_space", "model_step_family",
+           "model_step_space", "paper_dgemm_space", "paper_settings",
+           "print_table", "sweep_chunk_space", "sweep_config_space",
+           "synthetic_benchmark", "synthetic_gemm_family", "triad_audit_spec",
+           "triad_benchmark", "triad_data", "triad_length",
+           "triad_moved_bytes", "triad_precompile", "triad_sizes", "where"]
 
 #: every row :func:`emit` printed in this process, in order
 CSV_ROWS: list[tuple[str, float, str]] = []
@@ -408,6 +414,46 @@ def gemm_tiled_space(
 # pickle into ProcessPoolBackend workers.
 
 
+def _meta(shape: tuple, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """An audit spec's operand: shape and dtype only, nothing allocated
+    (the counterpart of ``jax.ShapeDtypeStruct``)."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def dgemm_audit_spec(cfg: dict) -> WorkloadSpec:
+    """The DGEMM benchmark's declaration for the workload audit: the
+    ``torch.matmul`` it times and the :func:`dgemm_flops` it divides by."""
+    n, m, k = cfg["n"], cfg["m"], cfg["k"]
+    return WorkloadSpec(
+        fn=torch.matmul, args=(_meta((n, k)), _meta((k, m))),
+        work=dgemm_flops(n, m, k), unit="flops", dtype="float32",
+        name=f"dgemm[{n}x{m}x{k}]")
+
+
+def triad_audit_spec(cfg: dict) -> WorkloadSpec:
+    """The TRIAD benchmark's declaration: ``repro_torch::triad`` (the hand
+    kernel the benchmark times) and :func:`triad_moved_bytes`."""
+    n_bytes = cfg["n_bytes"]
+    n = triad_length(n_bytes)
+    return WorkloadSpec(
+        fn=functools.partial(triad, gamma=3.0),
+        args=(_meta((n,)), _meta((n,))),
+        work=triad_moved_bytes(n_bytes), unit="bytes", dtype="float32",
+        name=f"triad[{n_bytes}B]")
+
+
+def gemm_tiled_audit_spec(cfg: dict) -> WorkloadSpec:
+    """The tile search's declaration: ``repro_torch::matmul`` at the
+    config's tile over :data:`GEMM_TILED_SHAPE` and :func:`dgemm_flops`."""
+    m, n, k = (GEMM_TILED_SHAPE[d] for d in "mnk")
+    return WorkloadSpec(
+        fn=functools.partial(matmul, bm=cfg["bm"], bn=cfg["bn"],
+                             bk=cfg["bk"]),
+        args=(_meta((m, k)), _meta((k, n))),
+        work=dgemm_flops(m, n, k), unit="flops", dtype="float32",
+        name=f"gemm_tiled[{m}x{n}x{k}/{cfg['bm']}x{cfg['bn']}x{cfg['bk']}]")
+
+
 def dgemm_precompile(cfg: dict, device: "str | torch.device" = "cuda",
                      ) -> None:
     """Resolve the executable cache's entry for one DGEMM config from
@@ -448,6 +494,8 @@ class DgemmBenchmark:
     def precompile(self, cfg: dict) -> None:
         dgemm_precompile(cfg, self.device)
 
+    audit_spec = staticmethod(dgemm_audit_spec)
+
 
 class TriadBenchmark:
     """``triad`` on one device: config (n_bytes,) -> a TRIAD-kernel GB/s
@@ -461,6 +509,8 @@ class TriadBenchmark:
 
     def precompile(self, cfg: dict) -> None:
         triad_precompile(cfg, self.device)
+
+    audit_spec = staticmethod(triad_audit_spec)
 
 
 class GemmTiledBenchmark:
@@ -500,6 +550,8 @@ class GemmTiledBenchmark:
             matmul, (TensorSpec((m, k), torch.float32, self.device),
                      TensorSpec((k, n), torch.float32, self.device)),
             static={"bm": cfg["bm"], "bn": cfg["bn"], "bk": cfg["bk"]})
+
+    audit_spec = staticmethod(gemm_tiled_audit_spec)
 
 
 def dgemm_benchmark(device: str = "cuda", **kwargs) -> DgemmBenchmark:
@@ -617,10 +669,10 @@ def chunked_dgemm_family(shape: dict,
     and on a card each sample is timed on the card's clock (one
     :class:`~repro_torch.core.card_clock.CardClock` per config, as the
     DGEMM samplers are: the host clock would add the product's launch and
-    the synchronize's return to every sample). The JAX family's workload
-    audit spec and precompile hook are left out: the audit belongs to the
-    lint layer, which is not ported yet (ROADMAP 'Observability and
-    lint')."""
+    the synchronize's return to every sample). ``bench.audit_spec``
+    declares the einsum on ``meta`` operands and the 2mnk FLOPs the
+    samplers divide by; ``bench.precompile`` resolves the einsum in the
+    executable cache from tensor specs."""
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     m, n, k = shape["m"], shape["n"], shape.get("k", 256)
@@ -654,6 +706,25 @@ def chunked_dgemm_family(shape: dict,
 
         return factory
 
+    def operand_shapes(cfg: dict) -> tuple[tuple, tuple]:
+        kc = min(cfg["k_chunk"], k)
+        return (m, k // kc, kc), (k // kc, kc, n)
+
+    def sweep_audit_spec(cfg: dict) -> WorkloadSpec:
+        sa, sb = operand_shapes(cfg)
+        return WorkloadSpec(
+            fn=chunked_dgemm_kernel, args=(_meta(sa), _meta(sb)),
+            work=flops, unit="flops", dtype="float32",
+            name=f"dgemm_sweep[{m}x{n}x{k}/kc{sa[2]}]")
+
+    def sweep_precompile(cfg: dict) -> None:
+        sa, sb = operand_shapes(cfg)
+        cache.compile(chunked_dgemm_kernel,
+                      (TensorSpec(sa, torch.float32, dev),
+                       TensorSpec(sb, torch.float32, dev)))
+
+    bench.audit_spec = sweep_audit_spec
+    bench.precompile = sweep_precompile
     return bench
 
 
@@ -683,14 +754,19 @@ def model_step_space(quick: bool = True) -> SearchSpace:
                 flash_block_k=(64, 128, 256, 512), remat=(0, 1))
 
 
-def _model_step(base: ModelWorkload, cfg: dict) -> ModelWorkload:
-    """The family's workload under one tuner config: the same weights and
-    tokens, the config's execution knobs."""
-    return base.with_step(StepConfig(
+def _model_step_config(cfg: dict) -> StepConfig:
+    """A tuner config's execution knobs."""
+    return StepConfig(
         use_flash=bool(cfg.get("use_flash", 0)),
         flash_block_q=int(cfg.get("flash_block_q", 512)),
         flash_block_k=int(cfg.get("flash_block_k", 512)),
-        remat=bool(cfg.get("remat", 0))))
+        remat=bool(cfg.get("remat", 0)))
+
+
+def _model_step(base: ModelWorkload, cfg: dict) -> ModelWorkload:
+    """The family's workload under one tuner config: the same weights and
+    tokens, the config's execution knobs."""
+    return base.with_step(_model_step_config(cfg))
 
 
 def model_step_family(workload: str,
@@ -711,7 +787,11 @@ def model_step_family(workload: str,
     synchronize in each sample (PERF.md) are negligible. ``precompile``
     builds the shared workload and, on the card, the kernel library for
     a flash config or a model with SSD layers, in the tuner's background
-    pipeline.
+    pipeline. ``audit_spec`` declares the step under a config on ``meta``
+    weights and tokens against the family's work term (the plain path's
+    count): the tuner audits the space's first config, ``use_flash=0``,
+    where the two agree; at ``use_flash=1`` the trace counts the flash
+    op's causal work, about half the plain path's masked products.
     """
     dev = resolve_device(device)
     sync = synchronizer(dev)
@@ -753,7 +833,20 @@ def model_step_family(workload: str,
                                    ("ssm", "hybrid")):
             build.library()
 
+    def audit_spec(cfg: dict) -> WorkloadSpec:
+        # the step under this config on meta weights and tokens, against
+        # the family's work term (the plain path's count, workload_flops)
+        mcfg = resolve_arch(arch)
+        kind = workload[:-len("_step")]
+        step = _model_step_config(cfg)
+        fn, args = meta_step(mcfg, batch_size, seq_len, kind, step)
+        return WorkloadSpec(
+            fn=fn, args=args,
+            work=step_flops(mcfg, batch_size, seq_len, kind), unit="flops",
+            name=f"{workload}[{mcfg.name} b{batch_size} s{seq_len}]")
+
     bench.precompile = precompile
+    bench.audit_spec = audit_spec
     bench.__name__ = f"model_step_{workload}"
     return bench
 
@@ -767,3 +860,36 @@ def synthetic_benchmark(cfg: dict) -> Callable:
         return lambda: mu
 
     return factory
+
+
+# ---------------------------------------------------------------------------
+# The workload audit's registry (repro_torch.lint pass 1)
+# ---------------------------------------------------------------------------
+
+
+def audited_workloads(device: "str | torch.device" = "cuda",
+                      ) -> dict[str, tuple[Callable, dict]]:
+    """The benchmarks ``python -m repro_torch.lint`` audits, bound to
+    ``device``, with a sample config each (the JAX package's registry;
+    its ``decode_step`` entry waits for the dense decode step of the
+    serving slice). Every spec traces on ``meta``."""
+    return {
+        "dgemm": (dgemm_benchmark(device), {"n": 256, "m": 256, "k": 64}),
+        "triad": (triad_benchmark(device), {"n_bytes": 1 << 20}),
+        "synthetic": (synthetic_benchmark, {"x": 7}),
+        # one representative shape of the sweep family: the audit traces
+        # the chunked product and must see exactly the 2mnk flops it
+        # declares
+        "dgemm_sweep": (chunked_dgemm_family({"m": 256, "n": 256, "k": 256},
+                                             device), {"k_chunk": 64}),
+        # whole-model step: the work term is FlopCounterMode's count of
+        # the plain path, the trace the dispatcher's, so the audit checks
+        # the GFLOP/s conversion against the step the tuner times
+        "train_step": (model_step_family("train_step", device=device),
+                       {"use_flash": 0, "flash_block_q": 64,
+                        "flash_block_k": 64}),
+    }
+
+
+#: the registry bound to the host (``audited_workloads("cpu")``)
+AUDITED_WORKLOADS = audited_workloads("cpu")

@@ -367,7 +367,8 @@ def _window() -> dict:
 def profiler(minutes: float, n: int = 4096) -> list[dict]:
     """Windows at process ages 0 .. ``minutes``, products between them."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    a = torch.randn(n, n, device="cuda")
+    a = torch.randn(n, n, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
     t_start = time.perf_counter()
     rows = []
     ages = sorted({0.0, *(minutes * 60 * j / 6 for j in range(1, 7))})

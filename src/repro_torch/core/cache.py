@@ -604,7 +604,7 @@ class TuningSession:
         self.ledger = ledger
 
     def run(self, backend=None, progress=None, seeds=(), timestamp=None,
-            validate: str = "off"):
+            validate: str = "warn"):
         """Execute the wrapped tuner against the session cache. ``seeds``
         are transfer-tuning warm-start configs (see
         ``TrialCache.suggest_seeds``), forwarded to ``Tuner.tune``, as

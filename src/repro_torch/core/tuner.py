@@ -143,7 +143,7 @@ class Tuner:
              cache=None, warm_start: bool = False,
              seeds: Sequence[Config] = (),
              ledger=None, timestamp: Optional[float] = None,
-             validate: str = "off",
+             validate: str = "warn",
              pipeline: "str | CompilePipeline | None" = "auto",
              ) -> TuningResult:
         """Search the space for the best configuration.
@@ -164,10 +164,16 @@ class Tuner:
         caller-supplied ``timestamp`` — the engine itself never reads a
         clock for record content.
 
-        ``validate`` (the pre-run workload audit) keeps the JAX package's
-        signature, but the audit is not ported yet: it must be ``"off"``
-        (the default here); anything else raises
-        :class:`NotImplementedError`.
+        ``validate`` gates the pre-run **workload audit**
+        (:mod:`repro_torch.lint`): when the benchmark exposes an
+        ``audit_spec`` attribute, its declared work term is cross-checked
+        against the traced kernel cost for the space's first
+        configuration *before any trial executes*. ``"warn"`` (default)
+        raises :class:`~repro_torch.lint.WorkloadAuditWarning`s and
+        proceeds; ``"strict"`` raises
+        :class:`~repro_torch.lint.WorkloadAuditError` instead, so a
+        mis-declared workload never burns measurement time; ``"off"``
+        skips the audit.
 
         ``pipeline`` controls **pipelined compilation**: when the
         benchmark exposes a ``precompile(config)`` hook (the standard
@@ -190,10 +196,7 @@ class Tuner:
             raise ValueError(f"validate must be 'off', 'warn' or 'strict', "
                              f"got {validate!r}")
         if validate != "off":
-            raise NotImplementedError(
-                f"validate={validate!r}: the workload audit is not ported "
-                f"yet (ROADMAP 'Observability and lint'); pass "
-                f"validate='off'")
+            self._validate_workload(benchmark, strict=validate == "strict")
         if backend is None:
             backend = SerialBackend(clock=self.clock)
         strategy = self.strategy
@@ -360,6 +363,41 @@ class Tuner:
             ledger.record(result, settings_key=session_key,
                           timestamp=timestamp, direction=direction)
         return result
+
+    def _validate_workload(self, benchmark, strict: bool) -> None:
+        """Pre-run measurement-soundness audit (lint pass 1).
+
+        Audits the benchmark's ``audit_spec`` against the space's first
+        configuration. Info-level findings (MS100: benchmark opted out)
+        are always silent; anything else raises
+        :class:`~repro_torch.lint.WorkloadAuditError` in strict mode or is
+        surfaced as :class:`~repro_torch.lint.WorkloadAuditWarning`s
+        otherwise. Audit *machinery* failures never abort a warn-mode
+        run."""
+        import warnings
+
+        from ..lint import (WorkloadAuditError, WorkloadAuditWarning,
+                            audit_benchmark)
+        try:
+            config = next(iter(self.space.configs()))
+        except StopIteration:
+            return   # empty space: tune() will produce an empty result
+        try:
+            findings = [f for f in audit_benchmark(benchmark, config)
+                        if f.severity != "info"]
+        except Exception as e:
+            if strict:
+                raise
+            warnings.warn(f"workload audit could not run: "
+                          f"{type(e).__name__}: {e}",
+                          WorkloadAuditWarning, stacklevel=3)
+            return
+        if not findings:
+            return
+        if strict:
+            raise WorkloadAuditError(findings)
+        for f in findings:
+            warnings.warn(f.render(), WorkloadAuditWarning, stacklevel=3)
 
     def _project_seeds(self, seeds: Sequence[Config]) -> tuple[Config, ...]:
         """Map transfer seeds into this space (nearest in-space config),

@@ -356,11 +356,11 @@ def _stacked_bar_svg(shares: Sequence[tuple[str, float]],
 
 def _attribution_section(report) -> str:
     """Per-op roofline placement of one workload: cost/time table plus a
-    stacked subsystem-share bar. ``report`` has the shape of the JAX
-    package's ``AttributionReport`` (``repro.obs.attribution``); the
-    port's attribution layer, which will build one, is not ported yet
-    (ROADMAP 'Observability and lint'), so this only formats what it is
-    given."""
+    stacked subsystem-share bar. ``report`` is an
+    :class:`~repro_torch.obs.attribution.AttributionReport` (the JAX
+    package's report has the same shape); the section's words are the
+    reference's, byte for byte, so one golden page serves both packages.
+    """
     rows = []
     for op in report.top_ops(_MAX_ATTRIBUTION_ROWS):
         intensity = ("∞" if math.isinf(op.intensity)

@@ -35,7 +35,10 @@ tiles are fixed per head dim.
 
 On CPU tensors :func:`flash_attention` runs the kernels' plain version
 (:func:`attention_ref` on the padded operands, padded keys masked) and
-counts no route; on CUDA tensors it launches a kernel or raises.
+counts no route; on CUDA tensors it launches a kernel or raises. Both go
+through the op ``repro_torch::flash_attention_fwd``
+(:mod:`repro_torch.kernels.registry`), whose fake gives the output's
+shape on ``meta``.
 """
 
 from __future__ import annotations
@@ -49,11 +52,12 @@ from typing import Any, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from .. import build
+from .. import build, registry
 
-__all__ = ["SM90_TILES", "TF32X3_TILES", "attention_ref", "bytes_moved",
-           "flash_attention", "flops", "padded_blocks", "physical_tile",
-           "route", "sm90_smem_bytes", "smem_bytes", "tf32x3_smem_bytes"]
+__all__ = ["OP", "SM90_TILES", "TF32X3_TILES", "attention_ref",
+           "bytes_moved", "flash_attention", "flops", "padded_blocks",
+           "physical_tile", "route", "sm90_smem_bytes", "smem_bytes",
+           "tf32x3_smem_bytes"]
 
 NEG_INF = -1e30
 #: the tensor-core (bf16) kernel's compiled physical tiles, (q rows, kv
@@ -290,26 +294,66 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o
 
 
-def _forward(q, k, v, *, sm_scale: float, causal: bool,
-             window: Optional[int], bq: int, bk: int) -> torch.Tensor:
-    """The padded forward: pad S by the JAX wrapper's rule, run the
-    kernel (CUDA) or its plain version (CPU) with the padded keys
-    masked, slice the padding off."""
+def _padded(q, k, v, bq: int, bk: int, run) -> torch.Tensor:
+    """Pad S by the JAX wrapper's rule, ``run(q, k, v, bq_, bk_, s)`` on
+    the padded operands with the blocks the rule gives, slice the
+    padding off."""
     s = q.shape[2]
     bq_, bk_, s_pad = padded_blocks(s, bq, bk)
     if s_pad != s:
         q, k, v = (F.pad(x, (0, 0, 0, s_pad - s)) for x in (q, k, v))
-    if q.device.type == "cpu":
-        out = attention_ref(q, k, v, sm_scale=sm_scale, causal=causal,
-                            window=window, kv_len=s)
-    elif q.device.type == "cuda":
-        out = _launch(q.contiguous(), k.contiguous(), v.contiguous(),
-                      sm_scale=sm_scale, causal=causal, window=window,
-                      bq=bq_, bk=bk_, kv_len=s)
-    else:
-        raise ValueError(f"flash attention runs on cpu or cuda, not "
-                         f"{q.device}")
+    out = run(q, k, v, bq_, bk_, s)
     return out[:, :, :s, :] if s_pad != s else out
+
+
+def _kernel(q, k, v, sm_scale: float, causal: bool, window: Optional[int],
+            bq: int, bk: int) -> torch.Tensor:
+    """The op's CUDA implementation: the padded forward through one
+    kernel launch, with the padded keys masked."""
+    return _padded(q, k, v, bq, bk, lambda q, k, v, bq_, bk_, s: _launch(
+        q.contiguous(), k.contiguous(), v.contiguous(), sm_scale=sm_scale,
+        causal=causal, window=window, bq=bq_, bk=bk_, kv_len=s))
+
+
+def _plain(q, k, v, sm_scale: float, causal: bool, window: Optional[int],
+           bq: int, bk: int) -> torch.Tensor:
+    """The op's CPU implementation: the kernels' plain version,
+    :func:`attention_ref` on the padded operands with the padded keys
+    masked."""
+    return _padded(q, k, v, bq, bk, lambda q, k, v, bq_, bk_, s:
+                   attention_ref(q, k, v, sm_scale=sm_scale, causal=causal,
+                                 window=window, kv_len=s))
+
+
+def _fake(q, k, v, sm_scale: float, causal: bool, window: Optional[int],
+          bq: int, bk: int) -> torch.Tensor:
+    padded_blocks(q.shape[2], bq, bk)        # the blocks' check
+    return q.new_empty(q.shape)
+
+
+def _op_flops(q_shape, k_shape, v_shape, sm_scale, causal, window, bq, bk,
+              *, out_shape=None, **_) -> float:
+    b, h, s, d = q_shape
+    return flops(b, h, s, d, causal)
+
+
+#: ``repro_torch::flash_attention_fwd``: a kernel forward routed by
+#: :func:`route` (CUDA), the padded :func:`attention_ref` (CPU)
+OP = registry.define(
+    "flash_attention_fwd",
+    "(Tensor q, Tensor k, Tensor v, float sm_scale, bool causal, "
+    "int? window, int bq, int bk) -> Tensor",
+    cpu=_plain, cuda=_kernel, fake=_fake, flops=_op_flops)
+
+
+def _forward(q, k, v, *, sm_scale: float, causal: bool,
+             window: Optional[int], bq: int, bk: int) -> torch.Tensor:
+    """The padded forward through the op: pad S by the JAX wrapper's
+    rule, run a kernel (CUDA) or their plain version (CPU) with the
+    padded keys masked, slice the padding off."""
+    registry.check_device("flash attention", q.device)
+    return OP(q, k, v, float(sm_scale), bool(causal), window, int(bq),
+              int(bk))
 
 
 class _FlashAttention(torch.autograd.Function):

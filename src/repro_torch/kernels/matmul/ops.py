@@ -9,7 +9,8 @@ the VMEM tile is on the TPU; the tiles are compiled ahead as a fixed
 table (:data:`TILES`) and a tile outside it raises. Ragged edges are
 masked inside the kernel, so no operand is padded on the host. On a CPU
 tensor :func:`matmul` runs :func:`matmul_ref`; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. Both go through the op
+``repro_torch::matmul`` (:mod:`repro_torch.kernels.registry`).
 """
 
 from __future__ import annotations
@@ -21,9 +22,9 @@ from typing import Any, Sequence
 
 import torch
 
-from .. import build
+from .. import build, registry
 
-__all__ = ["TILES", "flops", "matmul", "matmul_ref", "smem_bytes"]
+__all__ = ["OP", "TILES", "flops", "matmul", "matmul_ref", "smem_bytes"]
 
 #: the compiled (bm, bn, bk) tile table — csrc/matmul.cu instantiates
 #: exactly these, for float32 and bfloat16
@@ -81,21 +82,11 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("matmul operands must be contiguous (row-major)")
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
-           bn: int = 128, bk: int = 16) -> torch.Tensor:
-    """C = A @ B with a (bm, bn, bk) tile from :data:`TILES`.
-
-    CPU operands take :func:`matmul_ref`; CUDA operands launch the
-    kernel on the current stream (no synchronisation) and count one
-    launch in ``matmul.launches``.
-    """
-    _check_tile(bm, bn, bk)
-    _check(a, b)
+def _launch(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
+            bk: int) -> torch.Tensor:
+    """The op's CUDA implementation: one launch of the kernel on the
+    current stream (no synchronisation), counted in ``matmul.launches``."""
     dev = a.device
-    if dev.type == "cpu":
-        return matmul_ref(a, b)
-    if dev.type != "cuda":
-        raise ValueError(f"matmul runs on cpu or cuda, not {dev}")
     m, k = a.shape
     n = b.shape[1]
     if -(-m // bm) > _MAX_GRID_Y:
@@ -114,6 +105,44 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     with _COUNT_LOCK:
         matmul.launches += 1
     return c
+
+
+def _plain(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
+           bk: int) -> torch.Tensor:
+    return matmul_ref(a, b)
+
+
+def _fake(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
+          bk: int) -> torch.Tensor:
+    return a.new_empty((a.shape[0], b.shape[1]))
+
+
+def _op_flops(a_shape, b_shape, bm, bn, bk, *, out_shape=None,
+              **_) -> float:
+    return flops(a_shape[0], b_shape[1], a_shape[1])
+
+
+#: ``repro_torch::matmul``: the kernel at one tile (CUDA),
+#: :func:`matmul_ref` (CPU)
+OP = registry.define(
+    "matmul", "(Tensor a, Tensor b, int bm, int bn, int bk) -> Tensor",
+    cpu=_plain, cuda=_launch, fake=_fake, flops=_op_flops)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
+           bn: int = 128, bk: int = 16) -> torch.Tensor:
+    """C = A @ B with a (bm, bn, bk) tile from :data:`TILES`, through the
+    op ``repro_torch::matmul``.
+
+    CPU operands take :func:`matmul_ref`; CUDA operands launch the
+    kernel on the current stream (no synchronisation) and count one
+    launch in ``matmul.launches``; ``meta`` operands give the output's
+    shape.
+    """
+    _check_tile(bm, bn, bk)
+    _check(a, b)
+    registry.check_device("matmul", a.device)
+    return OP(a, b, bm, bn, bk)
 
 
 def _resolve(args: Sequence[Any], bm: int = 128, bn: int = 128,

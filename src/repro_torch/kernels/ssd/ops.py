@@ -14,11 +14,14 @@ backward kernel for the scan (no custom VJP), so :class:`_ChunkScan`'s
 backward recomputes through the plain version, as the flash kernel's
 does: the gradients are the plain version's.
 
-Which device takes which path: CUDA tensors launch the kernel (one count
-in ``ssd_chunk_scan.launches`` per launch) or raise; CPU and ``meta``
-tensors take :func:`~repro_torch.kernels.ssd.ref.ssd_chunk_scan_ref`
-(``meta`` is where the work term of a model step is counted); any other
-device raises.
+Which device takes which path, through the op
+``repro_torch::ssd_chunk_scan_fwd`` (:mod:`repro_torch.kernels.registry`):
+CUDA tensors launch the kernel (one count in ``ssd_chunk_scan.launches``
+per launch) or raise; CPU tensors take
+:func:`~repro_torch.kernels.ssd.ref.ssd_chunk_scan_ref`; ``meta`` tensors
+take the op's fake, which gives the output shapes, and its FLOP formula
+(:func:`needed_flops`: ``meta`` is where the work term of a model step is
+counted); any other device raises.
 """
 
 from __future__ import annotations
@@ -30,11 +33,12 @@ from typing import Any, Optional, Sequence
 
 import torch
 
-from .. import build
+from .. import build, registry
 from .ref import ssd_chunk_scan_ref
 
-__all__ = ["KERNELS", "MAX_STATE", "bytes_moved", "chunk_scan", "grid",
-           "h0_aligned", "kernel_info", "needed_flops", "ssd_chunk_scan"]
+__all__ = ["KERNELS", "MAX_STATE", "OP", "bytes_moved", "chunk_scan",
+           "grid", "h0_aligned", "kernel_info", "needed_flops",
+           "ssd_chunk_scan"]
 
 #: the largest state width N the kernel takes; any P >= 1 and Q >= 1 are
 #: taken
@@ -46,7 +50,6 @@ _TILE = 64                    # output tile of the scores, states and output
 _PASS_THREADS = 256           # threads of a state-carry block
 _MAX_GRID_X = 2 ** 31 - 1
 _MAX_GRID_Y = 65535
-_PLAIN_DEVICES = ("cpu", "meta")
 _ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int64,) * 6
              + (ctypes.c_int, ctypes.c_void_p))
 _COUNT_LOCK = threading.Lock()
@@ -185,20 +188,51 @@ def _launch(xdt, bm, cm, cum, h0, return_state: bool):
     return y, h_out
 
 
-def _forward(xdt, bm, cm, cum, h0, return_state: bool):
-    """The kernel (CUDA operands) or its plain version (CPU and meta);
-    returns (y, final state or None)."""
-    kind = xdt.device.type
-    if kind in _PLAIN_DEVICES:
-        out = ssd_chunk_scan_ref(xdt, bm, cm, cum, h0=h0,
-                                 return_state=return_state)
-        return out if return_state else (out, None)
-    if kind != "cuda":
-        raise ValueError(f"the SSD chunk scan runs on cuda, cpu or meta, "
-                         f"not {xdt.device}")
+def _kernel(xdt, bm, cm, cum, h0, return_state: bool):
+    """The op's CUDA implementation: one launch on f32 contiguous copies
+    of the operands; the final state is a 0-element tensor unless
+    ``return_state``."""
     ops = [t.float().contiguous() for t in (xdt, bm, cm, cum)]
-    return _launch(*ops, None if h0 is None else h0.float().contiguous(),
-                   return_state)
+    y, h_out = _launch(*ops,
+                       None if h0 is None else h0.float().contiguous(),
+                       return_state)
+    return y, (h_out if return_state else y.new_empty(0))
+
+
+def _plain(xdt, bm, cm, cum, h0, return_state: bool):
+    """The op's CPU implementation: :func:`ssd_chunk_scan_ref`."""
+    out = ssd_chunk_scan_ref(xdt, bm, cm, cum, h0=h0, return_state=True)
+    return out if return_state else (out[0], out[0].new_empty(0))
+
+
+def _fake(xdt, bm, cm, cum, h0, return_state: bool):
+    b, h, _, _, p = xdt.shape
+    y = xdt.new_empty(xdt.shape, dtype=torch.float32)
+    return y, y.new_empty((b, h, p, bm.shape[-1]) if return_state else 0)
+
+
+def _op_flops(xdt_shape, bm_shape, cm_shape, cum_shape, h0_shape,
+              return_state, *, out_shape=None, **_) -> float:
+    b, h, c, q, p = xdt_shape
+    return needed_flops(b, h, c * q, q, p, bm_shape[-1])
+
+
+#: ``repro_torch::ssd_chunk_scan_fwd``: the kernel (CUDA),
+#: :func:`ssd_chunk_scan_ref` (CPU); returns (y, final state), the state
+#: a 0-element tensor unless ``return_state``
+OP = registry.define(
+    "ssd_chunk_scan_fwd",
+    "(Tensor xdt, Tensor bm, Tensor cm, Tensor cum, Tensor? h0, "
+    "bool return_state) -> (Tensor, Tensor)",
+    cpu=_plain, cuda=_kernel, fake=_fake, flops=_op_flops)
+
+
+def _forward(xdt, bm, cm, cum, h0, return_state: bool):
+    """The kernel (CUDA operands), its plain version (CPU) or the output
+    shapes (meta), through the op; returns (y, final state or None)."""
+    registry.check_device("the SSD chunk scan", xdt.device)
+    y, h_final = OP(xdt, bm, cm, cum, h0, bool(return_state))
+    return y, (h_final if return_state else None)
 
 
 class _ChunkScan(torch.autograd.Function):

@@ -5,21 +5,23 @@ The kernel (``csrc/triad.cu``) replaces the Pallas ``triad_pallas`` of
 the JAX package; it streams flat 1-D vectors, so the (rows, 1024)
 reshaping and padding of the TPU version have no counterpart here. On a
 CPU tensor :func:`triad` runs :func:`triad_ref`; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. Both go through the op
+``repro_torch::triad`` (:mod:`repro_torch.kernels.registry`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
 from typing import Any, Sequence
 
 import torch
 
-from .. import build
+from .. import build, registry
 
-__all__ = ["bytes_moved", "flops", "triad", "triad_ref"]
+__all__ = ["OP", "bytes_moved", "flops", "triad", "triad_ref"]
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -48,20 +50,10 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("triad operands must be contiguous")
 
 
-def triad(a: torch.Tensor, b: torch.Tensor, *,
-          gamma: float = 3.0) -> torch.Tensor:
-    """C = A + gamma*B for two 1-D float32 or bfloat16 vectors.
-
-    CPU operands take :func:`triad_ref`; CUDA operands launch the kernel
-    on the current stream (no synchronisation) and count one launch in
-    ``triad.launches``.
-    """
-    _check(a, b)
+def _launch(a: torch.Tensor, b: torch.Tensor, gamma: float) -> torch.Tensor:
+    """The op's CUDA implementation: one launch of the kernel on the
+    current stream (no synchronisation), counted in ``triad.launches``."""
     dev = a.device
-    if dev.type == "cpu":
-        return triad_ref(a, b, gamma)
-    if dev.type != "cuda":
-        raise ValueError(f"triad runs on cpu or cuda, not {dev}")
     fn = _LAUNCHERS.get(a.dtype)
     if fn is None:
         fn = _LAUNCHERS[a.dtype] = build.kernel_fn(
@@ -74,6 +66,34 @@ def triad(a: torch.Tensor, b: torch.Tensor, *,
     with _COUNT_LOCK:
         triad.launches += 1
     return c
+
+
+def _fake(a: torch.Tensor, b: torch.Tensor, gamma: float) -> torch.Tensor:
+    return torch.empty_like(a)
+
+
+def _op_flops(a_shape, b_shape, gamma, *, out_shape=None, **_) -> float:
+    return flops(math.prod(a_shape))
+
+
+#: ``repro_torch::triad``: the kernel (CUDA), :func:`triad_ref` (CPU)
+OP = registry.define("triad", "(Tensor a, Tensor b, float gamma) -> Tensor",
+                     cpu=triad_ref, cuda=_launch, fake=_fake,
+                     flops=_op_flops)
+
+
+def triad(a: torch.Tensor, b: torch.Tensor, *,
+          gamma: float = 3.0) -> torch.Tensor:
+    """C = A + gamma*B for two 1-D float32 or bfloat16 vectors, through
+    the op ``repro_torch::triad``.
+
+    CPU operands take :func:`triad_ref`; CUDA operands launch the kernel
+    on the current stream (no synchronisation) and count one launch in
+    ``triad.launches``; ``meta`` operands give the output's shape.
+    """
+    _check(a, b)
+    registry.check_device("triad", a.device)
+    return OP(a, b, float(gamma))
 
 
 def _resolve(args: Sequence[Any], gamma: float = 3.0):

@@ -38,8 +38,8 @@ from .params import empty_like_defs, materialize
 from .transformer import StepConfig
 
 __all__ = ["ModelWorkload", "TINY_CONFIG", "WORKLOAD_NAMES",
-           "build_workload", "decode_step", "prefill_step", "step_flops",
-           "train_step", "workload_flops"]
+           "build_workload", "decode_step", "meta_step", "prefill_step",
+           "resolve_arch", "step_flops", "train_step", "workload_flops"]
 
 # Small enough to run in milliseconds on the host, big enough that the
 # matrix products dominate.
@@ -149,7 +149,9 @@ def _tokens(batch: int, seq: int, vocab: int,
     return torch.from_numpy(rng.integers(0, vocab, (batch, seq))).to(device)
 
 
-def _resolve_arch(arch: Union[str, ModelConfig, None]) -> ModelConfig:
+def resolve_arch(arch: Union[str, ModelConfig, None]) -> ModelConfig:
+    """An architecture name (its SMOKE config), a config, or None (the
+    tiny dense toy) as a :class:`ModelConfig`."""
     if arch is None:
         return TINY_CONFIG
     if isinstance(arch, ModelConfig):
@@ -213,9 +215,28 @@ def build_workload(name: str, arch: Union[str, ModelConfig, None] = None,
     dev = resolve_device(device)
     if name == "dgemm":
         return _build_dgemm(m, n, k, dev)
-    return _build_step(name[:-len("_step")], _resolve_arch(arch),
+    return _build_step(name[:-len("_step")], resolve_arch(arch),
                        step or StepConfig(remat=False), batch_size, seq_len,
                        dev)
+
+
+def meta_step(cfg: ModelConfig, batch_size: int, seq_len: int,
+              kind: str = "train", step: Optional[StepConfig] = None,
+              ) -> tuple[Callable, tuple]:
+    """One ``kind`` step of ``cfg`` and its arguments on the ``meta``
+    device (weights, tokens, and for decode a zero cache at position 0):
+    the step's shapes and ops with nothing allocated. ``step`` defaults
+    to the plain path (``use_flash=0``, no remat)."""
+    meta = torch.device("meta")
+    params = empty_like_defs(api.param_defs(cfg), meta)
+    step = step or StepConfig(use_flash=False, remat=False)
+    tokens = torch.empty((batch_size, 1 if kind == "decode" else seq_len),
+                         dtype=torch.int64, device=meta)
+    args: tuple = (params, {"tokens": tokens})
+    if kind == "decode":
+        shape = _tiny_shape(kind, batch_size, seq_len)
+        args += (api.cache_init(cfg, shape, meta), 0)
+    return functools.partial(_STEP_FNS[kind], cfg=cfg, step=step), args
 
 
 @functools.lru_cache(maxsize=None)
@@ -224,18 +245,11 @@ def step_flops(cfg: ModelConfig, batch_size: int, seq_len: int,
     """Matrix-product FLOPs of one ``kind`` step of ``cfg`` (train: the
     plain path, ``use_flash=0``, no remat; prefill: ``prefill_fn`` over
     (B, S) tokens; decode: ``decode_fn`` of one token from a zero cache),
-    counted on the ``meta`` device."""
-    meta = torch.device("meta")
-    params = empty_like_defs(api.param_defs(cfg), meta)
-    step = StepConfig(use_flash=False, remat=False)
-    tokens = torch.empty((batch_size, 1 if kind == "decode" else seq_len),
-                         dtype=torch.int64, device=meta)
-    args: tuple = (params, {"tokens": tokens})
-    if kind == "decode":
-        shape = _tiny_shape(kind, batch_size, seq_len)
-        args += (api.cache_init(cfg, shape, meta), 0)
+    counted on the ``meta`` device (:func:`meta_step`); the SSD chunk
+    scan's op counts its kernel's own work (its FLOP formula)."""
+    fn, args = meta_step(cfg, batch_size, seq_len, kind)
     with FlopCounterMode(display=False) as counter:
-        _STEP_FNS[kind](*args, cfg=cfg, step=step)
+        fn(*args)
     return float(counter.get_total_flops())
 
 

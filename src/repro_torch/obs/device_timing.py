@@ -41,6 +41,22 @@ Caveats, all by design:
 - overlapping kernel events (several streams) are summed, not unioned,
   so the busy time is an upper bound on wall occupancy.
 
+**Per-op join.** :func:`profile_ops` also charges each kernel of the
+sample to the op that launched it, for the roofline attribution
+(:mod:`repro_torch.obs.attribution`). The sample runs under
+:class:`~repro_torch.analysis.ops.OpCounter` with ``mark=True``, which
+opens a ``record_function`` range named by each op's ``<op>#<k>`` key
+around the op; a kernel's launch call (found through its
+``correlation`` id) lies in one such range on its thread, and the
+kernel's time goes to that key (``DeviceOps.by_op``), the key
+:func:`~repro_torch.analysis.ops.count_ops` gives the op. Counting and
+measuring one and the same eager call makes the join exact: a join by
+the profiler's own op events, by name and occurrence, drifts in the
+backward pass, where autograd accumulates gradients out of place under
+a dispatch mode and in place without one, and where one op name has
+both composite and kernel overloads. Kernels launched outside every
+range are in ``total_s`` and in no key.
+
 Profiling is serialized by a process-wide lock: one profiler session
 may run at a time.
 """
@@ -49,6 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import shutil
 import tempfile
 import threading
@@ -108,6 +125,8 @@ class DeviceOps:
     by_name: dict[str, float]
     n_events: int
     source: str
+    #: device time per launching op, keyed ``<op>#<k>`` (the per-op join)
+    by_op: dict[str, float] = dataclasses.field(default_factory=dict)
 
     def to_json(self) -> dict:
         return dataclasses.asdict(self)
@@ -140,6 +159,37 @@ def normalize_op_name(name: str) -> str:
         elif depth == 0:
             out.append(ch)
     return "".join(out).strip()
+
+
+#: a per-op range's name: ``<namespace>::<op>#<occurrence>``
+_OP_KEY = re.compile(r"^\w+::\w+#\d+$")
+
+
+def _op_join(complete: list, kernels: list, launches: list,
+             ranges) -> dict[str, float]:
+    """Device seconds of ``kernels`` per launching op: each kernel to the
+    innermost ``<op>#<k>`` range (see the module docstring) enclosing its
+    launch on the launch's thread, inside ``ranges``."""
+    keyed = [(ev.get("tid"), float(ev["ts"]),
+              float(ev["ts"]) + float(ev["dur"]), str(ev["name"]))
+             for ev in complete
+             if str(ev.get("cat", "")).lower() == "user_annotation"
+             and _OP_KEY.match(str(ev.get("name", "")))
+             and _inside(ev, ranges)]
+    launch_at = {(ev.get("args") or {}).get("correlation"):
+                 (ev.get("tid"), float(ev["ts"])) for ev in launches}
+    out: dict[str, float] = {}
+    for kern in kernels:
+        where = launch_at.get((kern.get("args") or {}).get("correlation"))
+        if where is None:
+            continue
+        tid, t = where
+        around = [(hi - lo, key) for ktid, lo, hi, key in keyed
+                  if ktid == tid and lo <= t <= hi]
+        if around:
+            key = min(around)[1]
+            out[key] = out.get(key, 0.0) + float(kern.get("dur", 0.0)) * 1e-6
+    return out
 
 
 def _is_launch(event: dict) -> bool:
@@ -218,8 +268,10 @@ def parse_trace(doc: dict, source: str = "", mark: Optional[str] = None,
         key = normalize_op_name(str(ev.get("name", "")))
         by_name[key] = by_name.get(key, 0.0) + float(ev.get("dur", 0.0)) * 1e-6
     total_us = sum(float(ev.get("dur", 0.0)) for ev in kernels)
+    by_op = _op_join(complete, kernels, launches, ranges) \
+        if mark is not None else {}
     return DeviceOps(total_s=total_us * 1e-6, by_name=by_name,
-                     n_events=len(kernels), source=source)
+                     n_events=len(kernels), source=source, by_op=by_op)
 
 
 def _lost_records(doc: dict) -> int:

@@ -22,7 +22,19 @@ per-series trend lines with CI bands and the regression verdicts from the
 performance-history ledger; with ``--trace TRACE`` it embeds a per-trial
 drill-down table from a session trace (``python -m repro_torch.tune
 --trace``). The report reads records only and needs no card.
-``--attribute`` (per-op attribution) is not ported yet and raises.
+
+``--attribute WORKLOAD`` (``train_step``, ``prefill_step``,
+``decode_step``, ``dgemm``) places one workload's ops on the roofs
+recovered from the given caches (or, with none, on the H100 SXM's data
+sheet peaks, marked theoretical): measured per-op device time on the
+card (``--device cuda``, the default), the roofline model's lower bound
+with ``--static`` or ``--device cpu``. ``--arch`` picks the model (an
+architecture's SMOKE config; default the tiny dense toy), the report is
+appended to the markdown and the ``--html`` page, and
+``--attribution-json`` writes it as JSON.
+
+    python -m repro_torch.roofline_report --attribute train_step \
+        --device cpu --attribution-json attr.json
 """
 
 from __future__ import annotations
@@ -35,16 +47,49 @@ from .core import build_reports, load_trials
 from .core.report import (DGEMM_BENCHMARK, TRIAD_BENCHMARK, render_csv,
                           render_markdown)
 
-#: flags kept from the JAX CLI whose layer is not ported, and the ROADMAP
-#: entry each waits for
-UNPORTED = {"attribute": "Observability and lint"}
+
+def _attribute(args):
+    """The ``--attribute`` report (None after a usage error, printed)."""
+    import json
+
+    from .core.roofline import H100_SXM
+    from .device import resolve_device
+    from .models.workloads import build_workload
+    from .obs.attribution import Roofs, attribute, roofs_from_trials
+
+    roofs = roofs_from_trials(args.paths) if args.paths else None
+    if roofs is None:
+        # no empirical roofs in the caches: classify against the card's
+        # data-sheet peaks, clearly marked
+        roofs = Roofs(peak_flops=H100_SXM.peak_flops,
+                      bandwidths=dict(H100_SXM.mem_bandwidths),
+                      fingerprint=f"{H100_SXM.name} (theoretical)")
+        print(f"note: no empirical roofs recovered; classifying "
+              f"against {H100_SXM.name} theoretical peaks",
+              file=sys.stderr)
+    device = resolve_device(args.device)
+    try:
+        workload = build_workload(args.attribute, args.arch, device=device)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return None
+    attribution = attribute(workload, roofs, force_static=args.static)
+    print(f"attributed {len(attribution.ops)} ops of "
+          f"{args.attribute} ({attribution.mode} mode, "
+          f"unattributed {attribution.unattributed_frac * 100:.1f}%)",
+          file=sys.stderr)
+    if args.attribution_json:
+        pathlib.Path(args.attribution_json).write_text(
+            json.dumps(attribution.to_json(), indent=2), encoding="utf-8")
+        print(f"wrote {args.attribution_json}")
+    return attribution
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.roofline_report", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("paths", nargs="+",
+    ap.add_argument("paths", nargs="*",
                     help="cache files or directories of *.jsonl caches")
     ap.add_argument("--dgemm-benchmark", default=DGEMM_BENCHMARK,
                     help="benchmark name supplying the compute peak")
@@ -69,14 +114,26 @@ def main(argv=None) -> int:
                     metavar="N",
                     help="row cap of the --trace drill-down table "
                          "(default 200)")
-    for flag, entry in UNPORTED.items():
-        ap.add_argument(f"--{flag}", default=None,
-                        help=f"not ported yet (ROADMAP '{entry}'): raises")
+    ap.add_argument("--attribute", default=None, metavar="WORKLOAD",
+                    help="attribute one workload's ops against the "
+                         "empirical roofs (train_step | prefill_step | "
+                         "decode_step | dgemm)")
+    ap.add_argument("--arch", default=None, metavar="ARCH",
+                    help="smoke-scale model architecture for --attribute "
+                         "(default: tiny dense toy; see repro_torch.configs)")
+    ap.add_argument("--static", action="store_true",
+                    help="force static attribution (skip the profiled "
+                         "invocation)")
+    ap.add_argument("--attribution-json", default=None, metavar="PATH",
+                    help="write the --attribute report as JSON (CI "
+                         "artifact)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the --attribute workload runs (default: "
+                         "cuda; raises when no card is visible)")
     args = ap.parse_args(argv)
-    for flag, entry in UNPORTED.items():
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag}: not ported yet (ROADMAP '{entry}')")
+
+    if not args.paths and not args.attribute:
+        ap.error("at least one cache path is required (or --attribute)")
 
     trials = []
     for p in args.paths:
@@ -85,7 +142,7 @@ def main(argv=None) -> int:
             print(f"error: no such cache: {p}", file=sys.stderr)
             return 2
         trials.extend(load_trials(path))
-    if not trials:
+    if not trials and not args.attribute:
         print("error: no readable trials in the given cache(s)",
               file=sys.stderr)
         return 1
@@ -101,18 +158,26 @@ def main(argv=None) -> int:
               file=sys.stderr)
         for fp, reason in skipped:
             print(f"  {fp}: {reason}", file=sys.stderr)
-        if not (args.html and args.history):
+        if not (args.html and args.history) and not args.attribute:
             print("error: nothing to render", file=sys.stderr)
             return 1
+
+    attribution = None
+    if args.attribute:
+        attribution = _attribute(args)
+        if attribution is None:
+            return 2
 
     # in the ledger-only continue-path reports is empty: --out/--csv still
     # write (a header-only dashboard/CSV), never silently skip a requested
     # artifact while exiting 0
     markdown = render_markdown(reports, skipped)
+    if attribution is not None:
+        markdown = markdown + "\n" + attribution.to_markdown()
     if args.out:
         pathlib.Path(args.out).write_text(markdown, encoding="utf-8")
         print(f"wrote {args.out}")
-    elif reports:
+    elif reports or attribution is not None:
         sys.stdout.write(markdown)
     if args.csv:
         pathlib.Path(args.csv).write_text(render_csv(reports),
@@ -146,6 +211,7 @@ def main(argv=None) -> int:
                         subtitle=f"generated {stamp} from "
                                  f"{len(trials)} cached trials",
                         confidence=args.confidence, trials=trial_rows,
+                        attribution=attribution,
                         max_trial_rows=args.max_trial_rows)
         print(f"wrote {args.html}")
     return 0

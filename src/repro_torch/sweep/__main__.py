@@ -22,8 +22,9 @@ and the trial savings. Shapes use the ``name=value`` key format of
 ``repro_torch.sweep.shapes`` throughout.
 
 The flags and printed lines are those of the JAX package's
-``scripts/sweep.py``, without ``--validate`` (the workload audit is not
-ported yet) and with ``--device``. One difference: where the predicted
+``scripts/sweep.py``, with ``--device``. ``--validate`` gates each
+shape's pre-run workload audit (``repro_torch.lint`` pass 1: ``warn``,
+the default, ``strict`` or ``off``). One difference: where the predicted
 config was pruned in the ground-truth pass, the JAX CLI reports no gap;
 this one measures that config once more, alone and unpruned, and reports
 the gap against the pass's optimum. Everything runs on the card
@@ -113,6 +114,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cache-dir", default=".tuning_sessions")
     ap.add_argument("--fresh", action="store_true",
                     help="discard this campaign's cached trials first")
+    ap.add_argument("--validate", default="warn",
+                    choices=("off", "warn", "strict"),
+                    help="pre-run workload audit of each shape (lint pass "
+                         "1); 'strict' aborts on a mis-declared work term")
     ap.add_argument("--trace", nargs="?", const=True, default=False,
                     metavar="PATH",
                     help="record a span trace of the whole campaign "
@@ -161,7 +166,7 @@ def main(argv=None) -> int:
         base=args.benchmark,
         cache_dir=args.cache_dir, budget_per_shape=args.budget_per_shape,
         model=args.model, acquisition=args.acquisition, seed=args.seed,
-        fingerprint=fingerprint)
+        fingerprint=fingerprint, validate=args.validate)
 
     n_shapes = shape_space.cardinality
     print(f"campaign   : {args.session}  ({cache_path})")
@@ -206,7 +211,8 @@ def main(argv=None) -> int:
             continue
         # ground truth: exhaustive pass over the held-out shape, not
         # cached — the oracle must never see it
-        truth = Tuner(config_space, settings).tune(family(shape))
+        truth = Tuner(config_space, settings).tune(family(shape),
+                                                   validate=args.validate)
         want = config_key(answer.config)
         got = None
         for t in truth.trials:
@@ -223,7 +229,8 @@ def main(argv=None) -> int:
                                         use_outer_prune=False)
             got = Tuner(SearchSpace([param(k, (v,)) for k, v in
                                      answer.config.items()]),
-                        alone).tune(family(shape)).best_score
+                        alone).tune(family(shape),
+                                    validate=args.validate).best_score
         gap = abs(opt - got) / abs(opt) if opt else 0.0
         spent = campaign.oracle().n_trials
         budget = n_shapes * config_space.cardinality

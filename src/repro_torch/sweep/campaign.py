@@ -99,9 +99,8 @@ class SweepCampaign:
     cardinality once priors kick in. Campaigns are resumable exactly like
     sessions: a killed ``run()`` re-serves finished shapes from cache.
 
-    ``validate`` keeps the JAX package's signature but defaults to
-    ``"off"``, as the port's ``Tuner`` does: the workload audit is not
-    ported yet, and any other value raises :class:`NotImplementedError`.
+    ``validate`` gates each shape's pre-run workload audit (see
+    ``Tuner.tune``): ``"warn"`` (default), ``"strict"`` or ``"off"``.
     """
 
     def __init__(self, config_space: SearchSpace, shape_space: SearchSpace,
@@ -112,12 +111,7 @@ class SweepCampaign:
                  model: str = "ridge", acquisition: str = "ei",
                  seed: Optional[int] = 0,
                  fingerprint: Optional[str] = None,
-                 ledger=AUTO_LEDGER, validate: str = "off"):
-        if validate != "off":
-            raise NotImplementedError(
-                f"SweepCampaign(validate={validate!r}): the workload audit "
-                f"is not ported yet (ROADMAP 'Observability and lint'); "
-                f"pass validate='off'")
+                 ledger=AUTO_LEDGER, validate: str = "warn"):
         if base is not None and SHAPE_SEP in base:
             raise ValueError(f"base name {base!r} contains {SHAPE_SEP!r}")
         self.config_space = config_space

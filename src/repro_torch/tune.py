@@ -37,9 +37,19 @@ regression verdict afterwards (see ``python -m repro_torch.perf_gate``).
 plus its N most recent, drop older superseded runs); it also works
 standalone, without ``--session``, and then touches no device.
 
+``--validate`` gates the pre-run workload audit (``repro_torch.lint``
+pass 1: the benchmark's declared work term against one traced call of
+its kernel, before any trial runs): ``warn`` (the default) warns and
+tunes, ``strict`` aborts on a mis-declared workload, ``off`` skips it.
+``--live`` prints a one-line status to stderr after every trial: trials
+done/pruned/cached (``obs.metrics``) and executable-cache hits/compiles.
+
 Everything runs on the card (``--device cuda``, the default) unless
 ``--device cpu`` is given; the footer's ``kernels`` line counts the
 hand-written kernels' launches in this run.
+
+    python -m repro_torch.tune --session s --benchmark triad \
+        --validate strict --live --device cpu
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import pathlib
+import sys
 import time
 
 STRATEGIES = ("exhaustive", "halving", "random", "neighborhood",
@@ -147,12 +158,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cache-dir", default=".tuning_sessions")
     ap.add_argument("--no-warm-start", action="store_true",
                     help="do not seed the incumbent from cached trials")
+    ap.add_argument("--validate", default="warn",
+                    choices=("off", "warn", "strict"),
+                    help="pre-run workload audit (repro_torch.lint pass 1): "
+                         "cross-check the benchmark's declared work term "
+                         "against the traced kernel cost before any trial "
+                         "runs; 'strict' aborts on a mismatch")
     ap.add_argument("--fresh", action="store_true",
                     help="discard this session's cached trials first")
     ap.add_argument("--trace", nargs="?", const=True, default=False,
                     metavar="PATH",
                     help="record a span trace of the whole session "
                          "(default path <cache-dir>/<session>.trace.jsonl)")
+    ap.add_argument("--live", action="store_true",
+                    help="print a live one-line campaign status to stderr "
+                         "(trials done/pruned/cached, exec-cache hits)")
     ap.add_argument("--report", action="store_true",
                     help="after tuning, render the cache-backed roofline "
                          "dashboard from this session's trial cache")
@@ -256,6 +276,20 @@ def main(argv=None) -> int:
           f"({session.cache.n_stale} stale skipped)")
 
     done = 0
+    if args.live:
+        from .core import default_cache
+        from .obs.metrics import metrics as obs_metrics
+        live_base = obs_metrics().snapshot()
+        exec_base = default_cache().stats
+
+    def live_status():
+        c = obs_metrics().delta(live_base).get("counters", {})
+        x = default_cache().stats.delta(exec_base)
+        line = (f"trials {c.get('trials.completed', 0)} "
+                f"(pruned {c.get('trials.pruned', 0)}, "
+                f"cached {c.get('trials.cached', 0)}) | "
+                f"exec-cache hits {x.hits} compiles {x.compiles}")
+        print(f"\r[live] {line}   ", end="", file=sys.stderr, flush=True)
 
     def progress(cfg, res):
         nonlocal done
@@ -263,10 +297,15 @@ def main(argv=None) -> int:
         tag = "PRUNED" if res.pruned else f"{res.score:10.2f}"
         print(f"  [{done:4d}/{space.cardinality}] {cfg} -> {tag} "
               f"({res.stop_reason})", flush=True)
+        if args.live:
+            live_status()
 
     kernels.reset_launch_counts()
     result = session.run(backend=args.backend, progress=progress,
-                         seeds=seeds, timestamp=time.time())
+                         seeds=seeds, timestamp=time.time(),
+                         validate=args.validate)
+    if args.live:
+        print(file=sys.stderr)   # terminate the \r status line
     launches = kernels.launch_counts()
     print(f"\nbest      : {result.best_config}  score={result.best_score}")
     print(f"trials    : {len(result.trials)}  cached={result.n_cached}  "

@@ -396,3 +396,86 @@ def test_card_clock_times_the_product_kernel_on_card(card):
     kernel_gflops = dgemm_flops(2048, 2048, 2048) / 1e9 / ops.total_s
     gflops = statistics.median(sample() for _ in range(9))
     assert gflops == pytest.approx(kernel_gflops, rel=0.04)
+
+
+def _op_case(name, card):
+    """A wrapper call, the same inputs through the op, and the formula."""
+    import math
+
+    from repro_torch.kernels import registry
+    gen = torch.Generator().manual_seed(19)
+    if name == "triad":
+        from repro_torch.kernels.triad import flops, triad
+        a, b = (_randn(gen, 4096, dtype=torch.float32, device=card)
+                for _ in range(2))
+        return (lambda: triad(a, b, gamma=3.0),
+                lambda: registry.OPS[name](a, b, 3.0), flops(4096))
+    if name == "matmul":
+        from repro_torch.kernels.matmul import flops, matmul
+        a = _randn(gen, 300, 200, dtype=torch.float32, device=card)
+        b = _randn(gen, 200, 450, dtype=torch.float32, device=card)
+        return (lambda: matmul(a, b, bm=64, bn=64, bk=8),
+                lambda: registry.OPS[name](a, b, 64, 64, 8),
+                flops(300, 450, 200))
+    if name == "flash_attention_fwd":
+        from repro_torch.kernels.flash_attention import flash_attention, flops
+        q = _randn(gen, 1, 4, 300, 64, dtype=torch.bfloat16, device=card)
+        k, v = (_randn(gen, 1, 2, 300, 64, dtype=torch.bfloat16,
+                       device=card) for _ in range(2))
+        return (lambda: flash_attention(q, k, v, bq=128, bk=128),
+                lambda: registry.OPS[name](q, k, v, 1 / math.sqrt(64), True,
+                                           None, 128, 128),
+                flops(1, 4, 300, 64, True))
+    from repro_torch.kernels.ssd import chunk_scan, needed_flops
+    xdt = _randn(gen, 1, 3, 4, 32, 16, dtype=torch.float32, device=card)
+    bm, cm = (_randn(gen, 1, 4, 32, 8, dtype=torch.float32, device=card)
+              for _ in range(2))
+    cum = -torch.rand(1, 3, 4, 32, generator=gen).cumsum(-1).to(card)
+    return (lambda: chunk_scan(xdt, bm, cm, cum),
+            lambda: registry.OPS[name](xdt, bm, cm, cum, None, False)[0],
+            needed_flops(1, 3, 128, 32, 16, 8))
+
+
+@pytest.mark.parametrize("name", ["triad", "matmul", "flash_attention_fwd",
+                                  "ssd_chunk_scan_fwd"])
+def test_each_op_is_seen_alone_and_launches_its_kernel_on_card(card, name):
+    """FlopCounterMode and count_ops see the wrapper's call as the one op
+    with its formula's FLOPs; the op's output is the wrapper's, bit for
+    bit; the wrapper counts one launch."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import kernels
+    from repro_torch.analysis import count_ops
+    wrapper, op, formula = _op_case(name, card)
+    with FlopCounterMode(display=False) as counter:
+        wrapper()
+    assert {str(k): v for k, v in counter.get_flop_counts()[
+        "Global"].items()} == {f"repro_torch.{name}": formula}
+    module = count_ops(wrapper)
+    assert [(o.kind, o.flops) for o in module.ops] == \
+        [(f"repro_torch::{name}", formula)]
+    kernels.reset_launch_counts()
+    assert torch.equal(op(), wrapper())
+    assert sum(kernels.launch_counts().values()) == 2
+
+
+def test_measured_attribution_joins_the_flash_op_on_card(card):
+    from repro_torch.models.transformer import StepConfig
+    from repro_torch.models.workloads import build_workload
+    from repro_torch.obs.attribution import Roofs, attribute
+    w = build_workload("train_step", "granite_3_2b", device=card,
+                       step=StepConfig(use_flash=True, flash_block_q=64,
+                                       flash_block_k=64, remat=False))
+    rep = attribute(w, Roofs(67e12, {"hbm": 3.35e12}))
+    assert rep.mode == "measured" and rep.device_total_s > 0
+    flash = [op for op in rep.ops
+             if op.kind == "repro_torch::flash_attention_fwd"]
+    assert flash and all(op.time_s and op.time_s > 0 for op in flash)
+    assert rep.unattributed_frac < 0.05
+
+
+def test_workload_audit_of_the_card_bound_registry(card):
+    from repro_torch.lint.__main__ import run_workload_audit
+    findings = [f for f in run_workload_audit("cuda")
+                if f.severity != "info"]
+    assert findings == [], [f.render() for f in findings]

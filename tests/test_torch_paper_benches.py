@@ -332,8 +332,15 @@ def test_roofline_report_is_the_reference_byte_for_byte(tmp_path,
                                  "--html", str(tmp_path / "x.html")]) == 0
     assert "Roofline — <code>cuda:NVIDIA H100 80GB HBM3:sm90:n1</code>" in \
         (tmp_path / "x.html").read_text(encoding="utf-8")
-    with pytest.raises(NotImplementedError, match="Observability and lint"):
-        roofline_report.main([cache, "--attribute", "train_step"])
+    # --attribute is ported: the tiny train step on the host, attributed
+    # statically against the roofs recovered from this cache
+    assert roofline_report.main([cache, *extra, "--attribute", "train_step",
+                                 "--device", "cpu", "--out",
+                                 str(tmp_path / "attr.md")]) == 0
+    attributed = (tmp_path / "attr.md").read_text(encoding="utf-8")
+    assert attributed.startswith((tmp_path / "ours.md").read_text(
+        encoding="utf-8"))
+    assert "## Roofline attribution: `train_step` (static)" in attributed
 
 
 def _harness_doc(speedup=4.0, rel=0.01, ok=True) -> dict:

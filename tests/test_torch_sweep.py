@@ -173,8 +173,41 @@ def test_sweep_strategy_warmed_by_priors_proposes_the_same(tmp_path):
 
 
 def test_campaign_validate_other_than_off_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="Observability and lint"):
-        _campaign(port, port_sweep, port_common, tmp_path, validate="warn")
+    """The campaign's ``validate`` is ported and defaults to ``"warn"``,
+    as the reference's: the synthetic family declares no audit spec, so
+    a strict campaign runs; a mis-declared family's strict campaign
+    raises before its first trial."""
+    import inspect
+
+    from repro_torch.lint import WorkloadAuditError, WorkloadSpec
+    ref_default = inspect.signature(
+        ref_sweep.SweepCampaign).parameters["validate"].default
+    assert _campaign(port, port_sweep, port_common, tmp_path).validate == \
+        ref_default == "warn"
+    result = _campaign(port, port_sweep, port_common, tmp_path / "ok",
+                       validate="strict", budget_per_shape=2).run()
+    assert len(result.outcomes) == 9
+    calls = []
+
+    def family(shape):
+        bench = port_common.synthetic_gemm_family(shape)
+
+        def counted(cfg):
+            calls.append(cfg)
+            return bench(cfg)
+
+        counted.audit_spec = lambda cfg: WorkloadSpec(
+            fn=torch.matmul, args=(torch.empty(4, 4, device="meta"),) * 2,
+            work=1.0, unit="flops", name="mis")
+        return counted
+
+    campaign = port_sweep.SweepCampaign(
+        port_common.sweep_config_space(), port_common.gemm_shape_space(True),
+        family, _settings(port), name="camp", cache_dir=tmp_path / "bad",
+        fingerprint="fp", validate="strict")
+    with pytest.raises(WorkloadAuditError, match="MS101"):
+        campaign.run()
+    assert calls == []
 
 
 @pytest.mark.parametrize("m,n,k,kc", [(64, 48, 256, 16), (33, 17, 128, 128),

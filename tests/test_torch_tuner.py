@@ -111,15 +111,35 @@ def test_seeded_transfer_and_warm_start_match(tmp_path):
 
 
 def test_unported_layers_raise_instead_of_running(tmp_path):
-    """The workload audit still raises, naming its ROADMAP entry; the run
-    ledger is ported, so ``ledger=`` records the run the reference would
-    record, through ``Tuner.tune`` and through ``TuningSession``."""
+    """The workload audit is ported: ``validate="warn"``, the default in
+    both packages, runs a benchmark without an audit spec silently, and
+    ``"strict"`` raises on a mis-declared one before any trial runs. The
+    run ledger is ported, so ``ledger=`` records the run the reference
+    would record, through ``Tuner.tune`` and through ``TuningSession``."""
+    import warnings
+
+    import torch
+
     import repro.history as ref_history
     import repro_torch.history as port_history
+    from repro_torch.lint import WorkloadAuditError, WorkloadSpec
 
     tuner = port.Tuner(port.grid(x=(1, 2)), _settings(port))
-    with pytest.raises(NotImplementedError, match="Observability and lint"):
-        tuner.tune(synthetic, validate="warn")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert tuner.tune(synthetic).best_config == {"x": 2}
+    calls = []
+
+    def mis_declared(cfg):
+        calls.append(cfg)
+        return synthetic(cfg)
+
+    mis_declared.audit_spec = lambda cfg: WorkloadSpec(
+        fn=torch.matmul, args=(torch.empty(8, 8, device="meta"),) * 2,
+        work=8.0, unit="flops", name="mis")
+    with pytest.raises(WorkloadAuditError, match="MS101"):
+        tuner.tune(mis_declared, validate="strict")
+    assert calls == []
     records = []
     for mod, hist in ((port, port_history), (ref, ref_history)):
         led = hist.RunLedger(tmp_path / f"{mod.__name__}.jsonl")
