@@ -53,8 +53,13 @@ run when it fails:
                beside scaled_dot_product_attention, in bf16 and in f32
                (the 3xTF32 kernel at each quick tile beside the CUDA-core
                kernel it replaced, checked first, its bounds at 165 and
-               67 TFLOP/s and scaled_dot_product_attention), and
-               zamba2-2.7b's D = 80 at each quick tile (checked first);
+               67 TFLOP/s and scaled_dot_product_attention),
+               zamba2-2.7b's D = 80 at each quick tile (checked first),
+               and gemma-2b's widths in f32 (FLASH_D256: B=1, H=8,
+               Hkv=1, S=4096, D=256, causal) on the CUDA-core kernel at
+               each quick tile (checked first) beside its bounds at 165
+               and 67 TFLOP/s, its plain version and
+               scaled_dot_product_attention;
                attention forward + backward at
                the model step's shape on the flash and plain paths; the
                SSD kernel at SSD_MAIN (mamba2-130m serving, zamba2-2.7b
@@ -98,7 +103,30 @@ run when it fails:
                ms, decode ms per step, peak memory. Then, in f32 at the
                same widths, a 4096-token prefill and 256 teacher-forced
                decode steps must give the logits and states of one
-               4352-token prefill within CONTINUE_TOL.
+               4352-token prefill within CONTINUE_TOL. Then
+               granite-3-2b (40 layers) and zamba2-2.7b (54) at full
+               width and depth through ``repro_torch.launch.serve.serve``
+               (SERVE: 4 prompts of 4096 tokens, 32 generated; cut from
+               decode_32k's batch 128 and 32768-token context), each
+               after a warm-up serve (SERVE_WARMUP): finite logits,
+               tokens in the vocabulary, the KV cache's shape and dtype,
+               no flash launch (the reference's prefill is plain), and
+               for zamba2 exactly one SSD launch per layer (54) in the
+               timed serve; prefill ms and tokens/s, decode ms per step,
+               peak memory. From the cache each serve left, GRAPH_STEPS
+               decode steps eagerly and replayed from one captured CUDA
+               graph of a ``decode_fn`` step: the same tokens required,
+               ms per step of each, and the host's time to enqueue the
+               eager steps. granite's decode at decode_32k's
+               context (LONG_DECODE: 10.7 GB of seeded random K/V, 16
+               steps from position 32768): finite logits, tokens in the
+               vocabulary, ms per step, peak memory. In f32 at full
+               width (SERVE_CONTINUE: granite 4 layers, zamba2 6; B=1),
+               a 512-token prefill and 64 teacher-forced decode steps
+               against one 576-token prefill: the last logits and every
+               cache leaf within CONTINUE_TOL. Last, ``python -m
+               repro_torch.launch.serve --arch granite_3_2b --smoke`` on
+               the card.
 9. hybrid    — as phase 6 on zamba2-2.7b's train step (HYBRID_STEP: full
                width, depth cut from 54 to 6 layers, B=1, S=4096): every
                config must launch the SSD kernel, and the flash kernel
@@ -183,8 +211,11 @@ Each phase prints its seconds.
 The last three lines are the card line, one ``{"kernels": [...]}`` JSON
 object (flash attention split by dtype: ``flash_attention`` the bf16
 tensor-core kernel, ``flash_attention_f32`` the 3xTF32 one, with the
-CUDA-core kernel it replaced as ``was_ms``; ``launches`` counts the main
-path's launches, phase 5's for matmul and triad, with phases 10, 11,
+CUDA-core kernel it replaced as ``was_ms``, and
+``flash_attention_f32_d256`` that CUDA-core kernel at D = 256, its one
+route; ``launches`` counts the main path's launches, phase 5's for
+matmul and triad, phases 8 and 9's for the SSD chunk scan (serving:
+``launches_serving``), with phases 10, 11,
 12 and 13's beside it as ``launches_device_timing``,
 ``launches_paper_tables``, ``launches_history_search`` and
 ``launches_observability``) and
@@ -308,6 +339,37 @@ SERVING = {"arch": "mamba2_130m", "batch": 4, "seq": 32768,
 #: prefill and 256 teacher-forced decode steps against a 4352-token prefill
 CONTINUE = {"prefill": 4096, "decode": 256}
 CONTINUE_TOL = {"rtol": 1e-4, "atol": 1e-4}  # tests/test_ssd.py
+#: granite-3-2b and zamba2-2.7b served through ``launch.serve.serve`` at
+#: full width and depth: 4 prompts of 4096 tokens (train_4k's sequence),
+#: 32 generated tokens. Cuts: decode_32k's global batch 128 -> 4 (its KV
+#: cache would be 344 GB at 128 x 32768), and the prompt 32768 -> 4096
+#: (the plain masked prefill attention the reference runs would cost
+#: ~1.4e15 f32 FLOPs over granite's 40 layers at 32768, ~30 s). zamba2's
+#: decode runs past its 4096 window. Each timed serve follows a short
+#: warm-up serve (SERVE_WARMUP).
+SERVE = {"granite": {"arch": "granite_3_2b", "batch": 4, "prompt": 4096,
+                     "gen": 32},
+         "zamba2": {"arch": "zamba2_2_7b", "batch": 4, "prompt": 4096,
+                    "gen": 32}}
+SERVE_WARMUP = {"prompt": 512, "gen": 2}
+#: decode steps replayed from one captured CUDA graph of a decode step,
+#: beside the same steps in the eager loop
+GRAPH_STEPS = 32
+#: granite-3-2b decode at decode_32k's context (batch cut as in SERVE): a
+#: cache of 4 x (32768 + 16) slots whose first 32768 hold seeded random
+#: K/V tagged 0..32767, then 16 greedy steps from position 32768
+LONG_DECODE = {"batch": 4, "context": 32768, "steps": 16}
+#: decode continuing prefill in f32 at full width, B = 1: granite cut to 4
+#: layers, zamba2 to 6 (one group of Mamba2 layers, one shared-block use);
+#: a 512-token prefill and 64 teacher-forced decode steps against one
+#: 576-token prefill, every cache leaf and the last logits within
+#: CONTINUE_TOL
+SERVE_CONTINUE = {"layers": {"granite_3_2b": 4, "zamba2_2_7b": 6},
+                  "prefill": 512, "decode": 64}
+#: gemma-2b's attention widths (B, H, Hkv, S, D) in f32: D = 256, the one
+#: head dim the CUDA-core flash kernel (csrc/flash_attention.cu) still
+#: takes; timed in phase 4, launched on no path
+FLASH_D256 = (1, 8, 1, 4096, 256)
 #: (B, H, C, Q, P, N, with h0): the cases of tests/test_kernel_ssd.py (its
 #: four shapes and the state-carry case), an odd chunk (S = 300, Q = 100),
 #: mamba2-130m's widths at S = 4096 with Q in {128, 256, 512} (the config's
@@ -1152,6 +1214,342 @@ def decode_continues_prefill() -> dict:
     del params, cache, want
     torch.cuda.empty_cache()
     return errs
+
+
+class ServeWatch:
+    """Inside the ``with`` block, wraps ``api.prefill_fn`` and
+    ``api.decode_fn`` (the entry points ``launch.serve`` calls) to keep
+    the last prefill's logits and the last decode call's weights, cache,
+    position and logits: what a ``serve`` call leaves behind, for the
+    checks and the replayed decode. The wrapped calls are unchanged."""
+
+    def __enter__(self) -> "ServeWatch":
+        from repro_torch.models import api
+        self.api, self.calls = api, (api.prefill_fn, api.decode_fn)
+        prefill_fn, decode_fn = self.calls
+
+        def prefill(*args):
+            out = prefill_fn(*args)
+            self.prefill_logits = out[0]
+            return out
+
+        def decode(params, batch, cache, pos, cfg, step):
+            logits, cache = decode_fn(params, batch, cache, pos, cfg, step)
+            self.last = {"params": params, "cache": cache, "pos": pos,
+                         "logits": logits, "cfg": cfg, "step": step}
+            return logits, cache
+
+        api.prefill_fn, api.decode_fn = prefill, decode
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.api.prefill_fn, self.api.decode_fn = self.calls
+
+
+def named_leaves(tree: dict, prefix: str = ""):
+    """(path, leaf) of every leaf of nested dicts, paths ``key/subkey``."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from named_leaves(tree[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", tree[k]
+
+
+def served(spec: dict) -> dict:
+    """One model at full width and depth through ``serve`` (SERVE): a
+    warm-up serve, then the timed one, with the launch counts set to 0
+    just before it and read just after. Requires finite prefill and
+    decode logits, every generated token in the vocabulary, no flash
+    launch (the reference's prefill is plain attention), and for a model
+    with Mamba2 layers one SSD launch per layer, and a KV cache of
+    (attention layers, B, Hkv, prompt + gen, Dh) in the model's dtype."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.hybrid import n_shared_uses
+    cfg = get(spec["arch"])
+    b, s, gen = spec["batch"], spec["prompt"], spec["gen"]
+    serve(spec["arch"], batch=b, prompt_len=SERVE_WARMUP["prompt"],
+          gen=SERVE_WARMUP["gen"], smoke=False)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with ServeWatch() as watch:
+        result = serve(spec["arch"], batch=b, prompt_len=s, gen=gen,
+                       smoke=False)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state = watch.last
+    tokens = result["tokens"]
+    mamba = cfg.family in ("ssm", "hybrid")
+    want_ssd = cfg.n_layers if mamba else 0
+    if launches["ssd_chunk_scan"] != want_ssd or launches["flash_attention"]:
+        fail(f"serve {cfg.name}: launches {launches}, want "
+             f"ssd_chunk_scan={want_ssd} (one per Mamba2 layer in the "
+             f"prefill) and no flash launch")
+    for name, t in (("prefill", watch.prefill_logits),
+                    ("decode", state["logits"])):
+        if not bool(torch.isfinite(t).all()):
+            fail(f"serve {cfg.name}: non-finite {name} logits")
+    if tokens.shape != (b, gen) or not (
+            (tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        fail(f"serve {cfg.name}: tokens {tokens.shape} outside the "
+             f"vocabulary of {cfg.vocab_size}")
+    kv = state["cache"]["attn"]["k"]
+    want_kv = ((n_shared_uses(cfg) if mamba else cfg.n_layers), b,
+               cfg.n_kv_heads, s + gen, cfg.head_dim_)
+    if tuple(kv.shape) != want_kv or kv.dtype != cfg.tdtype:
+        fail(f"serve {cfg.name}: KV cache {tuple(kv.shape)} {kv.dtype}, "
+             f"want {want_kv} {cfg.tdtype}")
+    prefill_ms = result["prefill_s"] * 1e3
+    decode_ms = result["decode_s_per_token"] * 1e3
+    print(f"{cfg.name}: all {cfg.n_layers} layers at full width (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} kv heads "
+          f"of {cfg.head_dim_}, window {cfg.window}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}); serve(batch={b}, "
+          f"prompt_len={s}, gen={gen}): prefill {prefill_ms:.1f} ms "
+          f"({b * s / result['prefill_s']:.0f} tokens/s), decode "
+          f"{decode_ms:.3f} ms per step of {b} tokens (eager), peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; KV cache {tuple(kv.shape)} "
+          f"{str(kv.dtype).replace('torch.', '')}; launches {launches}; "
+          f"first tokens {tokens[:, :8].tolist()}")
+    return {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "tokens_per_s": b * s / result["prefill_s"],
+            "peak_gib": peak / 2 ** 30, "launches": launches,
+            "state": state}
+
+
+def captured(fn, reset):
+    """``fn`` captured in a CUDA graph, after one warm-up call on a side
+    stream (what capture cannot do, such as a library's first-call
+    set-up, happens there) and ``reset()`` to undo it; returns the
+    graph's ``replay``. A failed capture raises."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    reset()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def replayed_decode(state: dict, steps: int = GRAPH_STEPS) -> dict:
+    """``steps`` greedy decode steps from the cache a ``serve`` call left,
+    eagerly and replayed from one CUDA graph, each on its own copy of
+    the cache. The graph holds one ``decode_fn`` step on static token,
+    position (a 0-d tensor) and cache tensors: each cache leaf the step
+    returns as a new tensor is copied back into the static one, the
+    argmax into the static token, and the position advanced, all inside
+    the capture. The replayed tokens must be the eager loop's."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.models.params import map_tree
+    params, cfg, step = state["params"], state["cfg"], state["step"]
+    vocab = cfg.vocab_size
+
+    def copy_into(static: dict, tree: dict) -> None:
+        for (_, s_), (_, t_) in zip(named_leaves(static),
+                                    named_leaves(tree)):
+            if t_ is not s_:
+                s_.copy_(t_)
+
+    with torch.no_grad():
+        cache0 = api.extend_cache(state["cache"], steps)
+        pos0 = int(state["pos"]) + 1
+        first = state["logits"][..., :vocab].argmax(dim=-1)
+
+        cache, tok, eager = map_tree(lambda _, t: t.clone(), cache0), first, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, cache = api.decode_fn(params, {"tokens": tok}, cache,
+                                          pos0 + i, cfg, step)
+            tok = logits[..., :vocab].argmax(dim=-1)
+            eager.append(tok)
+        # the host's clock before the synchronize: how long it took to
+        # enqueue the steps, against the time until the card is done
+        enqueue_ms = (time.perf_counter() - t0) * 1e3 / steps
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3 / steps
+        del cache
+
+        static = map_tree(lambda _, t: t.clone(), cache0)
+        static_tok = first.clone()
+        static_pos = torch.tensor(pos0, device="cuda")
+
+        def one_step():
+            logits, new = api.decode_fn(params, {"tokens": static_tok},
+                                        static, static_pos, cfg, step)
+            copy_into(static, new)
+            static_tok.copy_(logits[..., :vocab].argmax(dim=-1))
+            static_pos.add_(1)
+
+        def reset():
+            copy_into(static, cache0)
+            static_tok.copy_(first)
+            static_pos.fill_(pos0)
+
+        replay = captured(one_step, reset)
+        replayed = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            replay()
+            replayed.append(static_tok.clone())
+        torch.cuda.synchronize()
+        graph_ms_ = (time.perf_counter() - t0) * 1e3 / steps
+    eager_t, replayed_t = torch.cat(eager, dim=1), torch.cat(replayed, dim=1)
+    if not torch.equal(eager_t, replayed_t):
+        fail(f"{cfg.name}: graph-replayed decode tokens "
+             f"{replayed_t[:, :8].tolist()} differ from the eager loop's "
+             f"{eager_t[:, :8].tolist()}")
+    print(f"{cfg.name} decode from position {pos0}, {steps} steps of "
+          f"{first.shape[0]} tokens: eager {eager_ms:.3f} ms per step (the "
+          f"host enqueued it in {enqueue_ms:.3f}), replayed from a CUDA "
+          f"graph {graph_ms_:.3f} ms per step (same tokens; the card idle "
+          f"{1 - graph_ms_ / eager_ms:.1%} of an eager step)")
+    del replay, static, cache0
+    torch.cuda.empty_cache()
+    return {"eager_ms": eager_ms, "enqueue_ms": enqueue_ms,
+            "graph_ms": graph_ms_}
+
+
+def long_context_decode(state: dict) -> dict:
+    """granite-3-2b decode at decode_32k's context (LONG_DECODE): a cache
+    of B x (context + steps) slots whose first ``context`` slots hold
+    seeded random K/V tagged 0..context-1, then ``steps`` greedy
+    ``decode_fn`` steps from position ``context``. Requires finite logits
+    and tokens in the vocabulary; ms per step and peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    from repro_torch.models.transformer import kv_cache_spec
+    params, cfg, step = state["params"], state["cfg"], state["step"]
+    b, ctx, steps = (LONG_DECODE["batch"], LONG_DECODE["context"],
+                     LONG_DECODE["steps"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    attn = kv_cache_spec(cfg, b, ctx + steps).init_tree("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    attn["k"][..., :ctx, :].normal_(generator=gen)
+    attn["v"][..., :ctx, :].normal_(generator=gen)
+    attn["pos"][..., :ctx] = torch.arange(ctx, dtype=torch.int32,
+                                          device="cuda")
+    kv_gb = 2 * attn["k"].numel() * attn["k"].element_size() / 1e9
+    tok = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (b, 1))).cuda()
+    cache, generated = {"attn": attn}, []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, cache = api.decode_fn(params, {"tokens": tok}, cache,
+                                          ctx + i, cfg, step)
+            tok = logits[..., :cfg.vocab_size].argmax(dim=-1)
+            generated.append(tok)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak = torch.cuda.max_memory_allocated()
+    tokens = torch.cat(generated, dim=1)
+    if not bool(torch.isfinite(logits).all()) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        fail(f"{cfg.name} decode at context {ctx}: non-finite logits or "
+             f"tokens outside the vocabulary")
+    dtype = str(attn["k"].dtype).replace("torch.", "")
+    print(f"{cfg.name} decode at context {ctx} (KV cache "
+          f"{tuple(attn['k'].shape)} {dtype}, {kv_gb:.2f} GB of K and V): "
+          f"{ms:.3f} ms per step of {b} tokens ({steps} steps, eager), peak "
+          f"memory {peak / 2 ** 30:.2f} GiB")
+    del cache, attn
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak_gib": peak / 2 ** 30, "kv_gb": kv_gb}
+
+
+def serving_continues_prefill(arch: str) -> dict:
+    """In f32 at ``arch``'s full width cut to SERVE_CONTINUE's depth,
+    B = 1: a prefill of SERVE_CONTINUE["prefill"] tokens, grown by and
+    continued with SERVE_CONTINUE["decode"] teacher-forced decode steps,
+    must give the last logits and every cache leaf of one prefill of all
+    the tokens (position tags exactly, the rest within CONTINUE_TOL)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models import api
+    from repro_torch.models.params import materialize
+    from repro_torch.models.transformer import StepConfig
+    cfg = dataclasses.replace(get(arch), dtype="float32",
+                              n_layers=SERVE_CONTINUE["layers"][arch])
+    n0, n1 = SERVE_CONTINUE["prefill"], SERVE_CONTINUE["decode"]
+    params = materialize(torch.Generator(device="cuda").manual_seed(0),
+                         api.param_defs(cfg))
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (1, n0 + n1))).cuda()
+    step = StepConfig(remat=False)
+    with torch.no_grad():
+        logits, cache = api.prefill_fn(params, {"tokens": tokens[:, :n0]},
+                                       cfg, step)
+        cache = api.extend_cache(cache, n1)
+        for t in range(n0, n0 + n1):
+            logits, cache = api.decode_fn(
+                params, {"tokens": tokens[:, t:t + 1]}, cache, t, cfg, step)
+        want_logits, want = api.prefill_fn(params, {"tokens": tokens}, cfg,
+                                           step)
+    got_leaves = {"logits": logits, **dict(named_leaves(cache))}
+    want_leaves = {"logits": want_logits, **dict(named_leaves(want))}
+    if sorted(got_leaves) != sorted(want_leaves):
+        fail(f"{cfg.name}: decode continuing prefill: cache leaves "
+             f"{sorted(got_leaves)}, want {sorted(want_leaves)}")
+    errs = {}
+    for name, got_t in got_leaves.items():
+        if got_t.dtype == torch.int32:
+            if not torch.equal(got_t, want_leaves[name]):
+                fail(f"{cfg.name}: decode continuing prefill: {name} "
+                     f"differs")
+            continue
+        errs[name] = check_close(f"{cfg.name} decode continues prefill: "
+                                 f"{name}", got_t, want_leaves[name],
+                                 CONTINUE_TOL)
+    print(f"f32 {cfg.name} ({cfg.n_layers} layers, full width): prefill "
+          f"{n0} + {n1} decode steps vs prefill {n0 + n1}: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; position tags equal (limit {CONTINUE_TOL})")
+    del params, cache, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def dense_and_hybrid_serving() -> dict:
+    """granite-3-2b and zamba2-2.7b served at full width and depth
+    (:func:`served`), each with its decode replayed from a CUDA graph
+    (:func:`replayed_decode`); granite's decode at decode_32k's context
+    (:func:`long_context_decode`); decode continuing prefill in f32 for
+    both; and the serving CLI once on the card."""
+    import torch
+    out = {}
+    for label, spec in SERVE.items():
+        run = served(spec)
+        run.update(replayed_decode(run["state"]))
+        if label == "granite":
+            run["long"] = long_context_decode(run["state"])
+        del run["state"]
+        torch.cuda.empty_cache()
+        out[label] = run
+    out["continue"] = {arch: serving_continues_prefill(arch)
+                       for arch in SERVE_CONTINUE["layers"]}
+    cli, _ = run_module("repro_torch.launch.serve",
+                        ["--arch", "granite_3_2b", "--smoke", "--batch", "2",
+                         "--prompt-len", "16", "--gen", "4"], "serve_cli")
+    if "[serve] generated shape (2, 4)" not in cli:
+        fail(f"the serving CLI printed {cli!r}")
+    print("  " + cli.strip().splitlines()[0])
+    return out
 
 
 def hybrid_layer_parts(tile: tuple[int, int]) -> dict:
@@ -2364,6 +2762,53 @@ def main() -> int:
         f"tile {t} {ms:.4f} ms" for t, ms in flash_d80.items())
         + f" | scaled_dot_product_attention {d80_lib:.4f} ms")
     del d80
+    # gemma-2b's widths in f32: D = 256 takes the CUDA-core kernel
+    # (flash_attention.cu), checked at each quick tile, then timed
+    gb, gh, ghkv, gs, gd = FLASH_D256
+    d256 = [randn(gb, heads, gs, gd) for heads in (gh, ghkv, ghkv)]
+    want = attention_ref(*d256, causal=True)
+    before = flash_attention.route_launches["cuda_cores"]
+    d256_ms = {}
+    errs["flash_f32_d256"] = 0.0
+    for tile in quick_tiles:
+        errs["flash_f32_d256"] = max(errs["flash_f32_d256"], check_close(
+            f"flash {FLASH_D256} f32 causal tile {tile}", flash_attention(
+                *d256, causal=True, bq=tile[0], bk=tile[1]), want,
+            FLASH_MAIN_TOL["f32"]))
+        d256_ms[tile] = cuda_ms(lambda t=tile: flash_attention(
+            *d256, causal=True, bq=t[0], bk=t[1]), iters=3, warmup=1)
+    if flash_attention.route_launches["cuda_cores"] == before:
+        fail(f"flash {FLASH_D256} f32 did not take the CUDA-core kernel")
+    del want
+    d256_tile = min(d256_ms, key=d256_ms.get)
+    d256_flops = flash_flops(gb, gh, gs, gd, True)
+    d256_bytes = bytes_moved(d256[0], d256[1])
+    flash256 = {
+        "kernel": d256_ms[d256_tile], "tile": d256_tile,
+        "plain": cuda_ms(lambda: attention_ref(*d256, causal=True), iters=2,
+                         warmup=1),
+        "library": cuda_ms(lambda: torch.nn.functional
+                           .scaled_dot_product_attention(
+                               *d256, is_causal=True, enable_gqa=True),
+                           iters=3, warmup=1),
+        "bound": max(d256_flops / TF32X3_PEAK, d256_bytes / HBM_PEAK) * 1e3,
+        "bound_by": ("operations" if d256_flops / TF32X3_PEAK
+                     >= d256_bytes / HBM_PEAK else "bytes"),
+        "bound_cuda_cores": max(d256_flops / F32_PEAK,
+                                d256_bytes / HBM_PEAK) * 1e3}
+    print(f"flash {FLASH_D256} f32 causal (CUDA-core kernel, D = 256): "
+          + " | ".join(f"tile {t} {ms:.4f} ms" for t, ms in d256_ms.items())
+          + f" | kernel {flash256['kernel']:.4f} ms (tile {d256_tile}, "
+          f"{d256_flops / flash256['kernel'] / 1e9:.2f} TFLOP/s, "
+          f"{flash256['bound'] / flash256['kernel']:.1%} of its bound) | "
+          f"bound {flash256['bound']:.4f} ms (FLOPs / 165 TFLOP/s, 3xTF32; "
+          f"{flash256['bound_by']}), {flash256['bound_cuda_cores']:.4f} ms "
+          f"(FLOPs / 67 TFLOP/s, CUDA cores) | plain "
+          f"{flash256['plain']:.4f} ms | scaled_dot_product_attention "
+          f"{flash256['library']:.4f} ms "
+          f"| max abs err {errs['flash_f32_d256']:.3e}")
+    del d256
+    torch.cuda.empty_cache()
     leaves = [t.detach().requires_grad_() for t in (fq, fk, fv)]
     attn_fb = {
         "flash": cuda_ms(lambda: torch.autograd.grad(flash_attention(
@@ -2524,11 +2969,14 @@ def main() -> int:
     phase("full-depth step (granite-3-2b, 40 layers, B=1, S=4096)")
     deep = full_depth_step(step["tile"])
 
-    # -- 8. SSM serving ------------------------------------------------------
-    phase("SSM serving (mamba2-130m, 24 layers, 4 x 32768-token prefill, "
-          "32 decode steps)")
+    # -- 8. serving -----------------------------------------------------------
+    phase("serving (mamba2-130m 4 x 32768-token prefill; granite-3-2b and "
+          "zamba2-2.7b through serve, 4 x 4096 + 32; CUDA-graph decode; "
+          "32k-context decode)")
     serving = serving_path()
     errs["continue"] = decode_continues_prefill()
+    served_models = dense_and_hybrid_serving()
+    errs["serve_continue"] = served_models["continue"]
 
     # -- 9. hybrid model step -------------------------------------------------
     phase("hybrid model step (zamba2-2.7b, 6 of 54 layers, B=1, S=4096)")
@@ -2567,6 +3015,7 @@ def main() -> int:
     phase("result")
     print(f"total wall {time.perf_counter() - t_start:.1f}s")
     t_srv, t_hyb = ssd_time["mamba2 serving"], ssd_time["zamba2 train"]
+    zamba2_serve_ssd = served_models["zamba2"]["launches"]["ssd_chunk_scan"]
     print(card_line())
     t_dram = triad_ms["dram"]
     print(json.dumps({"kernels": [
@@ -2647,11 +3096,26 @@ def main() -> int:
          "tensor_cores": True, "products": "3xTF32",
          "f32_loss_rel": step["f32_loss_rel"],
          "f32_step_ms": step["f32_step_ms"]},
+        {"name": "flash_attention_f32_d256", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:33",
+         "launches": (step["routes"]["cuda_cores"]
+                      + hyb["routes"]["cuda_cores"]),
+         "max_abs_err": errs["flash_f32_d256"],
+         "ms": flash256["kernel"], "plain_ms": flash256["plain"],
+         "bound_ms": flash256["bound"], "bound_by": flash256["bound_by"],
+         "bound_ms_cuda_cores": flash256["bound_cuda_cores"],
+         "library_ms": flash256["library"], "shape": list(FLASH_D256),
+         "tile": list(flash256["tile"]), "dtype": "float32", "causal": True,
+         "tensor_cores": False},
         {"name": "ssd_chunk_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd.cu",
          "replaces": "src/repro/kernels/ssd/ssd.py:36",
-         "launches": serving["launches"] + hyb["launches"]["ssd_chunk_scan"],
-         "launches_serving": serving["launches"],
+         "launches": (serving["launches"] + zamba2_serve_ssd
+                      + hyb["launches"]["ssd_chunk_scan"]),
+         "launches_serving": serving["launches"] + zamba2_serve_ssd,
+         "launches_serving_mamba2": serving["launches"],
+         "launches_serving_zamba2": zamba2_serve_ssd,
          "launches_zamba2_step": hyb["launches"]["ssd_chunk_scan"],
          "launches_observability": (
              observe["launches"]["mamba2"]["ssd_chunk_scan"]
@@ -2678,6 +3142,10 @@ def main() -> int:
          "train_device_ms_per_kernel": t_hyb["parts"],
          "serving_prefill_ms": serving["prefill_ms"],
          "serving_decode_ms_per_step": serving["decode_ms"],
+         "served": {label: {k: v for k, v in run.items()
+                            if k != "launches"}
+                    for label, run in served_models.items()
+                    if label != "continue"},
          "zamba2_step_ms": {f"use_flash={k[0]} tile=({k[1]}, {k[2]})": ms
                             for k, ms in hyb["step_ms"].items()},
          "zamba2_step_trace": {"wall_ms": trace["wall_ms"],

@@ -776,8 +776,8 @@ def model_step_family(workload: str,
     """Benchmark family for one whole-model step on ``device``.
 
     ``workload`` names a :mod:`repro_torch.models.workloads` builder
-    (``train_step``; ``prefill_step`` for the ``ssm`` and ``hybrid``
-    families, ``decode_step`` for ``ssm``); ``arch`` is an architecture
+    (``train_step``, ``prefill_step`` or ``decode_step``, for every
+    ported family); ``arch`` is an architecture
     name (its SMOKE config), a :class:`ModelConfig` or None (the tiny
     dense toy). The weights, inputs and work term are built once, at the
     first config, and shared by every config; each config pre-heats
@@ -870,9 +870,8 @@ def synthetic_benchmark(cfg: dict) -> Callable:
 def audited_workloads(device: "str | torch.device" = "cuda",
                       ) -> dict[str, tuple[Callable, dict]]:
     """The benchmarks ``python -m repro_torch.lint`` audits, bound to
-    ``device``, with a sample config each (the JAX package's registry;
-    its ``decode_step`` entry waits for the dense decode step of the
-    serving slice). Every spec traces on ``meta``."""
+    ``device``, with a sample config each (the JAX package's registry).
+    Every spec traces on ``meta``."""
     return {
         "dgemm": (dgemm_benchmark(device), {"n": 256, "m": 256, "k": 64}),
         "triad": (triad_benchmark(device), {"n_bytes": 1 << 20}),
@@ -888,6 +887,9 @@ def audited_workloads(device: "str | torch.device" = "cuda",
         "train_step": (model_step_family("train_step", device=device),
                        {"use_flash": 0, "flash_block_q": 64,
                         "flash_block_k": 64}),
+        "decode_step": (model_step_family("decode_step", device=device),
+                        {"use_flash": 0, "flash_block_q": 64,
+                         "flash_block_k": 64}),
     }
 
 

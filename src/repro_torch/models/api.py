@@ -9,11 +9,11 @@ point per step kind, dispatched by family.
     cache_init(cfg, shape, device)       -> zero cache
     extend_cache(cache, extra)           -> cache with room for more tokens
 
-Ported: the ``dense`` family's train step; the ``ssm`` family's train,
-prefill and decode; the ``hybrid`` family's train and prefill. The
-other families, and prefill/decode of the dense and VLM families and
-decode of the hybrid family, raise ``NotImplementedError`` naming their
-``ROADMAP.md`` entry.
+Ported: the train step, prefill and decode of the ``dense``, ``ssm``
+and ``hybrid`` families. The other families raise
+``NotImplementedError`` naming their ``ROADMAP.md`` entry. ``pos`` is a
+Python int or a 0-d integer tensor on the cache's device; decode writes
+the attention KV caches in place and returns them.
 """
 
 from __future__ import annotations
@@ -37,8 +37,6 @@ _FAMILY_TODO = {
     "encdec": "enc-dec",
 }
 _PORTED = ("dense", "ssm", "hybrid")
-_SERVING_TODO = ("{what} of the {family!r} family is not ported yet "
-                 "(ROADMAP.md, 'Still to port': the serving slice)")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -49,16 +47,6 @@ def _require_ported(cfg: ModelConfig) -> None:
             f"family {cfg.family!r} is not ported yet (ROADMAP.md, 'Still "
             f"to port': {_FAMILY_TODO[cfg.family]})")
     raise ValueError(f"unknown family {cfg.family!r}")
-
-
-def _require_serving(cfg: ModelConfig, what: str,
-                     families: tuple = ("ssm",)) -> None:
-    """Raise unless ``what`` (a serving entry point) is ported for the
-    family: the serving slice brings the others."""
-    _require_ported(cfg)
-    if cfg.family not in families:
-        raise NotImplementedError(_SERVING_TODO.format(what=what,
-                                                       family=cfg.family))
 
 
 def param_defs(cfg: ModelConfig) -> dict:
@@ -84,28 +72,38 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
 
 def prefill_fn(params: dict, batch: dict, cfg: ModelConfig,
                step: StepConfig) -> tuple[torch.Tensor, dict]:
-    _require_serving(cfg, "prefill", ("ssm", "hybrid"))
+    _require_ported(cfg)
     step = dataclasses.replace(step, inference=True)
-    return hybrid.prefill(params, batch, cfg, step)
+    if cfg.family in ("ssm", "hybrid"):
+        return hybrid.prefill(params, batch, cfg, step)
+    return transformer.lm_prefill(params, batch, cfg, step)
 
 
 def decode_fn(params: dict, batch: dict, cache: dict, pos,
               cfg: ModelConfig, step: StepConfig) -> tuple[torch.Tensor,
                                                            dict]:
-    _require_serving(cfg, "decode")
+    _require_ported(cfg)
     step = dataclasses.replace(step, inference=True)
-    return hybrid.decode(params, batch["tokens"], cache, pos, cfg, step)
+    tokens = batch["tokens"]
+    if cfg.family in ("ssm", "hybrid"):
+        return hybrid.decode(params, tokens, cache, pos, cfg, step)
+    return transformer.lm_decode(params, tokens, cache, pos, cfg, step)
 
 
 def cache_shapes(cfg: ModelConfig, shape: WorkloadShape) -> dict:
     """Shapes and dtypes of the decode cache of one workload cell."""
-    _require_serving(cfg, "the decode cache")
-    return hybrid.cache_shapes(cfg, shape.global_batch, cache_len(cfg, shape))
+    _require_ported(cfg)
+    B = shape.global_batch
+    length = cache_len(cfg, shape)
+    if cfg.family in ("ssm", "hybrid"):
+        return hybrid.cache_shapes(cfg, B, length)
+    return {"attn": transformer.kv_cache_spec(cfg, B, length).shape_tree()}
 
 
 def cache_init(cfg: ModelConfig, shape: WorkloadShape,
                device: "str | torch.device" = "cuda") -> dict:
-    """Zero-initialized cache (attention position tags would be -1)."""
+    """Zero-initialized cache on ``device`` (attention position tags -1:
+    every slot empty)."""
 
     def walk(node, key=""):
         if isinstance(node, dict):

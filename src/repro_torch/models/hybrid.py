@@ -9,9 +9,11 @@ reference). The shared block's parameters are the same tensors at every
 use, so their gradients accumulate across uses.
 
 The reference scans over the stacked layers; the port loops over them,
-each block optionally checkpointed (``StepConfig.remat``). Decode is
-ported for the ``ssm`` family; the hybrid family's decode needs the
-attention KV cache of the serving slice and raises.
+each block optionally checkpointed (``StepConfig.remat``). Decode
+carries per-layer SSM and conv states plus one KV cache per shared-block
+use (the same parameters, distinct caches); the KV caches are updated
+in place (:func:`repro_torch.models.layers.attention_decode`), the
+states are returned as new tensors.
 """
 
 from __future__ import annotations
@@ -22,14 +24,10 @@ from . import layers as L
 from . import ssd
 from .config import ModelConfig
 from .params import ParamDef
-from .transformer import StepConfig, _layer, _maybe_remat
+from .transformer import StepConfig, _layer, _maybe_remat, kv_cache_spec
 
 __all__ = ["cache_shapes", "decode", "hidden", "hybrid_lm_defs",
            "n_shared_uses", "prefill", "ssm_lm_defs"]
-
-_HYBRID_DECODE_TODO = ("hybrid decode needs attention_decode and the KV "
-                       "cache, which are not ported yet (ROADMAP.md, 'Still "
-                       "to port': the serving slice)")
 
 
 def _stacked_norm(cfg: ModelConfig, layers: int) -> ParamDef:
@@ -184,31 +182,52 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, cache_length: int) -> dict:
-    """Shapes and dtypes of the decode cache (``ssm`` family; the hybrid
-    family's attention cache belongs to the serving slice)."""
-    if not _is_pure_ssm(cfg):
-        raise NotImplementedError(_HYBRID_DECODE_TODO)
+    """Shapes and dtypes of the decode cache: the Mamba2 layers' states
+    and, for the hybrid family, the shared block's KV cache (one layer
+    of it per use)."""
     shapes = ssd.ssm_cache_shapes(cfg, cfg.n_layers, batch)
-    return {"ssm": shapes["ssm"], "conv": shapes["conv"]}
+    out = {"ssm": shapes["ssm"], "conv": shapes["conv"]}
+    if not _is_pure_ssm(cfg):
+        out["attn"] = kv_cache_spec(cfg, batch, cache_length,
+                                    layers=n_shared_uses(cfg)).shape_tree()
+    return out
 
 
 def decode(params: dict, tokens: torch.Tensor, cache: dict, pos,
            cfg: ModelConfig, step: StepConfig) -> tuple[torch.Tensor, dict]:
-    """One-token decode of the ``ssm`` family. tokens: (B, 1). Returns
-    (logits (B, 1, V), new cache)."""
-    if not _is_pure_ssm(cfg):
-        raise NotImplementedError(_HYBRID_DECODE_TODO)
+    """One-token decode. tokens: (B, 1); ``pos`` an int or a 0-d integer
+    tensor on the cache's device (read by the shared block's attention
+    only). Returns (logits (B, 1, V), new cache): new ssm and conv
+    states, and the hybrid family's ``attn`` cache updated in place."""
     h = L.embed_tokens(params["embed"], tokens, cfg)
     ssm, conv = [], []
-    for i in range(cfg.n_layers):
+
+    def mamba(h, i):
         lp = _layer(params["layers"], i)
         x_in = L.apply_norm(lp["ln"], h, cfg)
         y, lc = ssd.ssd_decode(lp["ssd"], x_in, {"ssm": cache["ssm"][i],
                                                  "conv": cache["conv"][i]},
                                cfg)
-        h = h + y
         ssm.append(lc["ssm"])
         conv.append(lc["conv"])
+        return h + y
+
+    if _is_pure_ssm(cfg):
+        for i in range(cfg.n_layers):
+            h = mamba(h, i)
+    else:
+        sp = params["shared"]
+        pos = L.decode_position(pos, h.device)
+        for g, group in enumerate(_groups(cfg)):
+            for i in group:
+                h = mamba(h, i)
+            a_in = L.apply_norm(sp["ln1"], h, cfg)
+            a, _ = L.attention_decode(sp["attn"], a_in,
+                                      _layer(cache["attn"], g), pos, cfg,
+                                      window=cfg.window)
+            h = h + a
+            h = h + L.apply_mlp(sp["mlp"], L.apply_norm(sp["ln2"], h, cfg),
+                                cfg)
     new_cache = {**cache, "ssm": torch.stack(ssm), "conv": torch.stack(conv)}
     h = L.apply_norm(params["ln_f"], h, cfg)
     logits = L.logits_fn(params["embed"], h, cfg)

@@ -1,21 +1,25 @@
-"""Shared model layers of the train step (the JAX package's
-``models/layers.py``), functional over parameter dicts.
+"""Shared model layers (the JAX package's ``models/layers.py``),
+functional over parameter dicts.
 
 Conventions, as in the reference:
   * weights store contraction dims first: ``wq (D, H, Dh)``,
     ``wo (H, Dh, D)``; a stack of layers has a leading "layers" axis;
   * attention tensors are (B, H, S, Dh);
-  * norms, rope, softmax and the loss compute in float32.
+  * norms, rope, softmax and the loss compute in float32;
+  * attention has a full-sequence path (train and prefill) and a
+    one-token decode path over a position-tagged KV cache, linear or
+    rolling (sliding window).
 
 The reference wraps activations in ``shard_act`` (a no-op outside a
 sharding resolver context); the port runs on one card, so those calls
 are dropped. Its ``xscan`` is a Python loop here, ``jax.checkpoint`` is
-``torch.utils.checkpoint``. The decode path (``KVCacheSpec``,
-``attention_decode``) belongs to the serving slice.
+``torch.utils.checkpoint``. The KV cache's logical axes (the
+reference's ``KVCacheSpec.logical``) belong to distribution and wait.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -25,10 +29,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
 from .config import ModelConfig
-from .params import ParamDef
+from .params import ParamDef, ShapeDtype
 
-__all__ = ["apply_mlp", "apply_norm", "apply_rope", "attention_defs",
-           "attention_full", "checkpointed", "cross_entropy_loss",
+__all__ = ["KVCacheSpec", "apply_mlp", "apply_norm", "apply_rope",
+           "attention_decode", "attention_defs", "attention_full",
+           "checkpointed", "cross_entropy_loss", "decode_position",
            "embed_tokens", "embedding_defs", "logits_fn", "mlp_defs",
            "next_token_targets", "norm_defs"]
 
@@ -39,7 +44,12 @@ def checkpointed(fn, *args):
     """``fn(*args)`` that keeps only its inputs for the backward pass and
     recomputes the rest (the reference's ``jax.checkpoint`` with the
     ``nothing_saveable`` policy). The model draws no random numbers, so
-    no RNG state is saved."""
+    no RNG state is saved. Without grad mode (prefill, decode) nothing
+    would be kept, so ``fn`` just runs: a process's first checkpoint
+    imports ``torch._dynamo``, seconds of host time that would land in
+    the first long prefill."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
     return checkpoint(fn, *args, use_reentrant=False,
                       preserve_rng_state=False)
 
@@ -150,11 +160,13 @@ def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def _expand_kv(k: torch.Tensor, h: int) -> torch.Tensor:
-    """GQA: replicate kv heads up to the q-head count."""
-    hkv = k.shape[1]
+    """GQA: replicate kv heads up to the q-head count (each kv head
+    ``h // hkv`` times in a row, as ``jnp.repeat``; by expand and
+    reshape, which never waits on the device)."""
+    b, hkv, s, dh = k.shape
     if hkv == h:
         return k
-    return k.repeat_interleave(h // hkv, dim=1)
+    return k[:, :, None].expand(b, hkv, h // hkv, s, dh).reshape(b, h, s, dh)
 
 
 # Sequences at or above this length use the q-chunked path so the (S, S)
@@ -210,6 +222,96 @@ def _attend_chunked(q, k, v, *, causal: bool,
     outs = [checkpointed(body, q_c, i)
             for i, q_c in enumerate(q.split(qc, dim=2))]
     return torch.cat(outs, dim=2)
+
+
+# ---- decode path ----------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KVCacheSpec:
+    """Layout of one layer-stack's KV cache: (L, B, Hkv, S, Dh) k/v plus a
+    position tag per slot, -1 for an empty one (which is what lets a
+    rolling window cache wrap)."""
+
+    layers: int
+    batch: int
+    kv_heads: int
+    length: int
+    head_dim: int
+    dtype: torch.dtype
+
+    def shape_tree(self) -> dict:
+        kv = ShapeDtype(torch.Size((self.layers, self.batch, self.kv_heads,
+                                    self.length, self.head_dim)), self.dtype)
+        pos = ShapeDtype(torch.Size((self.layers, self.batch, self.length)),
+                         torch.int32)
+        return {"k": kv, "v": kv, "pos": pos}
+
+    def init_tree(self, device: "str | torch.device" = "cuda") -> dict:
+        shapes = self.shape_tree()
+        return {
+            "k": torch.zeros(shapes["k"].shape, dtype=self.dtype,
+                             device=device),
+            "v": torch.zeros(shapes["v"].shape, dtype=self.dtype,
+                             device=device),
+            "pos": torch.full(shapes["pos"].shape, -1, dtype=torch.int32,
+                              device=device),
+        }
+
+
+def decode_position(pos, device: torch.device) -> torch.Tensor:
+    """A decode position as a 0-d tensor on ``device``: a tensor passes
+    through as it is (so a CUDA graph can advance it in place), a Python
+    int is filled in there by a kernel (no copy from the host, so the
+    host does not wait for the stream)."""
+    if isinstance(pos, torch.Tensor):
+        return pos
+    return torch.full((), pos, dtype=torch.int64, device=device)
+
+
+def attention_decode(p: dict, x: torch.Tensor, layer_cache: dict, pos,
+                     cfg: ModelConfig, *, rope: bool = True,
+                     window: Optional[int] = None
+                     ) -> tuple[torch.Tensor, dict]:
+    """One-token decode. x: (B, 1, D); ``layer_cache`` holds this layer's
+    {k, v, pos} (B, Hkv, S, Dh) / (B, S), views of the stacked cache;
+    ``pos`` is an int or a 0-d integer tensor on the cache's device (the
+    same result either way; the tensor form never reads the position on
+    the host). Returns (y, layer_cache).
+
+    Unlike the reference's functional update, the new K/V and position
+    tag are written in place into slot ``pos % S`` of ``layer_cache``'s
+    tensors, and the same tensors are returned: a step moves one slot,
+    not the whole cache. A linear cache (S = max length) writes slot
+    ``pos``; a rolling window cache (S = window) wraps, and the tags mask
+    the slots that are empty (tag < 0), ahead (tag > pos) or, with a
+    window, out of it (pos - tag >= window)."""
+    q, k_new, v_new = _qkv(p, x, x)                      # (B, *, 1, Dh)
+    b = x.shape[0]
+    pos = decode_position(pos, x.device)
+    if rope:
+        pos_b = pos.reshape(1, 1).expand(b, 1)
+        q = apply_rope(q, pos_b, cfg.rope_theta)
+        k_new = apply_rope(k_new, pos_b, cfg.rope_theta)
+    k, v, tags = layer_cache["k"], layer_cache["v"], layer_cache["pos"]
+    slot = (pos % k.shape[2]).reshape(1).long()
+    k.index_copy_(2, slot, k_new.to(k.dtype))
+    v.index_copy_(2, slot, v_new.to(v.dtype))
+    tags.index_copy_(1, slot, pos.reshape(1, 1).expand(b, 1).to(tags.dtype))
+
+    h, dh = q.shape[1], q.shape[-1]
+    k_exp = _expand_kv(k, h)
+    v_exp = _expand_kv(v, h)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                          k_exp.float()) / math.sqrt(dh)
+    valid = (tags >= 0) & (tags <= pos)
+    if window is not None:
+        valid &= (pos - tags) < window
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v_exp.float()).to(x.dtype)
+    y = torch.einsum("bhsk,hkd->bsd", out, p["wo"])
+    return y, layer_cache
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,8 @@ From that tree come:
     leaf gets its own generator seeded from the root seed and the same
     sha256 digest of the leaf's path that the reference folds into its key;
   * :func:`n_params` — the parameter count;
+  * :class:`ShapeDtype` — the shape and dtype of one tensor (the decode
+    caches' shape trees);
   * :func:`from_numpy` / :func:`to_numpy` — the bridge that carries the
     JAX package's parameters (numpy arrays, same keys and layouts) into
     the port and back, which is how the parity tests feed both packages
@@ -21,15 +23,23 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
 
-__all__ = ["ParamDef", "empty_like_defs", "from_numpy", "map_tree",
-           "materialize", "n_params", "to_numpy"]
+__all__ = ["ParamDef", "ShapeDtype", "empty_like_defs", "from_numpy",
+           "map_tree", "materialize", "n_params", "to_numpy"]
 
 Tree = Any  # nested dict of ParamDef / tensors / arrays
+
+
+class ShapeDtype(NamedTuple):
+    """Shape and dtype of one tensor (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: torch.Size
+    dtype: torch.dtype
 
 
 @dataclasses.dataclass(frozen=True)

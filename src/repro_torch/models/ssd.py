@@ -20,25 +20,17 @@ Decode carries (ssm_state (B, H, P, N) f32, conv_state (B, W-1, dim)).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd import ssd_chunk_scan
 from .config import ModelConfig
-from .params import ParamDef
+from .params import ParamDef, ShapeDtype
 
 __all__ = ["ShapeDtype", "ssd_decode", "ssd_defs", "ssd_forward",
            "ssd_reference_scan", "ssm_cache_init", "ssm_cache_shapes"]
-
-
-class ShapeDtype(NamedTuple):
-    """Shape and dtype of one cache tensor (the reference's
-    ``jax.ShapeDtypeStruct``)."""
-
-    shape: torch.Size
-    dtype: torch.dtype
 
 
 def ssd_defs(cfg: ModelConfig, layers: int | None = None) -> dict:

@@ -4,15 +4,21 @@
 Parameters keep the reference's stacked layout (a leading "layers" axis
 on every block weight); the reference scans over it, the port loops
 over the layers, each optionally checkpointed (``StepConfig.remat``).
-Only the train path of the dense family is ported here: MoE, the VLM
-cross-attention stack and the dense prefill/decode raise
-``NotImplementedError`` naming their ``ROADMAP.md`` entry (the Mamba2
-families live in :mod:`repro_torch.models.hybrid`).
+The dense family's train step, prefill and decode are ported; MoE and
+the VLM cross-attention stack raise ``NotImplementedError`` naming their
+``ROADMAP.md`` entry (the Mamba2 families live in
+:mod:`repro_torch.models.hybrid`).
+
+Prefill computes attention with the plain path whatever
+``StepConfig.use_flash`` says, as the reference does
+(``_self_block(..., collect_kv=True)``); decode updates the KV cache in
+place (:func:`repro_torch.models.layers.attention_decode`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -20,7 +26,8 @@ from . import layers as L
 from .config import ModelConfig
 from .params import ParamDef
 
-__all__ = ["StepConfig", "lm_defs", "lm_hidden", "lm_loss"]
+__all__ = ["StepConfig", "kv_cache_spec", "lm_decode", "lm_defs",
+           "lm_hidden", "lm_loss", "lm_prefill"]
 
 _MOE_TODO = ("MoE models are not ported yet (ROADMAP.md, 'Still to port': "
              "MoE)")
@@ -77,15 +84,29 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _self_block(h: torch.Tensor, lp: dict, cfg: ModelConfig,
-                step: StepConfig) -> torch.Tensor:
-    """One pre-norm block: attention then MLP, each with a residual."""
+                step: StepConfig, *, collect_kv: bool = False):
+    """One pre-norm block: attention then MLP, each with a residual. With
+    ``collect_kv`` (prefill) the attention is the plain path, as in the
+    reference, and the block also returns this layer's roped (K, V)."""
     a_in = L.apply_norm(lp["ln1"], h, cfg)
-    a = L.attention_full(lp["attn"], a_in, cfg, causal=True,
-                         window=cfg.window, use_flash=step.use_flash,
-                         block_q=step.flash_block_q,
-                         block_k=step.flash_block_k)
+    if collect_kv:
+        q = torch.einsum("bsd,dhk->bhsk", a_in, lp["attn"]["wq"])
+        k = torch.einsum("bsd,dhk->bhsk", a_in, lp["attn"]["wk"])
+        v = torch.einsum("bsd,dhk->bhsk", a_in, lp["attn"]["wv"])
+        pos = torch.arange(h.shape[1], device=h.device)
+        q = L.apply_rope(q, pos, cfg.rope_theta)
+        k = L.apply_rope(k, pos, cfg.rope_theta)
+        out = L._attend(q, k, v, causal=True, window=cfg.window)
+        a = torch.einsum("bhsk,hkd->bsd", out, lp["attn"]["wo"])
+        kv = (k, v)
+    else:
+        a = L.attention_full(lp["attn"], a_in, cfg, causal=True,
+                             window=cfg.window, use_flash=step.use_flash,
+                             block_q=step.flash_block_q,
+                             block_k=step.flash_block_k)
     h = h + a
-    return h + _ffn(lp, L.apply_norm(lp["ln2"], h, cfg), cfg, step)
+    h = h + _ffn(lp, L.apply_norm(lp["ln2"], h, cfg), cfg, step)
+    return (h, kv) if collect_kv else h
 
 
 def _maybe_remat(fn, step: StepConfig):
@@ -134,3 +155,66 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
     targets, mask = L.next_token_targets(tokens)
     return L.cross_entropy_loss(params["embed"], h, targets, cfg,
                                 chunk=step.loss_chunk, mask=mask)
+
+
+# ---------------------------------------------------------------------------
+# Prefill & decode
+# ---------------------------------------------------------------------------
+
+
+def kv_cache_spec(cfg: ModelConfig, batch: int, length: int,
+                  layers: Optional[int] = None) -> L.KVCacheSpec:
+    return L.KVCacheSpec(layers=layers or cfg.n_layers, batch=batch,
+                         kv_heads=cfg.n_kv_heads, length=length,
+                         head_dim=cfg.head_dim_, dtype=cfg.tdtype)
+
+
+def lm_prefill(params: dict, batch: dict, cfg: ModelConfig,
+               step: StepConfig) -> tuple[torch.Tensor, dict]:
+    """Full-sequence forward that also builds the decode cache: per layer
+    the roped K/V, with position tags 0..S-1, each layer checkpointed
+    under ``step.remat`` as in the reference. Returns (last-position
+    logits, cache)."""
+    if cfg.family == "vlm":
+        raise NotImplementedError(_VLM_TODO)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    h = L.embed_tokens(params["embed"], tokens, cfg)
+    block = _maybe_remat(
+        lambda carry, lp: _self_block(carry, lp, cfg, step, collect_kv=True),
+        step)
+    kvs = []
+    for i in range(params["layers"]["ln1"].shape[0]):
+        h, kv = block(h, _layer(params["layers"], i))
+        kvs.append(kv)
+    h = L.apply_norm(params["ln_f"], h, cfg)
+    logits = L.logits_fn(params["embed"], h[:, -1:], cfg)
+    pos = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    cache = {"attn": {"k": torch.stack([k for k, _ in kvs]),
+                      "v": torch.stack([v for _, v in kvs]),
+                      "pos": pos.expand(len(kvs), B, S).clone()}}
+    return logits, cache
+
+
+def lm_decode(params: dict, tokens: torch.Tensor, cache: dict, pos,
+              cfg: ModelConfig, step: StepConfig
+              ) -> tuple[torch.Tensor, dict]:
+    """One-token decode. tokens: (B, 1); ``pos`` an int or a 0-d integer
+    tensor on the cache's device. Each layer's K/V and position tag are
+    written in place into ``cache["attn"]``, which is returned with the
+    logits (B, 1, V)."""
+    if cfg.family == "vlm":
+        raise NotImplementedError(_VLM_TODO)
+    h = L.embed_tokens(params["embed"], tokens, cfg)
+    pos = L.decode_position(pos, h.device)
+    attn = cache["attn"]
+    for i in range(params["layers"]["ln1"].shape[0]):
+        lp = _layer(params["layers"], i)
+        a_in = L.apply_norm(lp["ln1"], h, cfg)
+        a, _ = L.attention_decode(lp["attn"], a_in, _layer(attn, i), pos,
+                                  cfg, window=cfg.window)
+        h = h + a
+        h = h + _ffn(lp, L.apply_norm(lp["ln2"], h, cfg), cfg, step)
+    h = L.apply_norm(params["ln_f"], h, cfg)
+    logits = L.logits_fn(params["embed"], h, cfg)
+    return logits, cache

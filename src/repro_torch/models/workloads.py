@@ -16,9 +16,10 @@ config of one model reuses that count, so the GFLOP/s the tuner
 maximizes ranks configs by time alone; XLA's count, by contrast,
 changes with the implementation it costs.
 
-``prefill_step`` is ported for the ``ssm`` and ``hybrid`` families and
-``decode_step`` for ``ssm``; the other families' serving steps belong to
-the serving slice and raise.
+Every step kind is built for every ported family (``dense``, ``ssm``,
+``hybrid``); a decode step runs one token per sequence from a zero cache
+at position 0, and writes its KV cache in place, the same slot at every
+call.
 """
 
 from __future__ import annotations
@@ -64,11 +65,6 @@ PARAM_SEED = 0
 TOKEN_SEED = 1
 
 WORKLOAD_NAMES = ("train_step", "prefill_step", "decode_step", "dgemm")
-#: the families whose serving steps are ported, per workload
-_SERVING_FAMILIES = {"prefill_step": ("ssm", "hybrid"),
-                     "decode_step": ("ssm",)}
-_SERVING_TODO = ("{name} of the {family!r} family is not ported yet "
-                 "(ROADMAP.md, 'Still to port': the serving slice)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,9 +163,6 @@ def _build_step(kind: str, cfg: ModelConfig, step: StepConfig,
     ``prefill_step`` on (B, S) tokens, or ``decode_step`` of one token per
     sequence from a zero cache at position 0."""
     name = f"{kind}_step"
-    if kind != "train" and cfg.family not in _SERVING_FAMILIES[name]:
-        raise NotImplementedError(_SERVING_TODO.format(name=name,
-                                                       family=cfg.family))
     gen = torch.Generator(device=device).manual_seed(PARAM_SEED)
     params = materialize(gen, api.param_defs(cfg))
     shape = _tiny_shape(kind, batch_size, seq)

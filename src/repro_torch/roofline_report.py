@@ -29,12 +29,16 @@ recovered from the given caches (or, with none, on the H100 SXM's data
 sheet peaks, marked theoretical): measured per-op device time on the
 card (``--device cuda``, the default), the roofline model's lower bound
 with ``--static`` or ``--device cpu``. ``--arch`` picks the model (an
-architecture's SMOKE config; default the tiny dense toy), the report is
+architecture's SMOKE config, or with ``--full`` its full one; default
+the tiny dense toy), ``--batch`` and ``--seq-len`` the workload's shape
+(for ``decode_step`` the sequence is the cache's slots), the report is
 appended to the markdown and the ``--html`` page, and
 ``--attribution-json`` writes it as JSON.
 
     python -m repro_torch.roofline_report --attribute train_step \
         --device cpu --attribution-json attr.json
+    python -m repro_torch.roofline_report --attribute decode_step \
+        --arch granite_3_2b --full --batch 4 --seq-len 4128
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ def _attribute(args):
     """The ``--attribute`` report (None after a usage error, printed)."""
     import json
 
+    from .configs import get
     from .core.roofline import H100_SXM
     from .device import resolve_device
     from .models.workloads import build_workload
@@ -68,9 +73,13 @@ def _attribute(args):
               f"against {H100_SXM.name} theoretical peaks",
               file=sys.stderr)
     device = resolve_device(args.device)
+    shape = {k: v for k, v in (("batch_size", args.batch),
+                               ("seq_len", args.seq_len)) if v is not None}
     try:
-        workload = build_workload(args.attribute, args.arch, device=device)
-    except ValueError as e:
+        arch = get(args.arch) if args.full else args.arch
+        workload = build_workload(args.attribute, arch, device=device,
+                                  **shape)
+    except (KeyError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return None
     attribution = attribute(workload, roofs, force_static=args.static)
@@ -121,6 +130,14 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=None, metavar="ARCH",
                     help="smoke-scale model architecture for --attribute "
                          "(default: tiny dense toy; see repro_torch.configs)")
+    ap.add_argument("--full", action="store_true",
+                    help="attribute --arch's full config, not its smoke "
+                         "config")
+    ap.add_argument("--batch", type=int, default=None, metavar="N",
+                    help="batch of the --attribute workload")
+    ap.add_argument("--seq-len", type=int, default=None, metavar="S",
+                    help="sequence of the --attribute workload (decode: "
+                         "the cache's slots)")
     ap.add_argument("--static", action="store_true",
                     help="force static attribution (skip the profiled "
                          "invocation)")
@@ -134,6 +151,8 @@ def main(argv=None) -> int:
 
     if not args.paths and not args.attribute:
         ap.error("at least one cache path is required (or --attribute)")
+    if args.full and not args.arch:
+        ap.error("--full needs --arch")
 
     trials = []
     for p in args.paths:

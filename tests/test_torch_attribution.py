@@ -508,6 +508,43 @@ def test_cli_attribute_needs_a_workload_or_a_cache(capsys):
                                  "cpu"]) == 2
 
 
+def test_cli_attribute_takes_the_workload_shape(tmp_path, capsys):
+    from repro_torch import roofline_report
+    flops = {}
+    for batch in (1, 2):
+        out_json = tmp_path / f"attr{batch}.json"
+        assert roofline_report.main([
+            "--attribute", "decode_step", "--arch", "granite_3_2b",
+            "--batch", str(batch), "--seq-len", "24", "--static",
+            "--device", "cpu", "--attribution-json", str(out_json)]) == 0
+        doc = json.loads(out_json.read_text())
+        assert doc["workload"] == "decode_step"
+        flops[batch] = doc["total_flops"]
+    # one token per sequence: twice the batch, twice the products
+    assert flops[2] == pytest.approx(2 * flops[1], rel=1e-6)
+
+
+def test_cli_attribute_full_builds_the_full_config(monkeypatch, capsys):
+    from repro_torch import configs, roofline_report
+    from repro_torch.models import workloads
+    seen = {}
+
+    def refuse(name, arch, **kw):
+        seen.update(name=name, arch=arch, **kw)
+        raise ValueError("not built here")
+
+    monkeypatch.setattr(workloads, "build_workload", refuse)
+    assert roofline_report.main([
+        "--attribute", "prefill_step", "--arch", "zamba2_2_7b", "--full",
+        "--batch", "4", "--seq-len", "4096", "--static", "--device",
+        "cpu"]) == 2
+    assert seen["arch"] == configs.get("zamba2_2_7b")
+    assert (seen["batch_size"], seen["seq_len"]) == (4, 4096)
+    with pytest.raises(SystemExit):
+        roofline_report.main(["--attribute", "prefill_step", "--full",
+                              "--device", "cpu"])
+
+
 def test_tune_cli_live_and_strict_validate(tmp_path, capsys):
     from repro_torch.tune import main
     assert main(["--session", "s", "--benchmark", "triad", "--device", "cpu",

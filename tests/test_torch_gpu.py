@@ -4,7 +4,8 @@ compiled head dim and physical tile, the GEMM at every tile), the flash
 and SSD kernels' gradients, a mamba2 prefill through the SSD kernel,
 tuning sessions through the kernels (the GEMM tile search keeping all 12
 tiles, and a surrogate search over them recording its run in the
-ledger), and on-device timing of incumbent trials through torch.profiler.
+ledger), on-device timing of incumbent trials through torch.profiler,
+and the SMOKE granite and zamba2 decode on the card against the host.
 
 Marked ``gpu``; each skips from inside the ``card`` fixture when no card
 is visible, so every worker collects the same tests (on the CPU they are
@@ -351,6 +352,44 @@ def test_mamba2_prefill_goes_through_the_ssd_kernel(card):
     for key in ("ssm", "conv"):
         torch.testing.assert_close(cache[key].cpu(), want[key], rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["granite_3_2b", "zamba2_2_7b"])
+def test_serving_decode_on_card_matches_the_host(card, arch):
+    """The SMOKE model's prefill (zamba2's through the SSD kernel) and 8
+    decode steps on the card, the position a 0-d tensor there, match the
+    same steps on the host (an int position), on the same weights."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import api
+    from repro_torch.models.params import map_tree, materialize
+    from repro_torch.models.transformer import StepConfig
+    cfg = get_smoke(arch)
+    params = materialize(torch.Generator().manual_seed(0),
+                         api.param_defs(cfg))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24),
+                           generator=torch.Generator().manual_seed(1))
+    step = StepConfig(remat=False)
+    out = {}
+    for dev, p in (("cpu", params),
+                   ("cuda", map_tree(lambda _, t: t.to(card), params))):
+        toks = tokens.to(dev)
+        logits, cache = api.prefill_fn(p, {"tokens": toks[:, :16]}, cfg,
+                                       step)
+        cache = api.extend_cache(cache, 8)
+        for t in range(16, 24):
+            pos = t if dev == "cpu" else torch.tensor(t, device=card)
+            logits, cache = api.decode_fn(p, {"tokens": toks[:, t:t + 1]},
+                                          cache, pos, cfg, step)
+        out[dev] = (logits, cache)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out["cuda"][0].cpu(), out["cpu"][0],
+                               rtol=1e-4, atol=1e-4)
+    want, got = out["cpu"][1], out["cuda"][1]
+    for key in sorted(want):
+        pairs = ([(want[key][k], got[key][k]) for k in ("k", "v", "pos")]
+                 if key == "attn" else [(want[key], got[key])])
+        for w, g in pairs:
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
 
 
 def test_profile_sample_times_the_triad_kernel_on_card(card):

@@ -108,6 +108,30 @@ except RuntimeError as e:
     assert "refused: device 'cuda' requested" in proc.stdout
 
 
+def test_serve_cli_with_jax_and_reference_blocked():
+    """The serving launcher imports and serves on the host when asked with
+    jax and the JAX package blocked, its default device refuses without
+    a card, and its ``--help`` runs."""
+    proc = _run_blocked("""
+import runpy
+import repro_torch.launch.serve
+from repro_torch.launch.serve import main
+main(["--arch", "granite_3_2b", "--smoke", "--batch", "2", "--prompt-len",
+      "8", "--gen", "3", "--device", "cpu"])
+assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
+try:
+    main(["--arch", "granite_3_2b", "--smoke"])
+except RuntimeError as e:
+    print("refused:", e)
+sys.argv = ["repro_torch.launch.serve", "--help"]
+runpy.run_module("repro_torch.launch.serve", run_name="__main__")
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert "[serve] generated shape (2, 3)" in proc.stdout
+    assert "refused: device 'cuda' requested" in proc.stdout
+    assert "--prompt-len" in proc.stdout and "--device" in proc.stdout
+
+
 def test_cuda_without_a_card_raises(monkeypatch):
     from repro_torch import resolve_device
     from repro_torch.bench import common

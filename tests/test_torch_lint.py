@@ -458,6 +458,16 @@ def test_suppression_of_named_code_on_its_line(tmp_path, lint):
     assert "MS202" not in codes(lint.filter_suppressed(findings))
 
 
+def test_serve_prefill_sync_regression():
+    """The port's counterpart of ``tests/test_lint.py::
+    test_serve_prefill_sync_regression``: the serving launcher synchronizes
+    the device before each clock read, after the prefill (MS206) and
+    after the decode loop (MS201)."""
+    serve_py = REPO / "src" / "repro_torch" / "launch" / "serve.py"
+    findings = port_lint.lint_file(serve_py)
+    assert port_lint.filter_suppressed(findings) == []
+
+
 # ---------------------------------------------------------------------------
 # Pass 3 — lock discipline (MS3xx)
 # ---------------------------------------------------------------------------
@@ -686,8 +696,9 @@ def test_correct_declaration_is_clean():
 
 def test_registered_benchmarks_audit_clean_on_meta():
     from repro_torch.bench.common import AUDITED_WORKLOADS
-    assert sorted(AUDITED_WORKLOADS) == ["dgemm", "dgemm_sweep",
-                                         "synthetic", "train_step", "triad"]
+    assert sorted(AUDITED_WORKLOADS) == ["decode_step", "dgemm",
+                                         "dgemm_sweep", "synthetic",
+                                         "train_step", "triad"]
     findings = []
     for name, (bench, cfg) in AUDITED_WORKLOADS.items():
         spec = getattr(bench, "audit_spec", None)
