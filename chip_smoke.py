@@ -205,6 +205,31 @@ run when it fails:
                runs them. Last, ``python -m
                repro_torch.roofline_report --attribute train_step --html``
                (the tiny step, measured on the card).
+14. model stack — the MoE, VLM and enc-dec families at full width:
+               the bf16 flash kernel at the causal self-attention shape
+               of each train step below (llama-3.2-vision-11b's D = 128,
+               granite-moe's H = 16, whisper's B = 8 over 448 tokens)
+               checked at each quick tile against its plain version on
+               the tensor-core route, the D = 128 shape also timed beside
+               its bound and scaled_dot_product_attention; the train steps of
+               STACK_STEP (granite-moe-1b-a400m at all 24 layers, B=1,
+               S=4096; llama-3.2-vision-11b cut to 10 layers, B=1, S=4096;
+               whisper-base at B=8 with 1500 frames and 448 tokens) with
+               ``use_flash`` 0 and 1: finite losses and gradients, the
+               losses within MODEL_STEP["loss_rtol"], one flash launch per
+               causal self-attention layer on the flash path and none on
+               the plain one; the serves of STACK_SERVE (granite-moe and
+               llama-vision at full depth, 4 x 4096 + 32, the latter with
+               its 1600 image embeddings; mixtral-8x22b cut to 8 layers,
+               1 x 4096 + 16 through ``generate``; whisper with its
+               frames) as phase 8's, the VLM's cache holding its 32 self
+               layers and whisper's the cross K/V of its 1500 frames, and
+               granite-moe's decode replayed from a CUDA graph (the same
+               tokens); and decode continuing prefill in f32 at
+               STACK_CONTINUE's depths within CONTINUE_TOL, with the
+               smallest top-k router gap of each MoE model. Each run
+               prints its widths, depth and cuts, time, peak memory and
+               launches.
 
 Each phase prints its seconds.
 
@@ -214,8 +239,9 @@ tensor-core kernel, ``flash_attention_f32`` the 3xTF32 one, with the
 CUDA-core kernel it replaced as ``was_ms``, and
 ``flash_attention_f32_d256`` that CUDA-core kernel at D = 256, its one
 route; ``launches`` counts the main path's launches, phase 5's for
-matmul and triad, phases 8 and 9's for the SSD chunk scan (serving:
-``launches_serving``), with phases 10, 11,
+matmul and triad, phases 6, 9 and 14's for flash (phase 14's:
+``launches_model_stack``), phases 8 and 9's for the SSD chunk scan
+(serving: ``launches_serving``), with phases 10, 11,
 12 and 13's beside it as ``launches_device_timing``,
 ``launches_paper_tables``, ``launches_history_search`` and
 ``launches_observability``) and
@@ -406,6 +432,44 @@ F_P_AGREEMENT = (0.8, 1.25)
 #: shape, the middle shape held out for the oracle (9 - 1 tuned shapes)
 SWEEP = {"grid": "m=1024,2048,4096;n=1024,2048,4096;k=1024", "budget": 3,
          "holdout": "m=2048,n=2048,k=1024", "tuned": 8}
+#: phase 14's train steps at full width, each with use_flash 0 and 1 at
+#: phase 6's tile, their losses within MODEL_STEP["loss_rtol"] and one
+#: flash launch a causal self-attention layer a step (the backward
+#: recomputes through the plain attention). granite-moe at full depth
+#: (24 layers, 32 experts, top-8); llama-vision cut from 40 to 10 layers
+#: (two groups of 4 self layers and a cross layer; 8 flash layers);
+#: whisper at full depth with its 1500 frames and 448 text tokens (its
+#: text context) at B = 8 (6 flash layers: the decoder's). The kernel is
+#: held to the plain attention at each of these shapes directly
+#: (flash_stack_checks); the loss comparison is a second check, as a
+#: whole-model number on random weights need not move past its limit for
+#: a kernel wrong on a padded tail or a share of rows.
+#: timed steps of each (after a warm-up step), the faster one reported
+STACK_STEP_REPEATS = 2
+STACK_STEP = {"granite_moe": {"arch": "granite_moe_1b_a400m", "batch": 1,
+                              "seq": 4096},
+              "llama_vision": {"arch": "llama_3_2_vision_11b", "layers": 10,
+                               "batch": 1, "seq": 4096},
+              "whisper": {"arch": "whisper_base", "batch": 8, "seq": 448}}
+#: phase 14's serves (each after SERVE_WARMUP): granite-moe and
+#: llama-vision at full depth, 4 x 4096 + 32 (cut from decode_32k as in
+#: SERVE; llama-vision with its 1600 image embeddings); mixtral-8x22b cut
+#: from 56 to 8 layers (a layer holds 4.8 GB of bf16 experts: 56 do not
+#: fit in 80 GB), 1 x 4096 + 16 through ``generate``; whisper at full
+#: depth with its frames, 4 x 416 + 32 (448 positions, its text context)
+STACK_SERVE = {"granite_moe": {"arch": "granite_moe_1b_a400m", "batch": 4,
+                               "prompt": 4096, "gen": 32},
+               "mixtral": {"arch": "mixtral_8x22b", "layers": 8,
+                           "batch": 1, "prompt": 4096, "gen": 16},
+               "llama_vision": {"arch": "llama_3_2_vision_11b", "batch": 4,
+                                "prompt": 4096, "gen": 32},
+               "whisper": {"arch": "whisper_base", "batch": 4,
+                           "prompt": 416, "gen": 32}}
+#: phase 14's f32 decode-continues-prefill (SERVE_CONTINUE's lengths) at
+#: full width: granite-moe cut to 4 layers, mixtral to 2, llama-vision to
+#: 5 (one group: 4 self layers and a cross layer), whisper at its 6
+STACK_CONTINUE = {"granite_moe_1b_a400m": 4, "mixtral_8x22b": 2,
+                  "llama_3_2_vision_11b": 5, "whisper_base": 6}
 
 
 def fail(msg: str) -> None:
@@ -1219,9 +1283,10 @@ def decode_continues_prefill() -> dict:
 class ServeWatch:
     """Inside the ``with`` block, wraps ``api.prefill_fn`` and
     ``api.decode_fn`` (the entry points ``launch.serve`` calls) to keep
-    the last prefill's logits and the last decode call's weights, cache,
-    position and logits: what a ``serve`` call leaves behind, for the
-    checks and the replayed decode. The wrapped calls are unchanged."""
+    the last prefill's logits and the last decode call's weights, batch
+    (the image embeddings of a VLM), cache, position and logits: what a
+    ``serve`` call leaves behind, for the checks and the replayed decode.
+    The wrapped calls are unchanged."""
 
     def __enter__(self) -> "ServeWatch":
         from repro_torch.models import api
@@ -1236,7 +1301,8 @@ class ServeWatch:
         def decode(params, batch, cache, pos, cfg, step):
             logits, cache = decode_fn(params, batch, cache, pos, cfg, step)
             self.last = {"params": params, "cache": cache, "pos": pos,
-                         "logits": logits, "cfg": cfg, "step": step}
+                         "logits": logits, "cfg": cfg, "step": step,
+                         "batch": batch}
             return logits, cache
 
         api.prefill_fn, api.decode_fn = prefill, decode
@@ -1255,36 +1321,83 @@ def named_leaves(tree: dict, prefix: str = ""):
             yield f"{prefix}{k}", tree[k]
 
 
+def kv_layers(cfg) -> int:
+    """The layers of ``cfg``'s self-attention KV cache, as
+    ``api.cache_shapes`` lays it out."""
+    from repro_torch.models import api
+    from repro_torch.models.config import WorkloadShape
+    tree = api.cache_shapes(cfg, WorkloadShape("kv", 1, 1, "decode"))
+    return tree["attn"]["k"].shape[0]
+
+
+def cache_shapes_served(cfg, batch: int, length: int) -> dict:
+    """``api.cache_shapes`` of ``batch`` sequences of ``length`` tokens
+    as (path -> (shape, dtype)). The attention caches are ``length``
+    long past a sliding window too: serving grows the prefill's cache by
+    the generated tokens."""
+    import dataclasses
+    from repro_torch.models import api
+    from repro_torch.models.config import WorkloadShape
+    tree = api.cache_shapes(dataclasses.replace(cfg, window=None),
+                            WorkloadShape("served", length, batch, "decode"))
+    return {path: (tuple(leaf.shape), leaf.dtype)
+            for path, leaf in named_leaves(tree)}
+
+
 def served(spec: dict) -> dict:
-    """One model at full width and depth through ``serve`` (SERVE): a
+    """One model at full width through ``serve`` (SERVE, STACK_SERVE): a
     warm-up serve, then the timed one, with the launch counts set to 0
-    just before it and read just after. Requires finite prefill and
-    decode logits, every generated token in the vocabulary, no flash
-    launch (the reference's prefill is plain attention), and for a model
-    with Mamba2 layers one SSD launch per layer, and a KV cache of
-    (attention layers, B, Hkv, prompt + gen, Dh) in the model's dtype."""
+    just before it and read just after. With ``spec["layers"]`` the depth
+    is cut: the weights are materialized once for the cut config and
+    both runs go through ``launch.serve.generate`` with ``serve``'s
+    prompt and inputs. Requires finite prefill and decode logits, every
+    generated token in the vocabulary, no flash launch (the reference's
+    prefill is plain attention), and for a model with Mamba2 layers one
+    SSD launch per layer, and every leaf of the last decode step's cache
+    in the shape and dtype ``api.cache_shapes`` gives B sequences of
+    prompt + gen tokens (:func:`cache_shapes_served`)."""
+    import dataclasses
+    import numpy as np
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get
-    from repro_torch.launch.serve import serve
-    from repro_torch.models.hybrid import n_shared_uses
-    cfg = get(spec["arch"])
+    from repro_torch.launch.serve import generate, serve, serve_inputs
+    from repro_torch.models import api
+    from repro_torch.models.params import materialize
+    full = get(spec["arch"])
+    cfg = dataclasses.replace(full, n_layers=spec.get("layers",
+                                                      full.n_layers))
     b, s, gen = spec["batch"], spec["prompt"], spec["gen"]
-    serve(spec["arch"], batch=b, prompt_len=SERVE_WARMUP["prompt"],
-          gen=SERVE_WARMUP["gen"], smoke=False)
+    if "layers" in spec:
+        params = materialize(torch.Generator(device="cuda").manual_seed(0),
+                             api.param_defs(cfg))
+        rng = np.random.default_rng(1)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               (b, s))).cuda()
+        inputs = serve_inputs(cfg, b, rng, torch.device("cuda"))
+
+        def run(prompt_len: int, n: int) -> dict:
+            out = generate(params, prompt[:, :prompt_len], cfg, n,
+                           inputs=inputs)
+            return {"tokens": out["tokens"].cpu().numpy(),
+                    "prefill_s": out["prefill_s"],
+                    "decode_s_per_token": out["decode_s"] / max(n - 1, 1)}
+    else:
+        def run(prompt_len: int, n: int) -> dict:
+            return serve(spec["arch"], batch=b, prompt_len=prompt_len,
+                         gen=n, smoke=False)
+    run(SERVE_WARMUP["prompt"], SERVE_WARMUP["gen"])
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     with ServeWatch() as watch:
-        result = serve(spec["arch"], batch=b, prompt_len=s, gen=gen,
-                       smoke=False)
+        result = run(s, gen)
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     state = watch.last
     tokens = result["tokens"]
-    mamba = cfg.family in ("ssm", "hybrid")
-    want_ssd = cfg.n_layers if mamba else 0
+    want_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     if launches["ssd_chunk_scan"] != want_ssd or launches["flash_attention"]:
         fail(f"serve {cfg.name}: launches {launches}, want "
              f"ssd_chunk_scan={want_ssd} (one per Mamba2 layer in the "
@@ -1297,24 +1410,32 @@ def served(spec: dict) -> dict:
             (tokens >= 0) & (tokens < cfg.vocab_size)).all():
         fail(f"serve {cfg.name}: tokens {tokens.shape} outside the "
              f"vocabulary of {cfg.vocab_size}")
-    kv = state["cache"]["attn"]["k"]
-    want_kv = ((n_shared_uses(cfg) if mamba else cfg.n_layers), b,
-               cfg.n_kv_heads, s + gen, cfg.head_dim_)
-    if tuple(kv.shape) != want_kv or kv.dtype != cfg.tdtype:
-        fail(f"serve {cfg.name}: KV cache {tuple(kv.shape)} {kv.dtype}, "
-             f"want {want_kv} {cfg.tdtype}")
+    cache = state["cache"]
+    want = cache_shapes_served(cfg, b, s + gen)
+    leaves = dict(named_leaves(cache))
+    got = {k: (tuple(t.shape), t.dtype) for k, t in leaves.items()}
+    if got != want:
+        fail(f"serve {cfg.name}: cache {got}, want {want}")
     prefill_ms = result["prefill_s"] * 1e3
     decode_ms = result["decode_s_per_token"] * 1e3
-    print(f"{cfg.name}: all {cfg.n_layers} layers at full width (d_model "
-          f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} kv heads "
-          f"of {cfg.head_dim_}, window {cfg.window}, vocab "
-          f"{cfg.vocab_size}, {cfg.dtype}); serve(batch={b}, "
-          f"prompt_len={s}, gen={gen}): prefill {prefill_ms:.1f} ms "
+    depth = (f"{cfg.n_layers} of {full.n_layers} layers (depth cut)"
+             if cfg.n_layers != full.n_layers else
+             f"all {cfg.n_layers} layers")
+    extra = "".join(f", {k} {tuple(v.shape)}" for k, v in
+                    state["batch"].items() if k != "tokens")
+    print(f"{cfg.name}: {depth} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, {cfg.n_kv_heads} kv heads of "
+          f"{cfg.head_dim_}, window {cfg.window}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}; {cfg.n_params() / 1e9:.3f}B params); "
+          f"{'generate' if 'layers' in spec else 'serve'}(batch={b}, "
+          f"prompt_len={s}, gen={gen}{extra}): prefill {prefill_ms:.1f} ms "
           f"({b * s / result['prefill_s']:.0f} tokens/s), decode "
           f"{decode_ms:.3f} ms per step of {b} tokens (eager), peak memory "
-          f"{peak / 2 ** 30:.2f} GiB; KV cache {tuple(kv.shape)} "
-          f"{str(kv.dtype).replace('torch.', '')}; launches {launches}; "
-          f"first tokens {tokens[:, :8].tolist()}")
+          f"{peak / 2 ** 30:.2f} GiB; cache "
+          + ", ".join(f"{k} {shape} {str(dt).replace('torch.', '')}"
+                      for k, (shape, dt) in got.items())
+          + f"; launches "
+          f"{launches}; first tokens {tokens[:, :8].tolist()}")
     return {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
             "tokens_per_s": b * s / result["prefill_s"],
             "peak_gib": peak / 2 ** 30, "launches": launches,
@@ -1352,6 +1473,7 @@ def replayed_decode(state: dict, steps: int = GRAPH_STEPS) -> dict:
     from repro_torch.models.params import map_tree
     params, cfg, step = state["params"], state["cfg"], state["step"]
     vocab = cfg.vocab_size
+    inputs = {k: v for k, v in state["batch"].items() if k != "tokens"}
 
     def copy_into(static: dict, tree: dict) -> None:
         for (_, s_), (_, t_) in zip(named_leaves(static),
@@ -1368,8 +1490,8 @@ def replayed_decode(state: dict, steps: int = GRAPH_STEPS) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(steps):
-            logits, cache = api.decode_fn(params, {"tokens": tok}, cache,
-                                          pos0 + i, cfg, step)
+            logits, cache = api.decode_fn(params, {"tokens": tok, **inputs},
+                                          cache, pos0 + i, cfg, step)
             tok = logits[..., :vocab].argmax(dim=-1)
             eager.append(tok)
         # the host's clock before the synchronize: how long it took to
@@ -1384,7 +1506,8 @@ def replayed_decode(state: dict, steps: int = GRAPH_STEPS) -> dict:
         static_pos = torch.tensor(pos0, device="cuda")
 
         def one_step():
-            logits, new = api.decode_fn(params, {"tokens": static_tok},
+            logits, new = api.decode_fn(params,
+                                        {"tokens": static_tok, **inputs},
                                         static, static_pos, cfg, step)
             copy_into(static, new)
             static_tok.copy_(logits[..., :vocab].argmax(dim=-1))
@@ -1471,36 +1594,83 @@ def long_context_decode(state: dict) -> dict:
     return {"ms": ms, "peak_gib": peak / 2 ** 30, "kv_gb": kv_gb}
 
 
-def serving_continues_prefill(arch: str) -> dict:
-    """In f32 at ``arch``'s full width cut to SERVE_CONTINUE's depth,
-    B = 1: a prefill of SERVE_CONTINUE["prefill"] tokens, grown by and
-    continued with SERVE_CONTINUE["decode"] teacher-forced decode steps,
-    must give the last logits and every cache leaf of one prefill of all
-    the tokens (position tags exactly, the rest within CONTINUE_TOL)."""
+class RouteWatch:
+    """Inside the ``with`` block, wraps ``repro_torch.models.moe.route``
+    to keep, for every routing call, the smallest gap between a token's
+    k-th and (k+1)-th router logit: how close a routing came to another
+    choice. While the wrapped call runs, its ``torch.topk`` also takes a
+    top-(k+1) of the same logits for the gap; the call and its result
+    are unchanged."""
+
+    def __enter__(self) -> "RouteWatch":
+        import torch
+        from repro_torch.models import moe
+        self.moe, self.route, self.gaps = moe, moe.route, []
+        topk = torch.topk
+
+        def watched(logits, k, **kw):
+            if k < logits.shape[-1]:
+                top = topk(logits, k + 1, dim=-1).values
+                self.gaps.append((top[..., -2] - top[..., -1]).min())
+            return topk(logits, k, **kw)
+
+        def route(p, xg, cfg):
+            torch.topk = watched
+            try:
+                return self.route(p, xg, cfg)
+            finally:
+                torch.topk = topk
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.moe.route = self.route
+
+    def smallest(self) -> float:
+        return min((float(g) for g in self.gaps), default=math.inf)
+
+
+def serving_continues_prefill(arch: str, layers: "int | None" = None
+                              ) -> dict:
+    """In f32 at ``arch``'s full width cut to ``layers`` (default
+    SERVE_CONTINUE's depth), B = 1: a prefill of SERVE_CONTINUE["prefill"]
+    tokens, grown by and continued with SERVE_CONTINUE["decode"]
+    teacher-forced decode steps, must give the last logits and every
+    cache leaf of one prefill of all the tokens (position tags exactly,
+    the rest within CONTINUE_TOL). Every call gets the same frames or
+    image embeddings (``serve``'s inputs); for an MoE model the smallest
+    top-k gap of the router logits over all of it is printed (a gap near
+    the f32 rounding could flip a choice between the two paths)."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get
+    from repro_torch.launch.serve import serve_inputs
     from repro_torch.models import api
     from repro_torch.models.params import materialize
     from repro_torch.models.transformer import StepConfig
-    cfg = dataclasses.replace(get(arch), dtype="float32",
-                              n_layers=SERVE_CONTINUE["layers"][arch])
+    cfg = dataclasses.replace(
+        get(arch), dtype="float32",
+        n_layers=layers or SERVE_CONTINUE["layers"][arch])
     n0, n1 = SERVE_CONTINUE["prefill"], SERVE_CONTINUE["decode"]
     params = materialize(torch.Generator(device="cuda").manual_seed(0),
                          api.param_defs(cfg))
-    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (1, n0 + n1))).cuda()
+    inputs = serve_inputs(cfg, 1, rng, torch.device("cuda"))
     step = StepConfig(remat=False)
-    with torch.no_grad():
-        logits, cache = api.prefill_fn(params, {"tokens": tokens[:, :n0]},
-                                       cfg, step)
+    with torch.no_grad(), RouteWatch() as routes:
+        logits, cache = api.prefill_fn(
+            params, {"tokens": tokens[:, :n0], **inputs}, cfg, step)
         cache = api.extend_cache(cache, n1)
         for t in range(n0, n0 + n1):
             logits, cache = api.decode_fn(
-                params, {"tokens": tokens[:, t:t + 1]}, cache, t, cfg, step)
-        want_logits, want = api.prefill_fn(params, {"tokens": tokens}, cfg,
-                                           step)
+                params, {"tokens": tokens[:, t:t + 1], **inputs}, cache, t,
+                cfg, step)
+        want_logits, want = api.prefill_fn(
+            params, {"tokens": tokens, **inputs}, cfg, step)
     got_leaves = {"logits": logits, **dict(named_leaves(cache))}
     want_leaves = {"logits": want_logits, **dict(named_leaves(want))}
     if sorted(got_leaves) != sorted(want_leaves):
@@ -1516,12 +1686,17 @@ def serving_continues_prefill(arch: str) -> dict:
         errs[name] = check_close(f"{cfg.name} decode continues prefill: "
                                  f"{name}", got_t, want_leaves[name],
                                  CONTINUE_TOL)
+    gap = routes.smallest()
     print(f"f32 {cfg.name} ({cfg.n_layers} layers, full width): prefill "
           f"{n0} + {n1} decode steps vs prefill {n0 + n1}: max abs err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-          + f"; position tags equal (limit {CONTINUE_TOL})")
+          + f"; position tags equal (limit {CONTINUE_TOL})"
+          + (f"; smallest top-k router gap {gap:.3e}" if cfg.n_experts
+             else ""))
     del params, cache, want
     torch.cuda.empty_cache()
+    if cfg.n_experts:
+        errs["smallest_topk_gap"] = gap
     return errs
 
 
@@ -2369,6 +2544,217 @@ def observability_path(tile: tuple[int, int]) -> dict:
             "tune_launches": tune_counts}
 
 
+def flash_stack_checks(tiles) -> dict:
+    """The bf16 flash kernel at the causal self-attention shape (B, H,
+    Hkv, S, D) of each STACK_STEP train step: llama-vision's (D = 128, the
+    first path to launch it), granite-moe's, and whisper's decoder at
+    B = 8 over its 448 text tokens (padded to the tile inside the op).
+    Each is checked against the plain version at each of ``tiles``
+    within FLASH_MAIN_TOL, and every launch must take the tensor-core
+    kernel. The D = 128 shape is also timed at each tile (CUDA events)
+    beside the plain version, scaled_dot_product_attention and the
+    bound. Returns {"errs": max abs err per model, "d128": its timing}."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    errs, d128 = {}, None
+    for label, spec in STACK_STEP.items():
+        cfg = get(spec["arch"])
+        b, h, hkv, s, d = shape = (spec["batch"], cfg.n_heads,
+                                   cfg.n_kv_heads, spec["seq"],
+                                   cfg.head_dim_)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        q, k, v = [torch.randn((b, heads, s, d), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for heads in (h, hkv, hkv)]
+        want = attention_ref(q, k, v, causal=True, window=cfg.window)
+        before = dict(flash_attention.route_launches)
+        ms, err = {}, 0.0
+        for tile in tiles:
+            err = max(err, check_close(
+                f"flash {shape} bf16 causal ({cfg.name}) tile {tile}",
+                launch_checked(flash_attention, lambda t=tile:
+                               flash_attention(q, k, v, causal=True,
+                                               window=cfg.window,
+                                               bq=t[0], bk=t[1])),
+                want, FLASH_MAIN_TOL["bf16"]))
+            if d == 128:
+                ms[tile] = cuda_ms(lambda t=tile: flash_attention(
+                    q, k, v, causal=True, bq=t[0], bk=t[1]), iters=10)
+        after = dict(flash_attention.route_launches)
+        if any(after[r] != before[r] for r in ("tf32x3", "cuda_cores")) or \
+                after["tensor_cores"] == before["tensor_cores"]:
+            fail(f"flash {shape} bf16 ({cfg.name}): launches per route "
+                 f"went from {before} to {after}, want the tensor-core "
+                 f"kernel only")
+        errs[label] = err
+        print(f"flash {shape} bf16 causal ({cfg.name}'s self attention): "
+              f"{len(tiles)} tiles ok, max abs err {err:.3e} (tol "
+              f"{FLASH_MAIN_TOL['bf16']})")
+        del want
+        if d == 128:
+            d128 = flash_d128_times(q, k, v, ms, err)
+        del q, k, v
+        torch.cuda.empty_cache()
+    if d128 is None:
+        fail("flash: no STACK_STEP model has head dim 128")
+    return {"errs": errs, "d128": d128}
+
+
+def flash_d128_times(q, k, v, ms: dict, err: float) -> dict:
+    """The D = 128 shape's tile times ``ms`` beside the plain version,
+    scaled_dot_product_attention and the bound, printed and returned."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     bytes_moved)
+    from repro_torch.kernels.flash_attention import flops as flash_flops
+    shape = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3])
+    b, h, _, s, d = shape
+    tile = min(ms, key=ms.get)
+    flops, moved = flash_flops(b, h, s, d, True), bytes_moved(q, k)
+    out = {"shape": shape, "kernel": ms[tile], "tile": tile, "tile_ms": ms,
+           "max_abs_err": err,
+           "plain": cuda_ms(lambda: attention_ref(q, k, v, causal=True),
+                            iters=3, warmup=1),
+           "library": cuda_ms(lambda: torch.nn.functional
+                              .scaled_dot_product_attention(
+                                  q, k, v, is_causal=True, enable_gqa=True),
+                              iters=20),
+           "bound": max(flops / BF16_PEAK, moved / HBM_PEAK) * 1e3,
+           "bound_by": ("operations" if flops / BF16_PEAK >= moved / HBM_PEAK
+                        else "bytes")}
+    print(f"flash {shape} bf16 causal (D = 128): " + " | ".join(
+              f"tile {t} {m:.4f} ms" for t, m in ms.items())
+          + f" | kernel {out['kernel']:.4f} ms (tile {tile}, "
+          f"{flops / out['kernel'] / 1e9:.2f} TFLOP/s, "
+          f"{out['bound'] / out['kernel']:.1%} of its bound) | bound "
+          f"{out['bound']:.4f} ms ({out['bound_by']}; FLOPs / 989 TFLOP/s, "
+          f"bytes {moved / 1e6:.1f} MB / 3.35 TB/s) | plain "
+          f"{out['plain']:.4f} ms | scaled_dot_product_attention "
+          f"{out['library']:.4f} ms (kernel / library "
+          f"{out['kernel'] / out['library']:.3f}) | max abs err {err:.3e}")
+    return out
+
+
+def stack_train_step(spec: dict, tile: tuple[int, int]) -> dict:
+    """One model's train step at full width (STACK_STEP) on the plain path
+    and on the flash path at ``tile``: each a warm-up step, then the
+    timed ones with the launch counts set to 0 just before them and read
+    just after: STACK_STEP_REPEATS timed steps, the faster one reported.
+    Requires finite losses and gradients, one flash launch a step per
+    causal self-attention layer on the flash path (all on the tensor-core
+    kernel) and none on the plain path, and the two losses within
+    MODEL_STEP["loss_rtol"]."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get
+    from repro_torch.models.transformer import StepConfig
+    from repro_torch.models.workloads import build_workload
+    full = get(spec["arch"])
+    cfg = dataclasses.replace(full, n_layers=spec.get("layers",
+                                                      full.n_layers))
+    b, s = spec["batch"], spec["seq"]
+    w = build_workload("train_step", cfg, batch_size=b, seq_len=s)
+    want_flash = kv_layers(cfg)
+    runs = {}
+    for label, step in (("plain", StepConfig(remat=False)),
+                        ("flash", StepConfig(use_flash=True,
+                                             flash_block_q=tile[0],
+                                             flash_block_k=tile[1],
+                                             remat=False))):
+        fn = w.with_step(step).fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        fn(*w.args)                                  # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        routes = dict(kernels.flash_attention.route_launches)
+        ms, grads = [], None
+        for _ in range(STACK_STEP_REPEATS):
+            grads = None                  # one step's gradients at a time
+            t0 = time.perf_counter()
+            loss, grads = fn(*w.args)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = kernels.launch_counts()
+        routes = {r: n - routes[r] for r, n in
+                  kernels.flash_attention.route_launches.items()}
+        peak = torch.cuda.max_memory_allocated()
+        if not math.isfinite(float(loss)) or not all(
+                bool(torch.isfinite(g).all()) for g in tree_leaves(grads)):
+            fail(f"{cfg.name} train step ({label}): non-finite loss "
+                 f"{float(loss)} or gradients")
+        del grads
+        want = STACK_STEP_REPEATS * want_flash if step.use_flash else 0
+        if launches["flash_attention"] != want or \
+                routes["tensor_cores"] != want:
+            fail(f"{cfg.name} train step ({label}): launches {launches}, "
+                 f"routes {routes}; want {want} flash launches on the "
+                 f"tensor-core kernel")
+        runs[label] = {"loss": float(loss), "ms": min(ms), "ms_each": ms,
+                       "peak_gib": peak / 2 ** 30, "launches": launches}
+    rel = abs(runs["flash"]["loss"] / runs["plain"]["loss"] - 1.0)
+    depth = (f"depth cut from {full.n_layers} to {cfg.n_layers} layers"
+             if cfg.n_layers != full.n_layers else
+             f"all {cfg.n_layers} layers")
+    extra = "".join(f", {k} {tuple(v.shape)}" for k, v in w.args[1].items()
+                    if k != "tokens")
+    experts = (f" x {cfg.n_experts} experts, top-{cfg.top_k}"
+               if cfg.n_experts else "")
+    print(f"{cfg.name} train step at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, {cfg.n_kv_heads} kv heads of "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}{experts}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}); {depth} "
+          f"({cfg.n_params() / 1e9:.3f}B params); B={b}, S={s}{extra}")
+    for label, r in runs.items():
+        print(f"  use_flash={int(label == 'flash')}"
+              + (f" tile {tile}" if label == "flash" else "")
+              + f": loss {r['loss']:.6f}, step {r['ms']:.1f} ms (the "
+              f"faster of " + ", ".join(f"{t:.1f}" for t in r["ms_each"])
+              + f"), peak "
+              f"memory {r['peak_gib']:.2f} GiB, launches {r['launches']}")
+    print(f"  loss use_flash=1 vs 0: relative {rel:.3e} (tol "
+          f"{MODEL_STEP['loss_rtol']}); {want_flash} flash launches a step "
+          f"(one per causal self-attention layer), "
+          f"{STACK_STEP_REPEATS} timed steps each")
+    if not (math.isfinite(rel) and rel <= MODEL_STEP["loss_rtol"]):
+        fail(f"{cfg.name} train step: flash loss {runs['flash']['loss']} "
+             f"vs plain {runs['plain']['loss']}")
+    del w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**runs, "loss_rel": rel, "flash_launches": want_flash}
+
+
+def model_stack_path(tile: tuple[int, int], tiles) -> dict:
+    """Phase 14: the MoE, VLM and enc-dec families at full width. The
+    bf16 flash kernel at each train step's shape
+    (:func:`flash_stack_checks`, llama-vision's D = 128 timed);
+    the train steps of STACK_STEP (:func:`stack_train_step`); the serves
+    of STACK_SERVE (:func:`served`), granite-moe's decode also replayed
+    from a CUDA graph (:func:`replayed_decode`: the MoE decode step
+    captures); and decode continuing prefill in f32 at STACK_CONTINUE's
+    depths (:func:`serving_continues_prefill`)."""
+    import torch
+    out = {"flash": flash_stack_checks(tiles), "train": {}, "serve": {}}
+    for label, spec in STACK_STEP.items():
+        out["train"][label] = stack_train_step(spec, tile)
+    for label, spec in STACK_SERVE.items():
+        run = served(spec)
+        if label == "granite_moe":
+            run.update(replayed_decode(run["state"]))
+        del run["state"]
+        torch.cuda.empty_cache()
+        out["serve"][label] = run
+    out["continue"] = {arch: serving_continues_prefill(arch, layers)
+                       for arch, layers in STACK_CONTINUE.items()}
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -3011,6 +3397,14 @@ def main() -> int:
     phase("observability and lint (ops, linter, audit, attribution)")
     observe = observability_path(step["tile"])
 
+    # -- 14. model stack -------------------------------------------------------
+    phase("model stack (granite-moe-1b-a400m, mixtral-8x22b, "
+          "llama-3.2-vision-11b, whisper-base at full width)")
+    stack = model_stack_path(step["tile"], quick_tiles)
+    stack_flash = {label: run["flash"]["launches"]["flash_attention"]
+                   for label, run in stack["train"].items()}
+    d128 = stack["flash"]["d128"]
+
     # -- result lines ------------------------------------------------------
     phase("result")
     print(f"total wall {time.perf_counter() - t_start:.1f}s")
@@ -3055,9 +3449,11 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:33",
          "launches": (step["routes"]["tensor_cores"]
-                      + hyb["routes"]["tensor_cores"]),
+                      + hyb["routes"]["tensor_cores"]
+                      + sum(stack_flash.values())),
          "launches_granite_step": step["routes"]["tensor_cores"],
          "launches_zamba2_step": hyb["routes"]["tensor_cores"],
+         "launches_model_stack": stack_flash,
          "launches_observability": (
              observe["launches"]["granite"]["flash_attention"]
              + observe["launches"]["zamba2"]["flash_attention"]),
@@ -3074,10 +3470,27 @@ def main() -> int:
          "d80_tile_ms": {f"{t[0]}x{t[1]}": ms
                          for t, ms in flash_d80.items()},
          "d80_library_ms": d80_lib,
+         "d128": {"shape": list(d128["shape"]), "tile": list(d128["tile"]),
+                  "ms": d128["kernel"],
+                  "tile_ms": {f"{t[0]}x{t[1]}": ms for t, ms in
+                              d128["tile_ms"].items()},
+                  "plain_ms": d128["plain"], "bound_ms": d128["bound"],
+                  "bound_by": d128["bound_by"],
+                  "library_ms": d128["library"],
+                  "max_abs_err": d128["max_abs_err"]},
+         "model_stack_max_abs_err": stack["flash"]["errs"],
          "dtype": "bfloat16", "causal": True, "tensor_cores": True,
          "model_step_ms": step["step_ms"][(1, *step["tile"])],
          "full_depth_step_ms": deep["step_ms"],
-         "full_depth_peak_gib": deep["peak_gib"]},
+         "full_depth_peak_gib": deep["peak_gib"],
+         "model_stack": {
+             "train": {label: {k: run[k] for k in
+                               ("plain", "flash", "loss_rel")}
+                       for label, run in stack["train"].items()},
+             "serve": {label: {k: v for k, v in run.items()
+                               if k != "launches"}
+                       for label, run in stack["serve"].items()},
+             "continue": stack["continue"]}},
         {"name": "flash_attention_f32", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_tf32x3.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:33",

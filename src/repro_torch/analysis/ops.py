@@ -20,7 +20,12 @@ instead, through a ``TorchDispatchMode``:
   move nothing);
 - an op without a formula that moves bytes is a memory op; an op that
   does neither keeps a zero-cost record (``modeled=False``, so measured
-  device time can still join it) and is tallied in ``unhandled``.
+  device time can still join it) and is tallied in ``unhandled``;
+- an op dispatched inside a :class:`scope` block carries the innermost
+  block's name (``scope``), so a report can sum a module's parts (the
+  MoE layer's router, dispatch, experts and combine). Autograd's
+  backward runs after the forward's blocks have closed: its ops carry
+  none.
 
 It runs on ``meta`` tensors as well as real ones: the counterpart of
 tracing with ``jax.ShapeDtypeStruct``, with nothing allocated.
@@ -37,7 +42,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
-__all__ = ["ModuleOps", "OpCost", "OpCounter", "count_ops", "op_key"]
+__all__ = ["ModuleOps", "OpCost", "OpCounter", "count_ops", "op_key",
+           "scope"]
 
 #: ops that only allocate: they read and write nothing
 _ALLOCATING = frozenset({
@@ -67,6 +73,7 @@ class OpCost:
     flops: float
     bytes_accessed: float
     modeled: bool = True
+    scope: str = ""              # the innermost open :class:`scope`
 
     @property
     def intensity(self) -> float:
@@ -94,6 +101,28 @@ class ModuleOps:
 
     def by_name(self) -> dict[str, OpCost]:
         return {o.name: o for o in self.ops}
+
+
+#: the names of the open :class:`scope` blocks, innermost last
+_SCOPES: list[str] = []
+
+
+class scope:
+    """``with scope("moe.experts"):`` names the part of a model that the
+    ops dispatched inside belong to, for an op count. Outside a count it
+    only pushes and pops the name (nothing reaches the device, so a CUDA
+    graph captures through it)."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> None:
+        _SCOPES.append(self.name)
+
+    def __exit__(self, *exc) -> None:
+        _SCOPES.pop()
 
 
 def op_key(name: str, occurrence: int) -> str:
@@ -174,7 +203,8 @@ class OpCounter(TorchDispatchMode):
             self.unhandled[name] = self.unhandled.get(name, 0) + 1
         self.records.append(OpCost(name=op_key(name, k), kind=name,
                                    flops=flops, bytes_accessed=moved,
-                                   modeled=modeled))
+                                   modeled=modeled,
+                                   scope=_SCOPES[-1] if _SCOPES else ""))
         return out
 
     def module(self) -> ModuleOps:

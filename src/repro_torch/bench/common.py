@@ -23,7 +23,7 @@ the two packages measure the same configurations on the same data.
     into ``k_chunk``-wide chunks (``torch.einsum``, TF32 off), over the
     shape grid :func:`gemm_shape_space`.
   * ``model_step_family`` — a whole-model step (the train step's loss
-    and gradients, or a prefill or decode step where the family has one)
+    and gradients, or a prefill or decode step)
     as an objective over the flash-attention tiles
     (:func:`model_step_space`); GFLOP/s over one shared work term.
 
@@ -777,7 +777,7 @@ def model_step_family(workload: str,
 
     ``workload`` names a :mod:`repro_torch.models.workloads` builder
     (``train_step``, ``prefill_step`` or ``decode_step``, for every
-    ported family); ``arch`` is an architecture
+    family); ``arch`` is an architecture
     name (its SMOKE config), a :class:`ModelConfig` or None (the tiny
     dense toy). The weights, inputs and work term are built once, at the
     first config, and shared by every config; each config pre-heats

@@ -4,8 +4,9 @@ position-tagged KV cache (rolling window for SWA archs).
   python -m repro_torch.examples.serve_batched --arch zamba2_2_7b \
       [--device cpu]
 
-(uses the reduced smoke config of the chosen architecture; MoE, VLM and
-enc-dec architectures are not ported yet and raise)
+(uses the reduced smoke config of the chosen architecture, any of the
+ten; a VLM's prompts come with image embeddings, an enc-dec's with
+frame embeddings)
 """
 
 import argparse

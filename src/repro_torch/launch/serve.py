@@ -38,14 +38,32 @@ from ..models.config import ModelConfig
 from ..models.params import materialize
 from ..models.transformer import StepConfig
 
-__all__ = ["generate", "main", "serve"]
+__all__ = ["generate", "main", "serve", "serve_inputs"]
+
+
+def serve_inputs(cfg: ModelConfig, batch: int, rng: np.random.Generator,
+                 device: torch.device) -> dict:
+    """The family's inputs besides the prompt: ``frames`` (B, n_frames,
+    d_enc) for enc-dec, ``image_embeds`` (B, n_image_tokens, d_model) for
+    a VLM, standard normals from ``rng`` in the model's dtype."""
+    shape = {"encdec": ("frames", (batch, cfg.n_frames, cfg.d_enc)),
+             "vlm": ("image_embeds",
+                     (batch, cfg.n_image_tokens, cfg.d_model))}
+    if cfg.family not in shape:
+        return {}
+    name, dims = shape[cfg.family]
+    x = rng.standard_normal(dims, dtype=np.float32)
+    return {name: torch.from_numpy(x).to(device=device, dtype=cfg.tdtype)}
 
 
 def generate(params: dict, prompt: torch.Tensor, cfg: ModelConfig, gen: int,
-             *, forced: Optional[torch.Tensor] = None) -> dict:
+             *, forced: Optional[torch.Tensor] = None,
+             inputs: Optional[dict] = None) -> dict:
     """Prefill ``prompt`` (B, S) and decode ``gen - 1`` more tokens, each
     at position S + t from the cache the prefill built (grown by ``gen``
-    slots). Each token is the argmax of the last logits over the
+    slots). ``inputs`` holds the family's other inputs (``frames``,
+    ``image_embeds``), given to the prefill and to every decode step.
+    Each token is the argmax of the last logits over the
     vocabulary, or, when ``forced`` (B, gen) is given, its column t
     (teacher forcing). Returns the tokens (B, gen) int32, the logits each
     token came from (B, gen, vocab_padded) and the seconds of the prefill
@@ -55,9 +73,11 @@ def generate(params: dict, prompt: torch.Tensor, cfg: ModelConfig, gen: int,
     prompt_len = prompt.shape[1]
     step = StepConfig(remat=False, loss_chunk=min(128, prompt_len))
     sync = synchronizer(prompt.device)
+    inputs = inputs or {}
     with torch.no_grad():
         t0 = time.perf_counter()
-        logits, cache = api.prefill_fn(params, {"tokens": prompt}, cfg, step)
+        logits, cache = api.prefill_fn(params, {"tokens": prompt, **inputs},
+                                       cfg, step)
         # the cache is what decode reads: wait for all of the prefill
         sync()
         t_prefill = time.perf_counter() - t0
@@ -72,8 +92,9 @@ def generate(params: dict, prompt: torch.Tensor, cfg: ModelConfig, gen: int,
         generated, step_logits = [tokens], [logits[:, -1:]]
         t0 = time.perf_counter()
         for t in range(gen - 1):
-            logits, cache = api.decode_fn(params, {"tokens": tokens}, cache,
-                                          prompt_len + t, cfg, step)
+            logits, cache = api.decode_fn(params,
+                                          {"tokens": tokens, **inputs},
+                                          cache, prompt_len + t, cfg, step)
             tokens = pick(t + 1, logits)
             generated.append(tokens)
             step_logits.append(logits)
@@ -90,7 +111,10 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     """Serve one prompt batch of ``arch`` (its SMOKE config, or the full
     one with ``smoke=False``) on ``device``: weights from ``materialize``
     with a ``torch.Generator`` seeded ``seed``, prompt tokens from
-    ``np.random.default_rng(seed + 1)``, then :func:`generate`. Returns
+    ``np.random.default_rng(seed + 1)`` and after them, from the same
+    generator, standard normal ``frames`` (enc-dec) or ``image_embeds``
+    (VLM) as the reference's ``serve`` builds them, then
+    :func:`generate`. Returns
     the generated tokens (numpy, (batch, gen)), the prefill's seconds
     and the decode seconds per generated token."""
     dev = resolve_device(device)
@@ -100,7 +124,8 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     rng = np.random.default_rng(seed + 1)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                            (batch, prompt_len))).to(dev)
-    out = generate(params, prompt, cfg, gen)
+    out = generate(params, prompt, cfg, gen,
+                   inputs=serve_inputs(cfg, batch, rng, dev))
     return {
         "tokens": out["tokens"].cpu().numpy(),
         "prefill_s": out["prefill_s"],

@@ -1,8 +1,8 @@
 """The model stack of the port (the JAX package's ``repro.models``): the
-dense decoder's train step, with the flash-attention kernel on its
-attention path, and the Mamba2 ``ssm`` and ``hybrid`` families' train
-and prefill steps (``ssm`` decode too), with the SSD chunk-scan kernel in
-every Mamba2 layer."""
+train step, prefill and decode of every family (``dense``, ``moe``,
+``vlm``, ``encdec``, ``ssm``, ``hybrid``), with the flash-attention
+kernel on the train step's causal self-attention and the SSD chunk-scan
+kernel in every Mamba2 layer."""
 
 from .config import (DECODE_32K, LONG_500K, PREFILL_32K, SHAPES, TRAIN_4K,
                      ModelConfig, WorkloadShape, cache_len,

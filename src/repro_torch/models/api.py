@@ -9,11 +9,10 @@ point per step kind, dispatched by family.
     cache_init(cfg, shape, device)       -> zero cache
     extend_cache(cache, extra)           -> cache with room for more tokens
 
-Ported: the train step, prefill and decode of the ``dense``, ``ssm``
-and ``hybrid`` families. The other families raise
-``NotImplementedError`` naming their ``ROADMAP.md`` entry. ``pos`` is a
-Python int or a 0-d integer tensor on the cache's device; decode writes
-the attention KV caches in place and returns them.
+``pos`` is a Python int or a 0-d integer tensor on the cache's device;
+decode writes the attention KV caches in place and returns them.
+``batch`` holds ``tokens``, and ``frames`` (enc-dec) or
+``image_embeds`` (VLM) where the family takes them.
 """
 
 from __future__ import annotations
@@ -23,44 +22,32 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from . import hybrid, layers, transformer
+from . import encdec, hybrid, layers, transformer
 from .config import ModelConfig, WorkloadShape, cache_len
 from .transformer import StepConfig
 
 __all__ = ["cache_init", "cache_shapes", "decode_fn", "extend_cache",
            "loss_fn", "param_defs", "prefill_fn"]
 
-#: the ROADMAP.md entry ("Still to port") of each family not ported yet
-_FAMILY_TODO = {
-    "moe": "MoE",
-    "vlm": "VLM",
-    "encdec": "enc-dec",
-}
-_PORTED = ("dense", "ssm", "hybrid")
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family in _PORTED:
-        return
-    if cfg.family in _FAMILY_TODO:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, 'Still "
-            f"to port': {_FAMILY_TODO[cfg.family]})")
-    raise ValueError(f"unknown family {cfg.family!r}")
-
 
 def param_defs(cfg: ModelConfig) -> dict:
-    _require_ported(cfg)
+    if cfg.family in ("dense", "moe"):
+        return transformer.lm_defs(cfg)
+    if cfg.family == "vlm":
+        return transformer.vlm_defs(cfg)
+    if cfg.family == "encdec":
+        return encdec.encdec_defs(cfg)
     if cfg.family == "ssm":
         return hybrid.ssm_lm_defs(cfg)
     if cfg.family == "hybrid":
         return hybrid.hybrid_lm_defs(cfg)
-    return transformer.lm_defs(cfg)
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
             step: StepConfig) -> torch.Tensor:
-    _require_ported(cfg)
+    if cfg.family == "encdec":
+        return encdec.loss_fn(params, batch, cfg, step)
     if cfg.family in ("ssm", "hybrid"):
         tokens = batch["tokens"]
         h = hybrid.hidden(params, tokens, cfg, step)
@@ -72,31 +59,41 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
 
 def prefill_fn(params: dict, batch: dict, cfg: ModelConfig,
                step: StepConfig) -> tuple[torch.Tensor, dict]:
-    _require_ported(cfg)
     step = dataclasses.replace(step, inference=True)
+    if cfg.family == "encdec":
+        return encdec.prefill(params, batch, cfg, step)
     if cfg.family in ("ssm", "hybrid"):
         return hybrid.prefill(params, batch, cfg, step)
+    if cfg.family == "vlm":
+        return transformer.vlm_prefill(params, batch, cfg, step)
     return transformer.lm_prefill(params, batch, cfg, step)
 
 
 def decode_fn(params: dict, batch: dict, cache: dict, pos,
               cfg: ModelConfig, step: StepConfig) -> tuple[torch.Tensor,
                                                            dict]:
-    _require_ported(cfg)
     step = dataclasses.replace(step, inference=True)
     tokens = batch["tokens"]
+    if cfg.family == "encdec":
+        return encdec.decode(params, tokens, cache, pos, cfg, step)
     if cfg.family in ("ssm", "hybrid"):
         return hybrid.decode(params, tokens, cache, pos, cfg, step)
-    return transformer.lm_decode(params, tokens, cache, pos, cfg, step)
+    return transformer.lm_decode(params, tokens, cache, pos, cfg, step,
+                                 image_embeds=batch.get("image_embeds"))
 
 
 def cache_shapes(cfg: ModelConfig, shape: WorkloadShape) -> dict:
     """Shapes and dtypes of the decode cache of one workload cell."""
-    _require_ported(cfg)
     B = shape.global_batch
     length = cache_len(cfg, shape)
+    if cfg.family == "encdec":
+        return encdec.cache_shapes(cfg, B, length)
     if cfg.family in ("ssm", "hybrid"):
         return hybrid.cache_shapes(cfg, B, length)
+    if cfg.family == "vlm":
+        n_cross, per_group = transformer.vlm_groups(cfg)
+        return {"attn": transformer.kv_cache_spec(
+            cfg, B, length, layers=n_cross * per_group).shape_tree()}
     return {"attn": transformer.kv_cache_spec(cfg, B, length).shape_tree()}
 
 

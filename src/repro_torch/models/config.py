@@ -99,8 +99,7 @@ class ModelConfig:
         return True
 
     def n_params(self) -> int:
-        """Parameter count of the family's definition tree (only the
-        families :func:`repro_torch.models.api.param_defs` has ported)."""
+        """Parameter count of the family's definition tree."""
         from . import api  # local import to avoid a cycle
         from .params import n_params as _np
         return _np(api.param_defs(self))

@@ -35,7 +35,8 @@ __all__ = ["KVCacheSpec", "apply_mlp", "apply_norm", "apply_rope",
            "attention_decode", "attention_defs", "attention_full",
            "checkpointed", "cross_entropy_loss", "decode_position",
            "embed_tokens", "embedding_defs", "logits_fn", "mlp_defs",
-           "next_token_targets", "norm_defs"]
+           "next_token_targets", "norm_defs", "sinusoidal_at",
+           "sinusoidal_positions"]
 
 NEG_INF = -1e30
 
@@ -99,6 +100,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int,
+                         device: "str | torch.device | None" = None
+                         ) -> torch.Tensor:
+    """Whisper-style sinusoidal table (n, d), float32 (computed, not
+    learned)."""
+    return sinusoidal_at(torch.arange(n, dtype=torch.float32, device=device),
+                         d)
+
+
+def sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal encoding of a positions tensor of any shape -> (..., d),
+    float32: the reference's ops in its order (a 0-d tensor stays on its
+    device)."""
+    pos = positions.float()[..., None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
+    angle = pos / torch.pow(10000.0, dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -121,7 +121,9 @@ def materialize(gen: torch.Generator, defs: Tree,
             _leaf_seed(root, path))
         x = torch.randn(d.shape, generator=leaf_gen, dtype=torch.float32,
                         device=dev)
-        return (x * scale).to(d.dtype)
+        # in place: a leaf's float32 draw is its one transient (mixtral's
+        # stacked experts draw 26 GB a leaf)
+        return x.mul_(scale).to(d.dtype)
 
     return map_tree(_defs_only(init_leaf), defs)
 

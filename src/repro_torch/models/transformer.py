@@ -1,13 +1,18 @@
-"""Decoder-only LM assembly, dense GQA (the JAX package's
-``models/transformer.py``).
+"""Decoder-only LM assembly: dense GQA, MoE, and VLM (cross-attention)
+variants (the JAX package's ``models/transformer.py``).
 
 Parameters keep the reference's stacked layout (a leading "layers" axis
 on every block weight); the reference scans over it, the port loops
 over the layers, each optionally checkpointed (``StepConfig.remat``).
-The dense family's train step, prefill and decode are ported; MoE and
-the VLM cross-attention stack raise ``NotImplementedError`` naming their
-``ROADMAP.md`` entry (the Mamba2 families live in
-:mod:`repro_torch.models.hybrid`).
+An MoE model's blocks hold experts (:mod:`repro_torch.models.moe`) in
+place of the MLP. The VLM variant runs groups of ``cross_attn_every - 1``
+self blocks, each group followed by one cross-attention block over the
+image embeddings: self layer j belongs to group ``j // (cross_attn_every
+- 1)``, and its KV cache is group-major, (n_self, B, Hkv, S, Dh). Cross
+blocks run the plain attention, and decode recomputes their K/V from the
+image embeddings at every step (the cache holds no cross entry), as the
+reference does. The Mamba2 families live in
+:mod:`repro_torch.models.hybrid`.
 
 Prefill computes attention with the plain path whatever
 ``StepConfig.use_flash`` says, as the reference does
@@ -23,16 +28,13 @@ from typing import Optional
 import torch
 
 from . import layers as L
+from . import moe as moe_lib
 from .config import ModelConfig
 from .params import ParamDef
 
 __all__ = ["StepConfig", "kv_cache_spec", "lm_decode", "lm_defs",
-           "lm_hidden", "lm_loss", "lm_prefill"]
-
-_MOE_TODO = ("MoE models are not ported yet (ROADMAP.md, 'Still to port': "
-             "MoE)")
-_VLM_TODO = ("the VLM cross-attention stack is not ported yet (ROADMAP.md, "
-             "'Still to port': VLM)")
+           "lm_hidden", "lm_loss", "lm_prefill", "vlm_defs", "vlm_groups",
+           "vlm_prefill"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,19 +58,49 @@ def _stacked_norm(cfg: ModelConfig, layers: int) -> ParamDef:
 
 
 def _block_defs(cfg: ModelConfig, layers: int) -> dict:
+    d: dict = {"ln1": _stacked_norm(cfg, layers),
+               "attn": L.attention_defs(cfg, layers=layers),
+               "ln2": _stacked_norm(cfg, layers)}
     if cfg.n_experts:
-        raise NotImplementedError(_MOE_TODO)
-    return {"ln1": _stacked_norm(cfg, layers),
-            "attn": L.attention_defs(cfg, layers=layers),
-            "ln2": _stacked_norm(cfg, layers),
-            "mlp": L.mlp_defs(cfg, layers=layers)}
+        d["moe"] = moe_lib.moe_defs(cfg, layers=layers)
+    else:
+        d["mlp"] = L.mlp_defs(cfg, layers=layers)
+    return d
 
 
 def lm_defs(cfg: ModelConfig) -> dict:
-    """Dense decoder-only parameter tree."""
+    """Dense / MoE decoder-only parameter tree."""
     return {"embed": L.embedding_defs(cfg),
             "layers": _block_defs(cfg, cfg.n_layers),
             "ln_f": L.norm_defs(cfg)}
+
+
+def vlm_groups(cfg: ModelConfig) -> tuple[int, int]:
+    """(cross blocks, self blocks per group) of a VLM config: every
+    ``cross_attn_every``-th layer is a cross block, which must leave a
+    whole number of self blocks per group (the reference's reshape)."""
+    n_cross = cfg.n_layers // cfg.cross_attn_every
+    per_group = cfg.cross_attn_every - 1
+    if n_cross * per_group != cfg.n_layers - n_cross:
+        raise ValueError(f"{cfg.n_layers} layers are not {n_cross} groups "
+                         f"of {per_group} self blocks and a cross block")
+    return n_cross, per_group
+
+
+def vlm_defs(cfg: ModelConfig) -> dict:
+    """Self blocks + every-Nth cross-attention blocks (Llama-3.2-Vision)."""
+    n_cross, per_group = vlm_groups(cfg)
+    return {
+        "embed": L.embedding_defs(cfg),
+        "self_layers": _block_defs(cfg, n_cross * per_group),
+        "cross_layers": {
+            "ln1": _stacked_norm(cfg, n_cross),
+            "attn": L.attention_defs(cfg, layers=n_cross),
+            "ln2": _stacked_norm(cfg, n_cross),
+            "mlp": L.mlp_defs(cfg, layers=n_cross),
+        },
+        "ln_f": L.norm_defs(cfg),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -79,7 +111,7 @@ def lm_defs(cfg: ModelConfig) -> dict:
 def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig,
          step: StepConfig = StepConfig()) -> torch.Tensor:
     if cfg.n_experts:
-        raise NotImplementedError(_MOE_TODO)
+        return moe_lib.apply_moe(lp["moe"], x, cfg, drop=not step.inference)
     return L.apply_mlp(lp["mlp"], x, cfg)
 
 
@@ -109,6 +141,17 @@ def _self_block(h: torch.Tensor, lp: dict, cfg: ModelConfig,
     return (h, kv) if collect_kv else h
 
 
+def _cross_block(h: torch.Tensor, lp: dict, ctx: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """One cross-attention block: the plain attention of ``h`` over
+    ``ctx`` (the image embeddings; no rope, no mask), then the MLP."""
+    a_in = L.apply_norm(lp["ln1"], h, cfg)
+    h = h + L.attention_full(lp["attn"], a_in, cfg, kv_x=ctx, causal=False,
+                             rope=False, use_flash=False)
+    h = h + L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], h, cfg), cfg)
+    return h
+
+
 def _maybe_remat(fn, step: StepConfig):
     """``fn`` itself, or ``fn`` checkpointed (only its inputs are kept for
     the backward pass: the reference's ``nothing_saveable`` policy, the
@@ -134,27 +177,50 @@ def _layer(tree: dict, i: int) -> dict:
 
 
 def lm_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-              step: StepConfig) -> torch.Tensor:
-    """Token ids -> final hidden states (B, S, D)."""
-    if cfg.family == "vlm":
-        raise NotImplementedError(_VLM_TODO)
+              step: StepConfig,
+              image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token ids -> final hidden states (B, S, D); a VLM config also
+    takes the image embeddings (B, n_image_tokens, D)."""
     h = L.embed_tokens(params["embed"], tokens, cfg)
-    body = _maybe_remat(lambda carry, lp: _self_block(carry, lp, cfg, step),
-                        step)
-    for i in range(params["layers"]["ln1"].shape[0]):
-        h = body(h, _layer(params["layers"], i))
+    if cfg.family == "vlm":
+        h = _vlm_hidden(params, h, image_embeds, cfg, step)
+    else:
+        body = _maybe_remat(
+            lambda carry, lp: _self_block(carry, lp, cfg, step), step)
+        for i in range(params["layers"]["ln1"].shape[0]):
+            h = body(h, _layer(params["layers"], i))
     return L.apply_norm(params["ln_f"], h, cfg)
+
+
+def _vlm_hidden(params: dict, h: torch.Tensor, image_embeds: torch.Tensor,
+                cfg: ModelConfig, step: StepConfig) -> torch.Tensor:
+    n_cross, per_group = vlm_groups(cfg)
+    self_body = _maybe_remat(
+        lambda carry, lp: _self_block(carry, lp, cfg, step), step)
+    cross_body = _maybe_remat(
+        lambda carry, lp: _cross_block(carry, lp, image_embeds, cfg), step)
+    for g in range(n_cross):
+        for j in range(g * per_group, (g + 1) * per_group):
+            h = self_body(h, _layer(params["self_layers"], j))
+        h = cross_body(h, _layer(params["cross_layers"], g))
+    return h
 
 
 def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
             step: StepConfig) -> torch.Tensor:
-    if cfg.n_experts:
-        raise NotImplementedError(_MOE_TODO)
     tokens = batch["tokens"]
-    h = lm_hidden(params, tokens, cfg, step)
+    h = lm_hidden(params, tokens, cfg, step,
+                  image_embeds=batch.get("image_embeds"))
     targets, mask = L.next_token_targets(tokens)
-    return L.cross_entropy_loss(params["embed"], h, targets, cfg,
+    loss = L.cross_entropy_loss(params["embed"], h, targets, cfg,
                                 chunk=step.loss_chunk, mask=mask)
+    if cfg.n_experts:
+        # the router load-balance aux loss of the first layer over the
+        # token embeddings (the reference's cheap proxy), weight 0.01
+        h0 = L.embed_tokens(params["embed"], tokens, cfg)
+        router0 = _layer(params["layers"]["moe"], 0)
+        loss = loss + 0.01 * moe_lib.aux_load_balance_loss(router0, h0, cfg)
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -169,14 +235,22 @@ def kv_cache_spec(cfg: ModelConfig, batch: int, length: int,
                          head_dim=cfg.head_dim_, dtype=cfg.tdtype)
 
 
+def _prefill_cache(kvs: list, batch: int, seq: int,
+                   device: torch.device) -> dict:
+    """The decode cache of a prefill: each self layer's roped (K, V),
+    stacked, with position tags 0..S-1."""
+    pos = torch.arange(seq, dtype=torch.int32, device=device)
+    return {"attn": {"k": torch.stack([k for k, _ in kvs]),
+                     "v": torch.stack([v for _, v in kvs]),
+                     "pos": pos.expand(len(kvs), batch, seq).clone()}}
+
+
 def lm_prefill(params: dict, batch: dict, cfg: ModelConfig,
                step: StepConfig) -> tuple[torch.Tensor, dict]:
     """Full-sequence forward that also builds the decode cache: per layer
     the roped K/V, with position tags 0..S-1, each layer checkpointed
     under ``step.remat`` as in the reference. Returns (last-position
     logits, cache)."""
-    if cfg.family == "vlm":
-        raise NotImplementedError(_VLM_TODO)
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = L.embed_tokens(params["embed"], tokens, cfg)
@@ -189,32 +263,66 @@ def lm_prefill(params: dict, batch: dict, cfg: ModelConfig,
         kvs.append(kv)
     h = L.apply_norm(params["ln_f"], h, cfg)
     logits = L.logits_fn(params["embed"], h[:, -1:], cfg)
-    pos = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    cache = {"attn": {"k": torch.stack([k for k, _ in kvs]),
-                      "v": torch.stack([v for _, v in kvs]),
-                      "pos": pos.expand(len(kvs), B, S).clone()}}
-    return logits, cache
+    return logits, _prefill_cache(kvs, B, S, tokens.device)
+
+
+def vlm_prefill(params: dict, batch: dict, cfg: ModelConfig,
+                step: StepConfig) -> tuple[torch.Tensor, dict]:
+    """VLM prefill: the self layers' K/V collected group by group (the
+    cache holds only the n_self self layers). Returns (last-position
+    logits, cache)."""
+    tokens, image_embeds = batch["tokens"], batch["image_embeds"]
+    B, S = tokens.shape
+    n_cross, per_group = vlm_groups(cfg)
+    h = L.embed_tokens(params["embed"], tokens, cfg)
+    kvs = []
+    for g in range(n_cross):
+        for j in range(g * per_group, (g + 1) * per_group):
+            h, kv = _self_block(h, _layer(params["self_layers"], j), cfg,
+                                step, collect_kv=True)
+            kvs.append(kv)
+        h = _cross_block(h, _layer(params["cross_layers"], g), image_embeds,
+                         cfg)
+    h = L.apply_norm(params["ln_f"], h, cfg)
+    logits = L.logits_fn(params["embed"], h[:, -1:], cfg)
+    return logits, _prefill_cache(kvs, B, S, tokens.device)
+
+
+def _decode_block(h: torch.Tensor, lp: dict, layer_cache: dict,
+                  pos: torch.Tensor, cfg: ModelConfig, step: StepConfig,
+                  window: Optional[int]) -> torch.Tensor:
+    a_in = L.apply_norm(lp["ln1"], h, cfg)
+    a, _ = L.attention_decode(lp["attn"], a_in, layer_cache, pos, cfg,
+                              window=window)
+    h = h + a
+    return h + _ffn(lp, L.apply_norm(lp["ln2"], h, cfg), cfg, step)
 
 
 def lm_decode(params: dict, tokens: torch.Tensor, cache: dict, pos,
-              cfg: ModelConfig, step: StepConfig
+              cfg: ModelConfig, step: StepConfig,
+              image_embeds: Optional[torch.Tensor] = None,
               ) -> tuple[torch.Tensor, dict]:
     """One-token decode. tokens: (B, 1); ``pos`` an int or a 0-d integer
-    tensor on the cache's device. Each layer's K/V and position tag are
-    written in place into ``cache["attn"]``, which is returned with the
-    logits (B, 1, V)."""
-    if cfg.family == "vlm":
-        raise NotImplementedError(_VLM_TODO)
+    tensor on the cache's device; a VLM config also takes the image
+    embeddings. Each self layer's K/V and position tag are written in
+    place into ``cache["attn"]``, which is returned with the logits
+    (B, 1, V)."""
     h = L.embed_tokens(params["embed"], tokens, cfg)
     pos = L.decode_position(pos, h.device)
     attn = cache["attn"]
-    for i in range(params["layers"]["ln1"].shape[0]):
-        lp = _layer(params["layers"], i)
-        a_in = L.apply_norm(lp["ln1"], h, cfg)
-        a, _ = L.attention_decode(lp["attn"], a_in, _layer(attn, i), pos,
-                                  cfg, window=cfg.window)
-        h = h + a
-        h = h + _ffn(lp, L.apply_norm(lp["ln2"], h, cfg), cfg, step)
+    if cfg.family == "vlm":
+        # as the reference: the self layers decode without a window
+        n_cross, per_group = vlm_groups(cfg)
+        for g in range(n_cross):
+            for j in range(g * per_group, (g + 1) * per_group):
+                h = _decode_block(h, _layer(params["self_layers"], j),
+                                  _layer(attn, j), pos, cfg, step, None)
+            h = _cross_block(h, _layer(params["cross_layers"], g),
+                             image_embeds, cfg)
+    else:
+        for i in range(params["layers"]["ln1"].shape[0]):
+            h = _decode_block(h, _layer(params["layers"], i),
+                              _layer(attn, i), pos, cfg, step, cfg.window)
     h = L.apply_norm(params["ln_f"], h, cfg)
     logits = L.logits_fn(params["embed"], h, cfg)
     return logits, cache

@@ -16,10 +16,12 @@ config of one model reuses that count, so the GFLOP/s the tuner
 maximizes ranks configs by time alone; XLA's count, by contrast,
 changes with the implementation it costs.
 
-Every step kind is built for every ported family (``dense``, ``ssm``,
-``hybrid``); a decode step runs one token per sequence from a zero cache
-at position 0, and writes its KV cache in place, the same slot at every
-call.
+Every step kind is built for every family; a decode step runs one token
+per sequence from a zero cache at position 0, and writes its KV cache in
+place, the same slot at every call. An enc-dec batch also holds zero
+frame embeddings and a VLM batch normal image embeddings, drawn from the
+workload's seeded generator (:func:`model_inputs`), as the reference's
+``_model_batch`` builds them.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ from .params import empty_like_defs, materialize
 from .transformer import StepConfig
 
 __all__ = ["ModelWorkload", "TINY_CONFIG", "WORKLOAD_NAMES",
-           "build_workload", "decode_step", "meta_step", "prefill_step",
+           "build_workload", "decode_step", "meta_step", "model_inputs",
+           "prefill_step",
            "resolve_arch", "step_flops", "train_step", "workload_flops"]
 
 # Small enough to run in milliseconds on the host, big enough that the
@@ -145,6 +148,29 @@ def _tokens(batch: int, seq: int, vocab: int,
     return torch.from_numpy(rng.integers(0, vocab, (batch, seq))).to(device)
 
 
+def model_inputs(cfg: ModelConfig, batch: int, device: torch.device,
+                 gen: Optional[torch.Generator] = None) -> dict:
+    """The inputs besides the tokens that ``cfg``'s family takes: zero
+    ``frames`` (B, n_frames, d_enc) for enc-dec, ``image_embeds`` (B,
+    n_image_tokens, d_model) for a VLM, standard normals drawn in float32
+    from ``gen`` (uninitialized tensors without one: the ``meta``
+    device's stand-ins)."""
+    out = {}
+    if cfg.family == "encdec":
+        out["frames"] = torch.zeros((batch, cfg.n_frames, cfg.d_enc),
+                                    dtype=cfg.tdtype, device=device)
+    if cfg.family == "vlm":
+        shape = (batch, cfg.n_image_tokens, cfg.d_model)
+        if gen is None:
+            out["image_embeds"] = torch.empty(shape, dtype=cfg.tdtype,
+                                              device=device)
+        else:
+            out["image_embeds"] = torch.randn(
+                shape, generator=gen, dtype=torch.float32,
+                device=device).to(cfg.tdtype)
+    return out
+
+
 def resolve_arch(arch: Union[str, ModelConfig, None]) -> ModelConfig:
     """An architecture name (its SMOKE config), a config, or None (the
     tiny dense toy) as a :class:`ModelConfig`."""
@@ -168,7 +194,8 @@ def _build_step(kind: str, cfg: ModelConfig, step: StepConfig,
     shape = _tiny_shape(kind, batch_size, seq)
     tokens = _tokens(batch_size, 1 if kind == "decode" else seq,
                      cfg.vocab_size, device)
-    args: tuple = (params, {"tokens": tokens})
+    args: tuple = (params, {"tokens": tokens,
+                            **model_inputs(cfg, batch_size, device, gen)})
     if kind == "decode":
         args += (api.cache_init(cfg, shape, device), 0)
     return ModelWorkload(name=name, kind=kind,
@@ -225,7 +252,8 @@ def meta_step(cfg: ModelConfig, batch_size: int, seq_len: int,
     step = step or StepConfig(use_flash=False, remat=False)
     tokens = torch.empty((batch_size, 1 if kind == "decode" else seq_len),
                          dtype=torch.int64, device=meta)
-    args: tuple = (params, {"tokens": tokens})
+    args: tuple = (params, {"tokens": tokens,
+                            **model_inputs(cfg, batch_size, meta)})
     if kind == "decode":
         shape = _tiny_shape(kind, batch_size, seq_len)
         args += (api.cache_init(cfg, shape, meta), 0)

@@ -9,6 +9,8 @@ and written), joins each op's FLOPs/bytes with its measured device time
 on the card, classifies every op compute- vs memory-bound against the
 roofs recovered from the trial cache, and reports per-op and
 per-subsystem %-of-roof with an explicit unattributed-time remainder.
+Ops dispatched inside :class:`repro_torch.analysis.ops.scope` blocks
+are also summed per scope (:meth:`AttributionReport.scopes`).
 
 Two modes:
 
@@ -158,11 +160,14 @@ class AttributedOp:
     bound: str                  # "compute" | "memory" | "unclassified"
     pct_of_roof: Optional[float]
     modeled: bool               # False: cost model had no formula
+    scope: str = ""             # the model part it ran in ("" for none)
 
     def to_json(self) -> dict:
         d = dataclasses.asdict(self)
         if math.isinf(self.intensity):
             d["intensity"] = None  # JSON has no Infinity
+        if not self.scope:
+            del d["scope"]         # the reference's record has no scope
         return d
 
 
@@ -199,7 +204,23 @@ class AttributionReport:
                     op.flops, op.bytes_accessed)
         return tuple(sorted(self.ops, key=weight, reverse=True)[:n])
 
+    def scopes(self) -> dict[str, dict]:
+        """Per scope, in the order first seen: its ops' count, FLOPs,
+        bytes and time (measured or modeled); empty when no op ran in a
+        scope."""
+        out: dict[str, dict] = {}
+        for op in self.ops:
+            if op.scope:
+                s = out.setdefault(op.scope, {"ops": 0, "flops": 0.0,
+                                              "bytes": 0.0, "time_s": 0.0})
+                s["ops"] += 1
+                s["flops"] += op.flops
+                s["bytes"] += op.bytes_accessed
+                s["time_s"] += op.time_s or 0.0
+        return out
+
     def to_json(self) -> dict:
+        scopes = self.scopes()
         return {
             "workload": self.workload,
             "mode": self.mode,
@@ -214,6 +235,7 @@ class AttributionReport:
             "roofs": self.roofs.to_json() if self.roofs else None,
             "unhandled": dict(self.unhandled),
             "ops": [op.to_json() for op in self.ops],
+            **({"scopes": scopes} if scopes else {}),
         }
 
     def to_markdown(self, max_ops: int = 20) -> str:
@@ -261,6 +283,17 @@ class AttributionReport:
         lines.append(f"| *unattributed* | {self.unattributed_s * 1e6:.3g}µs "
                      f"| {u_share:.1f}% |")
         lines.append("")
+        scopes = self.scopes()
+        if scopes:
+            lines += ["### Scopes", "",
+                      "| scope | ops | FLOPs | bytes | time | share |",
+                      "|---|---|---|---|---|---|"]
+            for name, s in scopes.items():
+                share = 100.0 * s["time_s"] / total if total else 0.0
+                lines.append(f"| {name} | {s['ops']} | {s['flops']:.4g} | "
+                             f"{s['bytes']:.4g} | {s['time_s'] * 1e6:.6g}µs "
+                             f"| {share:.2f}% |")
+            lines.append("")
         return "\n".join(lines)
 
 
@@ -277,7 +310,7 @@ def _attr_op(op, time_s: Optional[float], roofs: Optional[Roofs],
             name=op.name, kind=op.kind, flops=op.flops,
             bytes_accessed=op.bytes_accessed, intensity=intensity,
             time_s=time_s, subsystem="unclassified", bound="unclassified",
-            pct_of_roof=None, modeled=op.modeled)
+            pct_of_roof=None, modeled=op.modeled, scope=op.scope)
     sub, bound = roofs.classify(intensity)
     pct: Optional[float] = None
     if static:
@@ -297,7 +330,7 @@ def _attr_op(op, time_s: Optional[float], roofs: Optional[Roofs],
         name=op.name, kind=op.kind, flops=op.flops,
         bytes_accessed=op.bytes_accessed, intensity=intensity,
         time_s=time_s, subsystem=sub, bound=bound, pct_of_roof=pct,
-        modeled=op.modeled)
+        modeled=op.modeled, scope=op.scope)
 
 
 def _subsystem_seconds(ops: Sequence[AttributedOp]) -> dict[str, float]:

@@ -10,7 +10,6 @@ einsums and the chunked loss in different orders; the JAX flash path
 way."""
 
 import dataclasses
-import re
 
 import jax
 import jax.numpy as jnp
@@ -74,44 +73,15 @@ def test_registry_behaves_like_the_reference():
     assert _fields(TINY_CONFIG) == _fields(JAX_TINY)
 
 
-@pytest.mark.parametrize("arch", DENSE + ["mamba2_130m", "zamba2_2_7b"])
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
 def test_dense_param_counts_equal_the_reference(arch):
-    assert configs.get(arch).n_params() == jax_configs.get(arch).n_params()
-    assert configs.get_smoke(arch).n_params() == \
-        jax_configs.get_smoke(arch).n_params()
-
-
-@pytest.mark.parametrize("arch", ["mixtral_8x22b", "whisper_base",
-                                  "granite_moe_1b_a400m",
-                                  "llama_3_2_vision_11b"])
-def test_unported_families_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get_smoke(arch).n_params()
-
-
-#: the families still to port, by a SMOKE arch, and their ROADMAP.md entry
-UNPORTED_SERVING = (("granite_moe_1b_a400m", "MoE"),
-                    ("llama_3_2_vision_11b", "VLM"),
-                    ("whisper_base", "enc-dec"))
-
-
-def test_serving_entry_points_raise_naming_the_roadmap():
-    """The MoE, VLM and enc-dec families' serving entry points raise,
-    naming their ROADMAP.md entries (the dense, ssm and hybrid families'
-    are ported: tests/test_torch_serving.py)."""
-    for arch, entry in UNPORTED_SERVING:
-        cfg = configs.get_smoke(arch)
-        roadmap = re.escape(f"(ROADMAP.md, 'Still to port': {entry})")
-        with pytest.raises(NotImplementedError, match=roadmap):
-            api.prefill_fn({}, {}, cfg, StepConfig())
-        with pytest.raises(NotImplementedError, match=roadmap):
-            api.decode_fn({}, {"tokens": None}, {}, 0, cfg, StepConfig())
-        with pytest.raises(NotImplementedError, match=roadmap):
-            api.cache_shapes(cfg, config.DECODE_32K)
-        with pytest.raises(NotImplementedError, match=roadmap):
-            api.cache_init(cfg, config.DECODE_32K, device="meta")
-    assert WORKLOAD_NAMES == ("train_step", "prefill_step", "decode_step",
-                              "dgemm")
+    """The parameter counts of every config, full and SMOKE (the MoE
+    configs' active counts too)."""
+    for ours, theirs in ((configs.get(arch), jax_configs.get(arch)),
+                         (configs.get_smoke(arch),
+                          jax_configs.get_smoke(arch))):
+        assert ours.n_params() == theirs.n_params()
+        assert ours.n_active_params() == theirs.n_active_params()
 
 
 def _jax_params(cfg):
@@ -230,6 +200,8 @@ def test_workload_arch_takes_a_name_or_a_config():
                        seq_len=8)
     assert w.cfg is cut and w.args[0]["layers"]["ln1"].shape == (1, 2048)
     assert w.args[1]["tokens"].shape == (1, 8)
+    assert WORKLOAD_NAMES == ("train_step", "prefill_step", "decode_step",
+                              "dgemm")
     dgemm = build_workload("dgemm", m=32, n=16, k=8, device="cpu")
     assert dgemm.declared_flops == 2.0 * 32 * 16 * 8
     assert dgemm.fn(*dgemm.args).shape == (32, 16)

@@ -13,7 +13,6 @@ prefill and decode logits and caches at rtol = atol = 1e-5."""
 
 import dataclasses
 import functools
-import re
 
 import jax
 import jax.numpy as jnp
@@ -39,7 +38,7 @@ from repro_torch.models.transformer import StepConfig
 from repro_torch.models.workloads import (build_workload, step_flops,
                                           train_step, workload_flops)
 
-from test_torch_models import UNPORTED_SERVING, _check, _flatten
+from test_torch_models import _check, _flatten
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CONTINUE_TOL = dict(rtol=1e-4, atol=1e-4)        # tests/test_ssd.py
@@ -257,20 +256,13 @@ def test_workload_fed_the_reference_args_gives_the_reference_result(
         ours.kind) > 0
 
 
-def test_serving_steps_of_unported_families_raise():
-    """The serving workloads of the MoE, VLM and enc-dec families raise,
-    naming their ROADMAP.md entries; every ported family builds them."""
-    for arch, entry in UNPORTED_SERVING:
-        roadmap = re.escape(f"(ROADMAP.md, 'Still to port': {entry})")
-        for name in ("prefill_step", "decode_step"):
-            with pytest.raises(NotImplementedError, match=roadmap):
-                build_workload(name, arch, device="cpu")
-        with pytest.raises(NotImplementedError, match=roadmap):
-            api.cache_shapes(configs.get_smoke(arch), PREFILL_32K)
-    for arch in ("granite_3_2b", "mamba2_130m", "zamba2_2_7b"):
-        w = build_workload("decode_step", arch, device="cpu", seq_len=16)
-        assert set(w.args[2]) == set(jax_api.cache_shapes(
-            jax_configs.get_smoke(arch), w.shape))
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_decode_step_has_the_reference_cache_keys(arch):
+    """Every family builds its ``decode_step`` workload, with the
+    reference's cache keys."""
+    w = build_workload("decode_step", arch, device="cpu", seq_len=16)
+    assert set(w.args[2]) == set(jax_api.cache_shapes(
+        jax_configs.get_smoke(arch), w.shape))
 
 
 def test_host_prefill_session_tunes_every_config_without_the_kernels():
