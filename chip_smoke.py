@@ -63,7 +63,8 @@ run when it fails:
                attention forward + backward at
                the model step's shape on the flash and plain paths; the
                SSD kernel at SSD_MAIN (mamba2-130m serving, zamba2-2.7b
-               train), checked first, beside its bounds (3xTF32 tensor
+               train, mamba2-130m through the training launcher), checked
+               first, beside its bounds (3xTF32 tensor
                cores and CUDA cores), the sequential design it replaced
                (checked too), its plain version (no PyTorch call computes
                it) and each of its four kernels' device time
@@ -230,6 +231,24 @@ run when it fails:
                smallest top-k router gap of each MoE model. Each run
                prints its widths, depth and cuts, time, peak memory and
                launches.
+15. training launch — ``adamw_update`` on the card against the same
+               three steps on the host (ADAMW_CHECK: granite-3-2b's widest
+               leaf in bf16 and f32, its embedding, a norm); then
+               mamba2-130m at its published config (24 layers,
+               d_model 768, vocab 50280, bf16) trained through
+               ``repro_torch.launch.train.train`` at B=8, S=2048
+               (TRAIN_LAUNCH): 40 steps straight, whose loss must fall by
+               more than 0.05; then 20 steps with a checkpoint and a run
+               that resumes from it to step 40, whose last loss must equal
+               the straight run's within rtol 1e-4; every run launches the
+               SSD kernel. Then granite-3-2b at all 40 layers (TRAIN_DENSE:
+               B=1, S=4096, batch 256 -> 1) through
+               ``train.steps.build_train_step`` with the bf16 flash kernel
+               at phase 6's tile, remat and AdamW, 3 steps, every flash
+               launch on the tensor cores. Each run prints its widths,
+               depth and cuts, step ms, the AdamW update's ms alone (CUDA
+               events around it), the global norm, peak memory, the first
+               and last loss and its launches per step by kernel and route.
 
 Each phase prints its seconds.
 
@@ -241,7 +260,8 @@ CUDA-core kernel it replaced as ``was_ms``, and
 route; ``launches`` counts the main path's launches, phase 5's for
 matmul and triad, phases 6, 9 and 14's for flash (phase 14's:
 ``launches_model_stack``), phases 8 and 9's for the SSD chunk scan
-(serving: ``launches_serving``), with phases 10, 11,
+(serving: ``launches_serving``), with phase 15's for both as
+``launches_training`` and phases 10, 11,
 12 and 13's beside it as ``launches_device_timing``,
 ``launches_paper_tables``, ``launches_history_search`` and
 ``launches_observability``) and
@@ -411,10 +431,12 @@ SSD_CASES = (
     + [(1, 80, 32, 128, 64, 64, False)]
     + [(1, 3, 4, 96, 64, 200, True), (2, 2, 3, 128, 32, 256, False),
        (1, 9, 8192, 8, 8, 16, False)])
-#: the main path's shapes (B, H, C, Q, P, N): mamba2-130m serving and
-#: zamba2-2.7b's train step
+#: the main path's shapes (B, H, C, Q, P, N): mamba2-130m serving,
+#: zamba2-2.7b's train step and mamba2-130m trained through the launcher
+#: (phase 15: B=8, S=2048)
 SSD_MAIN = {"mamba2 serving": (4, 24, 128, 256, 64, 128),
-            "zamba2 train": (1, 80, 32, 128, 64, 64)}
+            "zamba2 train": (1, 80, 32, 128, 64, 64),
+            "mamba2 train": (8, 24, 8, 256, 64, 128)}
 # The kernel's products carry ~22 of f32's 24 bits (3xTF32 on the tensor
 # cores, partial sums added on the CUDA cores) and its sums run in another
 # order than the plain version's: the limit is SSD_ULPS f32 ulps (2**-23)
@@ -470,6 +492,35 @@ STACK_SERVE = {"granite_moe": {"arch": "granite_moe_1b_a400m", "batch": 4,
 #: 5 (one group: 4 self layers and a cross layer), whisper at its 6
 STACK_CONTINUE = {"granite_moe_1b_a400m": 4, "mixtral_8x22b": 2,
                   "llama_3_2_vision_11b": 5, "whisper_base": 6}
+
+#: phase 15's training launch: (a) mamba2-130m at its published config
+#: through ``launch.train.train``: ``steps`` straight, then ``split``
+#: steps with a checkpoint and a resumed run to ``steps`` (the loss must
+#: fall by more than ``loss_drop``, the reference's criterion of
+#: tests/test_system.py; the resumed last loss equal the straight one
+#: within ``resume_rtol``, the reference's test_train_resume_equivalence);
+#: (b) granite-3-2b at all 40 layers through ``build_train_step`` with
+#: flash, remat and AdamW, B=1, S=4096 (batch 256 -> 1, as phase 7), its
+#: first step a warm-up; no checkpoint (its state is 25 GB on disk)
+TRAIN_LAUNCH = {"arch": "mamba2_130m", "batch": 8, "seq": 2048,
+                "steps": 40, "split": 20, "loss_drop": 0.05,
+                "resume_rtol": 1e-4}
+TRAIN_DENSE = {"arch": "granite_3_2b", "batch": 1, "seq": 4096, "steps": 3}
+#: phase 15's check of ``adamw_update`` on the card against the same call
+#: on the host: granite-3-2b's widest leaf (one layer of its (40, 2048,
+#: 8192) stack) in bf16 and in f32, its embedding and a norm in bf16,
+#: one step per lr in ``lrs`` with the clip active (the gradients' norm
+#: ~1e4), each step held to the host's and then started again from the
+#: host's values. The float32 moments and leaf are held at the CPU parity
+#: test's clipped tolerance (rtol 1e-6 plus 1e-6 of the largest
+#: magnitude: the two devices sum the norm's squares in other orders, so
+#: the clip scale may differ by an ulp); a bf16 leaf within one bf16 ulp
+#: (rtol 2**-7, plus the same atol where p and lr·update nearly cancel),
+#: as such an f32 ulp can move p32 across a rounding boundary, in at most
+#: ``flip_share`` of its elements. Carried over steps, such ulps add up,
+#: hence the restart. A leaf the update left as it was is off by
+#: lr·update ~ 1e-2, half an element at granite's init scale.
+ADAMW_CHECK = {"lrs": (1e-2, 2e-2, 3e-2), "flip_share": 1e-3}
 
 
 def fail(msg: str) -> None:
@@ -2755,6 +2806,311 @@ def model_stack_path(tile: tuple[int, int], tiles) -> dict:
     return out
 
 
+class UpdateTimer:
+    """Stands in for ``repro_torch.train.steps.adamw_update`` during a
+    training run: each call between two CUDA events, its metrics (0-d
+    tensors on the card) kept to be read after the run."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.events: list = []
+        self.metrics: list = []
+
+    def __call__(self, *args, **kwargs):
+        import torch
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(*args, **kwargs)
+        end.record()
+        self.events.append((start, end))
+        self.metrics.append(out[2])
+        return out
+
+    def ms(self) -> list[float]:
+        """Milliseconds of each update (after a synchronize)."""
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def timed_training(run, label: str) -> dict:
+    """``run()`` (a training run on the card) with the AdamW update timed
+    (:class:`UpdateTimer`), the launch counts set to 0 just before it and
+    read just after, and the peak memory: the run's result, the update's
+    ms and global norm per step, the launches by kernel and by flash
+    route, the peak GiB and the wall seconds. Fails on a non-finite loss
+    or norm."""
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.train import steps as steps_mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer = UpdateTimer(steps_mod.adamw_update)
+    steps_mod.adamw_update = timer
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        result = run()
+    finally:
+        steps_mod.adamw_update = timer.fn
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    routes = dict(kernels.flash_attention.route_launches)
+    norms = [float(m["grad_norm"]) for m in timer.metrics]
+    losses = result["losses"]
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"{label}: non-finite loss {losses} or global norm {norms}")
+    return {"result": result, "update_ms": timer.ms(), "grad_norm": norms,
+            "lr": [float(m["lr"]) for m in timer.metrics],
+            "launches": launches, "routes": routes,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "wall_s": wall}
+
+
+def launcher_training() -> dict:
+    """Phase 15 (a): mamba2-130m at its published config through
+    ``repro_torch.launch.train.train`` (TRAIN_LAUNCH): the straight run,
+    then the first part with a checkpoint and a resumed run to the same
+    step. The loss must fall by more than TRAIN_LAUNCH["loss_drop"], the
+    resumed run's last loss must equal the straight run's within
+    TRAIN_LAUNCH["resume_rtol"], and every run must launch the SSD kernel
+    and no flash kernel."""
+    import statistics
+    from repro_torch.configs import get
+    from repro_torch.launch.train import train
+    spec = TRAIN_LAUNCH
+    cfg = get(spec["arch"])
+    ckpt = WORK / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    plan = (("straight", spec["steps"], None),
+            ("first part", spec["split"], ckpt),
+            ("resumed", spec["steps"], ckpt))
+    runs = {}
+    for label, steps, ckpt_dir in plan:
+        print(f"-- {label}: launch.train.train({spec['arch']!r}, "
+              f"steps={steps}, batch={spec['batch']}, seq={spec['seq']}, "
+              f"smoke=False, ckpt_dir={ckpt_dir and ckpt_dir.name}, "
+              f"device='cuda')", flush=True)
+        run = timed_training(lambda: train(
+            spec["arch"], steps=steps, batch=spec["batch"], seq=spec["seq"],
+            smoke=False, ckpt_dir=str(ckpt_dir) if ckpt_dir else None,
+            log_every=10, device="cuda"), f"{cfg.name} {label}")
+        n = len(run["result"]["losses"])
+        ssd = run["launches"]["ssd_chunk_scan"]
+        if ssd == 0 or run["launches"]["flash_attention"] != 0:
+            fail(f"{cfg.name} {label}: launches {run['launches']}; want "
+                 f"SSD launches and no flash launch")
+        run.update(steps=n, ssd_per_step=ssd / n,
+                   step_ms=run["result"]["mean_step_s"] * 1e3,
+                   update_ms_mean=statistics.mean(run["update_ms"][1:]))
+        runs[label] = run
+    size = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+    kept = sorted(p.name for p in ckpt.iterdir())
+    shutil.rmtree(ckpt, ignore_errors=True)
+    straight, resumed = runs["straight"], runs["resumed"]
+    first, last = straight["result"]["losses"][0], \
+        straight["result"]["losses"][-1]
+    rel = abs(resumed["result"]["losses"][-1] / last - 1.0)
+    print(f"{cfg.name} trained through the launcher at its published config "
+          f"(d_model {cfg.d_model}, {cfg.ssm_heads} SSD heads of "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+          f"{cfg.ssm_chunk}, vocab {cfg.vocab_size}, {cfg.dtype}); all "
+          f"{cfg.n_layers} layers ({cfg.n_params() / 1e6:.1f}M params); "
+          f"B={spec['batch']}, S={spec['seq']}; remat, AdamW, cosine "
+          f"schedule (peak 3e-3, warmup 100); no cut")
+    for label, run in runs.items():
+        losses = run["result"]["losses"]
+        print(f"  {label}: {run['steps']} steps, step {run['step_ms']:.2f} ms"
+              f" (mean after the first), AdamW update "
+              f"{run['update_ms_mean']:.3f} ms (CUDA events, mean after the "
+              f"first), global norm {run['grad_norm'][-1]:.4f} at the last "
+              f"step, loss {losses[0]:.6f} -> {losses[-1]:.6f}, peak memory "
+              f"{run['peak_gib']:.2f} GiB, SSD launches "
+              f"{run['launches']['ssd_chunk_scan']} "
+              f"({run['ssd_per_step']:g} a step), flash 0, wall "
+              f"{run['wall_s']:.1f} s")
+    print(f"  checkpoints kept {kept}, {size / 2 ** 30:.3f} GiB on disk")
+    print(f"  loss drop over {spec['steps']} steps {first - last:.6f} "
+          f"(must exceed {spec['loss_drop']}); resumed last loss "
+          f"{resumed['result']['losses'][-1]:.6f} vs straight {last:.6f}: "
+          f"relative {rel:.3e} (tol {spec['resume_rtol']})")
+    if not first - last > spec["loss_drop"]:
+        fail(f"{cfg.name}: the loss fell {first - last} over "
+             f"{spec['steps']} steps")
+    if len(resumed["result"]["losses"]) != spec["steps"] - spec["split"]:
+        fail(f"{cfg.name}: the resumed run took "
+             f"{len(resumed['result']['losses'])} steps, not from step "
+             f"{spec['split']}")
+    if not rel <= spec["resume_rtol"]:
+        fail(f"{cfg.name}: resumed last loss "
+             f"{resumed['result']['losses'][-1]} vs straight {last}")
+    return {"runs": runs, "loss_drop": first - last, "resume_rel": rel,
+            "ckpt_gib": size / 2 ** 30,
+            "ssd_launches": sum(r["launches"]["ssd_chunk_scan"]
+                                for r in runs.values())}
+
+
+def dense_training(tile: tuple[int, int]) -> dict:
+    """Phase 15 (b): granite-3-2b at all its layers (TRAIN_DENSE) through
+    ``train.steps.build_train_step`` with the bf16 flash kernel at
+    ``tile``, remat and AdamW, on the synthetic stream: the steps, each
+    timed between two synchronizes, the first a warm-up. Every flash
+    launch must take the tensor-core route."""
+    import gc
+    import statistics
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import api
+    from repro_torch.models.config import WorkloadShape
+    from repro_torch.models.params import materialize, n_params
+    from repro_torch.models.transformer import StepConfig
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.steps import build_train_step
+    spec = TRAIN_DENSE
+    cfg = get(spec["arch"])
+    b, s = spec["batch"], spec["seq"]
+    step_cfg = StepConfig(use_flash=True, flash_block_q=tile[0],
+                          flash_block_k=tile[1], remat=True)
+    bundle = build_train_step(cfg, WorkloadShape("train_4k_b1", s, b,
+                                                 "train"), step_cfg)
+    defs = api.param_defs(cfg)
+    params = materialize(torch.Generator(device="cuda").manual_seed(0), defs)
+    opt = adamw_init(defs, "cuda")
+    pipeline = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size), b, s,
+                           device="cuda")
+    step_ms: list[float] = []
+
+    def run() -> dict:
+        nonlocal params, opt
+        losses = []
+        for i in range(spec["steps"]):
+            batch = pipeline.batch_at(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics = bundle.fn(params, opt, batch, i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+        return {"losses": losses}
+
+    out = timed_training(run, f"{cfg.name} train")
+    n = spec["steps"]
+    flash = out["launches"]["flash_attention"]
+    if flash == 0 or out["routes"]["tensor_cores"] != flash:
+        fail(f"{cfg.name} train: flash launches {flash}, routes "
+             f"{out['routes']}; want launches, all on the tensor cores")
+    count = n_params(defs)
+    losses = out["result"]["losses"]
+    out.update(step_ms=statistics.mean(step_ms[1:]), step_ms_each=step_ms,
+               update_ms_mean=statistics.mean(out["update_ms"][1:]),
+               flash_per_step=flash / n)
+    print(f"{cfg.name} trained through build_train_step at its published "
+          f"config (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{cfg.n_kv_heads} kv heads of {cfg.head_dim_}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}); all {cfg.n_layers} layers "
+          f"({count / 1e9:.3f}B params: {count * 2 / 1e9:.2f} GB of weights,"
+          f" {count * 8 / 1e9:.2f} GB of f32 moments); B={b}, S={s} (batch "
+          f"256 -> 1); use_flash=1 tile {tile}, remat, AdamW, lr from the "
+          f"cosine schedule (steps 0-{n - 1}: warmup)")
+    print(f"  {n} steps: step {out['step_ms']:.1f} ms (mean after the first;"
+          f" each " + ", ".join(f"{t:.1f}" for t in step_ms) + "), AdamW "
+          f"update {out['update_ms_mean']:.2f} ms (CUDA events; each "
+          + ", ".join(f"{t:.2f}" for t in out["update_ms"]) + f"), global "
+          f"norm {out['grad_norm'][-1]:.4f}, loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}, peak memory {out['peak_gib']:.2f} GiB, "
+          f"launches {out['launches']} (flash {out['flash_per_step']:g} a "
+          f"step, routes {out['routes']})")
+    del params, opt, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def adamw_card_check() -> dict:
+    """Phase 15: ``adamw_update`` on the card against the same steps on
+    the host, on the same parameters and gradients (ADAMW_CHECK). Returns
+    the max abs error of every leaf and moment, the share of each bf16
+    leaf's elements that differ (by one ulp at most) and both norms."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models.params import flatten, map_tree, unflatten
+    from repro_torch.optim import adamw_update
+    cfg = get(TRAIN_DENSE["arch"])
+    d = cfg.d_model
+    specs = {"layers/mlp/w_up": ((d, cfg.d_ff), torch.bfloat16),
+             "layers/mlp/w_up_f32": ((d, cfg.d_ff), torch.float32),
+             "layers/ln1": ((d,), torch.bfloat16),
+             "embed": ((cfg.vocab_size, d), torch.bfloat16)}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def draw(scale: float) -> dict:
+        return unflatten({k: (torch.randn(shape, generator=gen,
+                                          device="cuda") * scale).to(dtype)
+                          for k, (shape, dtype) in specs.items()})
+
+    def zeros() -> dict:
+        return unflatten({k: torch.zeros(shape, device="cuda")
+                          for k, (shape, _) in specs.items()})
+
+    def to_host(tree: dict) -> dict:
+        return map_tree(lambda _, x: x.cpu(), tree)
+
+    t0 = time.perf_counter()
+    params = draw(d ** -0.5)
+    opt = {"m": zeros(), "v": zeros(),
+           "count": torch.zeros((), device="cuda")}
+    host_params, host_opt = to_host(params), to_host(opt)
+    norms, errs, flips = [], {}, {}
+    for lr in ADAMW_CHECK["lrs"]:
+        grads = draw(1.0)
+        _, _, got = adamw_update(params, grads, opt, lr)
+        _, _, want = adamw_update(host_params, to_host(grads), host_opt, lr)
+        norms.append((float(got["grad_norm"]), float(want["grad_norm"])))
+        if not abs(norms[-1][0] / norms[-1][1] - 1.0) <= 1e-6:
+            fail(f"adamw on the card: global norm {norms[-1][0]} vs the "
+                 f"host's {norms[-1][1]}")
+        got_all = flatten({"params": params, **opt})
+        for path, host in flatten({"params": host_params,
+                                   **host_opt}).items():
+            out, want = got_all[path], host.to("cuda")
+            tol = {"rtol": 1e-6, "atol": 1e-6 * float(want.abs().max())}
+            if out.dtype == torch.bfloat16:
+                share = float((out != want).float().mean())
+                flips[path] = max(flips.get(path, 0.0), share)
+                if share > ADAMW_CHECK["flip_share"]:
+                    fail(f"adamw on the card: {path} differs from the "
+                         f"host's in {share:.3e} of its elements")
+                tol["rtol"] = 2.0 ** -7
+            err = check_close(f"adamw on the card {path} at lr {lr}", out,
+                              want, tol)
+            errs[path] = max(errs.get(path, 0.0), err)
+            out.copy_(want)       # the next step starts from the host's
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(f"adamw_update on the card vs the host ({cfg.name}'s widest leaf "
+          f"({d}, {cfg.d_ff}) in bf16 and f32, embedding ({cfg.vocab_size},"
+          f" {d}) and a norm in bf16; {len(norms)} steps at lr "
+          f"{ADAMW_CHECK['lrs']}, clip active: global norms "
+          + ", ".join(f"{a:.4f}/{b:.4f}" for a, b in norms) + "): max abs "
+          "err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + "; share of bf16 elements that differ (most in a step) "
+          + ", ".join(f"{k} {v:.3e}" for k, v in flips.items())
+          + f" ({seconds:.1f} s)")
+    return {"max_abs_err": errs, "bf16_flip_share": flips,
+            "grad_norms": norms}
+
+
+def training_launch_path(tile: tuple[int, int]) -> dict:
+    """Phase 15: the training launch, :func:`adamw_card_check`, then (a)
+    :func:`launcher_training` and (b) :func:`dense_training`."""
+    return {"adamw_check": adamw_card_check(),
+            "launcher": launcher_training(), "dense": dense_training(tile)}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -3405,10 +3761,18 @@ def main() -> int:
                    for label, run in stack["train"].items()}
     d128 = stack["flash"]["d128"]
 
+    # -- 15. training launch ---------------------------------------------------
+    phase("training launch (mamba2-130m through launch.train: 40 steps, "
+          "20 + resume to 40; granite-3-2b at 40 layers, 3 AdamW steps)")
+    training = training_launch_path(step["tile"])
+    dense_train = training["dense"]
+    launcher_runs = training["launcher"]["runs"]
+
     # -- result lines ------------------------------------------------------
     phase("result")
     print(f"total wall {time.perf_counter() - t_start:.1f}s")
     t_srv, t_hyb = ssd_time["mamba2 serving"], ssd_time["zamba2 train"]
+    t_lt = ssd_time["mamba2 train"]
     zamba2_serve_ssd = served_models["zamba2"]["launches"]["ssd_chunk_scan"]
     print(card_line())
     t_dram = triad_ms["dram"]
@@ -3454,6 +3818,7 @@ def main() -> int:
          "launches_granite_step": step["routes"]["tensor_cores"],
          "launches_zamba2_step": hyb["routes"]["tensor_cores"],
          "launches_model_stack": stack_flash,
+         "launches_training": dense_train["launches"]["flash_attention"],
          "launches_observability": (
              observe["launches"]["granite"]["flash_attention"]
              + observe["launches"]["zamba2"]["flash_attention"]),
@@ -3490,7 +3855,15 @@ def main() -> int:
              "serve": {label: {k: v for k, v in run.items()
                                if k != "launches"}
                        for label, run in stack["serve"].items()},
-             "continue": stack["continue"]}},
+             "continue": stack["continue"]},
+         "training": {"arch": TRAIN_DENSE["arch"],
+                      "step_ms": dense_train["step_ms"],
+                      "step_ms_each": dense_train["step_ms_each"],
+                      "update_ms": dense_train["update_ms"],
+                      "grad_norm": dense_train["grad_norm"],
+                      "losses": dense_train["result"]["losses"],
+                      "peak_gib": dense_train["peak_gib"],
+                      "flash_per_step": dense_train["flash_per_step"]}},
         {"name": "flash_attention_f32", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_tf32x3.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:33",
@@ -3530,6 +3903,7 @@ def main() -> int:
          "launches_serving_mamba2": serving["launches"],
          "launches_serving_zamba2": zamba2_serve_ssd,
          "launches_zamba2_step": hyb["launches"]["ssd_chunk_scan"],
+         "launches_training": training["launcher"]["ssd_launches"],
          "launches_observability": (
              observe["launches"]["mamba2"]["ssd_chunk_scan"]
              + observe["launches"]["zamba2"]["ssd_chunk_scan"]),
@@ -3553,6 +3927,10 @@ def main() -> int:
          "train_bound_ms": t_hyb["bound"],
          "train_bound_ms_cuda_cores": t_hyb["bound_cuda_cores"],
          "train_device_ms_per_kernel": t_hyb["parts"],
+         "launcher_train_shape": list(t_lt["shape"]),
+         "launcher_train_ms": t_lt["kernel"],
+         "launcher_train_plain_ms": t_lt["plain"],
+         "launcher_train_bound_ms": t_lt["bound"],
          "serving_prefill_ms": serving["prefill_ms"],
          "serving_decode_ms_per_step": serving["decode_ms"],
          "served": {label: {k: v for k, v in run.items()
@@ -3563,7 +3941,23 @@ def main() -> int:
                             for k, ms in hyb["step_ms"].items()},
          "zamba2_step_trace": {"wall_ms": trace["wall_ms"],
                                "device_busy_ms": trace["busy_ms"],
-                               "device_ms": trace["parts"]}},
+                               "device_ms": trace["parts"]},
+         "training": {
+             "arch": TRAIN_LAUNCH["arch"],
+             "adamw_card_vs_host": training["adamw_check"],
+             "loss_drop": training["launcher"]["loss_drop"],
+             "resume_rel": training["launcher"]["resume_rel"],
+             "checkpoint_gib": training["launcher"]["ckpt_gib"],
+             "runs": {label: {"steps": run["steps"],
+                              "step_ms": run["step_ms"],
+                              "update_ms": run["update_ms_mean"],
+                              "grad_norm_last": run["grad_norm"][-1],
+                              "loss_first": run["result"]["losses"][0],
+                              "loss_last": run["result"]["losses"][-1],
+                              "peak_gib": run["peak_gib"],
+                              "ssd_per_step": run["ssd_per_step"],
+                              "wall_s": run["wall_s"]}
+                      for label, run in launcher_runs.items()}}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,6 +3,7 @@ point per step kind, dispatched by family.
 
     param_defs(cfg)                      -> ParamDef tree
     loss_fn(params, batch, cfg, step)    -> scalar loss            (train)
+    loss_and_grads(params, batch, cfg, step) -> (loss, grads)      (train)
     prefill_fn(params, batch, cfg, step) -> (logits, cache)        (prefill)
     decode_fn(params, batch, cache, pos, cfg, step) -> (logits, cache)
     cache_shapes(cfg, shape)             -> tree of ShapeDtype
@@ -24,10 +25,11 @@ import torch.nn.functional as F
 
 from . import encdec, hybrid, layers, transformer
 from .config import ModelConfig, WorkloadShape, cache_len
+from .params import flatten, unflatten
 from .transformer import StepConfig
 
 __all__ = ["cache_init", "cache_shapes", "decode_fn", "extend_cache",
-           "loss_fn", "param_defs", "prefill_fn"]
+           "loss_and_grads", "loss_fn", "param_defs", "prefill_fn"]
 
 
 def param_defs(cfg: ModelConfig) -> dict:
@@ -55,6 +57,20 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig,
         return layers.cross_entropy_loss(params["embed"], h, targets, cfg,
                                          chunk=step.loss_chunk, mask=mask)
     return transformer.lm_loss(params, batch, cfg, step)
+
+
+def loss_and_grads(params: dict, batch: dict, cfg: ModelConfig,
+                   step: StepConfig) -> tuple[torch.Tensor, dict]:
+    """The loss (detached) and the gradient of every parameter leaf (same
+    tree), by ``torch.autograd.grad`` (the reference's
+    ``jax.value_and_grad(loss_fn)``): the one loss-and-gradient helper of
+    the workloads' train step and ``train.steps.build_train_step``."""
+    flat = flatten(params)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in flat.values()]
+        loss = loss_fn(unflatten(dict(zip(flat, leaves))), batch, cfg, step)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), unflatten(dict(zip(flat, grads)))
 
 
 def prefill_fn(params: dict, batch: dict, cfg: ModelConfig,

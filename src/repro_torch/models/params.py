@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 __all__ = ["ParamDef", "ShapeDtype", "empty_like_defs", "from_numpy",
-           "map_tree", "materialize", "n_params", "to_numpy"]
+           "flatten", "map_tree", "materialize", "n_params", "to_numpy",
+           "unflatten"]
 
 Tree = Any  # nested dict of ParamDef / tensors / arrays
 
@@ -64,6 +65,30 @@ def map_tree(fn: Callable[[str, Any], Any], tree: Tree,
     if isinstance(tree, Mapping):
         return {k: map_tree(fn, v, f"{path}/{k}") for k, v in tree.items()}
     return fn(path, tree)
+
+
+def flatten(tree: Tree, prefix: str = "") -> dict[str, Any]:
+    """``a/b/c`` paths to the leaves of a nested dict, keys sorted at every
+    level: ``jax.tree.leaves``'s order, in which the reference sums the
+    global norm and ``jax.device_get`` writes a checkpoint."""
+    if isinstance(tree, Mapping):
+        out = {}
+        for k in sorted(tree):
+            out.update(flatten(tree[k], f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+def unflatten(flat: Mapping[str, Any]) -> dict:
+    """The nested dict of :func:`flatten`'s paths."""
+    tree: dict = {}
+    for path, value in flat.items():
+        *head, last = path.split("/")
+        node = tree
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = value
+    return tree
 
 
 def _defs_only(fn: Callable[[str, ParamDef], Any]):

@@ -95,27 +95,11 @@ class ModelWorkload:
                                  step=step))
 
 
-def _leaves(tree: dict) -> list[torch.Tensor]:
-    out = []
-    for v in tree.values():
-        out.extend(_leaves(v) if isinstance(v, dict) else [v])
-    return out
-
-
-def _rebuild(tree: dict, leaves) -> dict:
-    return {k: _rebuild(v, leaves) if isinstance(v, dict) else next(leaves)
-            for k, v in tree.items()}
-
-
 def train_step(params: dict, batch: dict, *, cfg: ModelConfig,
                step: StepConfig) -> tuple[torch.Tensor, dict]:
-    """Loss and the gradient of every parameter leaf (same tree), by
-    ``torch.autograd.grad`` (the reference's ``jax.value_and_grad``)."""
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in _leaves(params)]
-        loss = api.loss_fn(_rebuild(params, iter(leaves)), batch, cfg, step)
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), _rebuild(params, iter(grads))
+    """Loss and the gradient of every parameter leaf (same tree):
+    :func:`repro_torch.models.api.loss_and_grads`."""
+    return api.loss_and_grads(params, batch, cfg, step)
 
 
 def prefill_step(params: dict, batch: dict, *, cfg: ModelConfig,

@@ -5,7 +5,8 @@ and SSD kernels' gradients, a mamba2 prefill through the SSD kernel,
 tuning sessions through the kernels (the GEMM tile search keeping all 12
 tiles, and a surrogate search over them recording its run in the
 ledger), on-device timing of incumbent trials through torch.profiler,
-and the SMOKE granite and zamba2 decode on the card against the host.
+the SMOKE granite and zamba2 decode on the card against the host, and
+three AdamW steps on the card against the same steps on the host.
 
 Marked ``gpu``; each skips from inside the ``card`` fixture when no card
 is visible, so every worker collects the same tests (on the CPU they are
@@ -518,3 +519,48 @@ def test_workload_audit_of_the_card_bound_registry(card):
     findings = [f for f in run_workload_audit("cuda")
                 if f.severity != "info"]
     assert findings == [], [f.render() for f in findings]
+
+
+def test_adamw_update_on_card_matches_the_host(card):
+    """Three AdamW steps with the clip active on card tensors (bf16 and
+    f32 leaves, nested keys), in place, each against the same step on the
+    host and then restarted from the host's values (carried over steps,
+    the ulps below add up): the f32 moments and leaf within rtol 1e-6
+    plus 1e-6 of the leaf's largest magnitude (the two devices sum the
+    norm's squares in other orders, so the clip scale may differ by an
+    ulp), a bf16 leaf within one bf16 ulp (rtol 2**-7) plus that atol."""
+    from repro_torch.models.params import flatten, map_tree
+    from repro_torch.optim import adamw_update
+    gen = torch.Generator().manual_seed(5)
+    specs = {"layer": {"w": ((256, 1024), torch.bfloat16),
+                       "w_f32": ((256, 1024), torch.float32)},
+             "norm": ((256,), torch.bfloat16)}
+
+    def draw(scale):
+        return map_tree(lambda _, s: (torch.randn(s[0], generator=gen)
+                                      * scale).to(s[1]), specs)
+
+    def to_card(tree):
+        return map_tree(lambda _, x: x.to(card, copy=True), tree)
+
+    host = draw(0.05)
+    host_opt = {"m": map_tree(lambda _, x: torch.zeros(x.shape), host),
+                "v": map_tree(lambda _, x: torch.zeros(x.shape), host),
+                "count": torch.zeros(())}
+    dev, dev_opt = to_card(host), to_card(host_opt)
+    for lr in (1e-2, 2e-2, 3e-2):
+        g = draw(1.0)
+        _, _, got = adamw_update(dev, to_card(g), dev_opt, lr)
+        _, _, want = adamw_update(host, g, host_opt, lr)
+        assert float(want["grad_norm"]) > 1.0
+        torch.testing.assert_close(got["grad_norm"].cpu(),
+                                   want["grad_norm"], rtol=1e-6, atol=0.0)
+        got_all = flatten({"p": dev, **dev_opt})
+        for path, want in flatten({"p": host, **host_opt}).items():
+            out = got_all[path]
+            assert out.dtype == want.dtype, path
+            atol = 1e-6 * float(want.abs().max())
+            rtol = 2.0 ** -7 if want.dtype == torch.bfloat16 else 1e-6
+            torch.testing.assert_close(out.cpu(), want, rtol=rtol,
+                                       atol=atol)
+            out.copy_(want)      # the next step starts from the host's

@@ -1,6 +1,7 @@
-"""Guards of the port: it never imports jax or the JAX package, it still
-imports and runs with both blocked, and asking for the card where there
-is none raises instead of quietly running on the host."""
+"""Guards of the port: it never imports jax, the JAX package or
+``ml_dtypes``, it still imports and runs with all three blocked, and
+asking for the card where there is none raises instead of quietly
+running on the host."""
 
 import ast
 import os
@@ -14,6 +15,9 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py"]
+#: top-level modules the port never imports (``ml_dtypes``: the JAX
+#: package's checkpoint reads bfloat16 through it; the port's does not)
+BLOCKED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 BLOCKER = """
 import sys
@@ -21,7 +25,7 @@ import sys
 
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -44,7 +48,7 @@ def _imported_modules(path: pathlib.Path):
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_import(path):
     bad = [(line, mod) for line, mod in _imported_modules(path)
-           if mod.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if mod.split(".")[0] in BLOCKED]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
@@ -132,6 +136,35 @@ runpy.run_module("repro_torch.launch.serve", run_name="__main__")
     assert "--prompt-len" in proc.stdout and "--device" in proc.stdout
 
 
+def test_train_cli_with_jax_reference_and_ml_dtypes_blocked(tmp_path):
+    """The training launcher's ``--help`` runs, a 2-step smoke run on the
+    host checkpoints and resumes, and its default device refuses without
+    a card, with jax, the JAX package and ``ml_dtypes`` blocked."""
+    proc = _run_blocked(f"""
+import runpy
+from repro_torch.launch.train import main
+ck = {str(tmp_path / "ck")!r}
+main(["--arch", "mamba2_130m", "--smoke", "--steps", "2", "--device", "cpu",
+      "--batch", "2", "--seq", "16", "--ckpt-dir", ck])
+main(["--arch", "mamba2_130m", "--smoke", "--steps", "3", "--device", "cpu",
+      "--batch", "2", "--seq", "16", "--ckpt-dir", ck])
+import repro_torch.examples.train_100m
+assert not any(m.split(".")[0] in ("jax", "repro", "ml_dtypes")
+               for m in sys.modules)
+try:
+    main(["--arch", "mamba2_130m", "--smoke", "--steps", "2"])
+except RuntimeError as e:
+    print("refused:", e)
+sys.argv = ["repro_torch.launch.train", "--help"]
+runpy.run_module("repro_torch.launch.train", run_name="__main__")
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count("[train] done: first loss") == 2
+    assert "[train] resumed from step 2" in proc.stdout
+    assert "refused: device 'cuda' requested" in proc.stdout
+    assert "--ckpt-every" in proc.stdout and "--device" in proc.stdout
+
+
 def test_cuda_without_a_card_raises(monkeypatch):
     from repro_torch import resolve_device
     from repro_torch.bench import common
@@ -152,6 +185,15 @@ def test_cuda_without_a_card_raises(monkeypatch):
         common.model_step_family("train_step")
     with pytest.raises(RuntimeError, match="is_available"):
         common.chunked_dgemm_family({"m": 8, "n": 8, "k": 8})
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.launch.train import train
+    from repro_torch.optim import adamw_init
+    with pytest.raises(RuntimeError, match="is_available"):
+        train("mamba2_130m", steps=1)
+    with pytest.raises(RuntimeError, match="is_available"):
+        adamw_init({})
+    with pytest.raises(RuntimeError, match="is_available"):
+        load_checkpoint("unused")
     assert resolve_device("cpu").type == "cpu"
 
 
