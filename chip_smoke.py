@@ -237,11 +237,11 @@ run when it fails:
                mamba2-130m at its published config (24 layers,
                d_model 768, vocab 50280, bf16) trained through
                ``repro_torch.launch.train.train`` at B=8, S=2048
-               (TRAIN_LAUNCH): 40 steps straight, whose loss must fall by
-               more than 0.05; then 20 steps with a checkpoint and a run
-               that resumes from it to step 40, whose last loss must equal
+               (TRAIN_LAUNCH): 10 steps straight, whose loss must fall by
+               more than 0.05; then 5 steps with a checkpoint and a run
+               that resumes from it to step 10, whose last loss must equal
                the straight run's within rtol 1e-4; every run launches the
-               SSD kernel. Then granite-3-2b at all 40 layers (TRAIN_DENSE:
+               SSD kernel, 48 times a step, on the host mesh. Then granite-3-2b at all 40 layers (TRAIN_DENSE:
                B=1, S=4096, batch 256 -> 1) through
                ``train.steps.build_train_step`` with the bf16 flash kernel
                at phase 6's tile, remat and AdamW, 3 steps, every flash
@@ -317,8 +317,8 @@ DEVICE_TIMING_TRIAD = {"256 KiB": 1 << 18, "cache": 1 << 22, "dram": 1 << 28}
 #: the profiled TRIAD kernel against phase 4's CUDA-event graph-replay
 #: time of the same tensor size (device time without the host's dispatch)
 DEVICE_TIMING_AGREEMENT = 0.25
-#: the paper-table benches phase 11 runs (``distributed_tuner`` is not
-#: ported; ``roofline_model`` ran in phase 5)
+#: the paper-table benches phase 11 runs (``roofline_model`` ran in phase
+#: 5, ``distributed_tuner`` runs in phase 16)
 PAPER_BENCHES = ("matmul_peak", "triad", "iteration_counts", "size_sweep",
                  "optimizations", "kernel_autotune")
 FLASH_MAIN = (1, 32, 8, 4096, 64)          # (B, H, Hkv, S, D), granite-3-2b
@@ -503,7 +503,7 @@ STACK_CONTINUE = {"granite_moe_1b_a400m": 4, "mixtral_8x22b": 2,
 #: flash, remat and AdamW, B=1, S=4096 (batch 256 -> 1, as phase 7), its
 #: first step a warm-up; no checkpoint (its state is 25 GB on disk)
 TRAIN_LAUNCH = {"arch": "mamba2_130m", "batch": 8, "seq": 2048,
-                "steps": 40, "split": 20, "loss_drop": 0.05,
+                "steps": 10, "split": 5, "loss_drop": 0.05,
                 "resume_rtol": 1e-4}
 TRAIN_DENSE = {"arch": "granite_3_2b", "batch": 1, "seq": 4096, "steps": 3}
 #: phase 15's check of ``adamw_update`` on the card against the same call
@@ -521,6 +521,25 @@ TRAIN_DENSE = {"arch": "granite_3_2b", "batch": 1, "seq": 4096, "steps": 3}
 #: hence the restart. A leaf the update left as it was is off by
 #: lr·update ~ 1e-2, half an element at granite's init scale.
 ADAMW_CHECK = {"lrs": (1e-2, 2e-2, 3e-2), "flip_share": 1e-3}
+
+
+#: phase 16 (a): the dry-run cells, each in a process that sees no card
+DRY_RUN = {"granite": ["--arch", "granite_3_2b", "--shape", "train_4k",
+                       "--mesh", "single"],
+           "zamba2": ["--arch", "zamba2_2_7b", "--shape", "decode_32k",
+                      "--mesh", "multi", "--no-analysis"]}
+#: phase 16 (b): the perf driver's variant
+PERF_VARIANT = ["--arch", "granite_3_2b", "--shape", "train_4k",
+                "--remat-policy", "dots_saveable"]
+#: phase 16 (c, d): granite-3-2b's sharded train step on the host mesh
+DIST_STEP = {"arch": "granite_3_2b", "layers": 4, "batch": 1, "seq": 4096,
+             "steps": 3}
+#: phase 16 (c): the dry run's peak-bytes estimate of the step against
+#: torch.cuda.max_memory_allocated
+PEAK_ESTIMATE = (0.5, 2.0)
+#: phase 16 (d): the remat policies, aliases left out (same code)
+DIST_POLICIES = ("nothing_saveable", "everything_saveable", "dots_saveable",
+                 "dots_with_no_batch_dims_saveable")
 
 
 def fail(msg: str) -> None:
@@ -2035,9 +2054,10 @@ def device_timing_path(triad_ms: dict) -> dict:
     records = counters.get(counter, 0) - lost_before
     retries = counters.get("card_clock.retries", 0) - retries_before
     windows = sum(len(run["timings"]) for run in out.values())
-    print(f"  kernel records the profiler lost from the {PRIMER} throwaway "
-          f"kernels opening each window: {records} over {windows} windows; "
-          f"DGEMM card-clock samples retaken with a longer hold: {retries}")
+    print(f"  kernel records the profiler lost in the recorded step of "
+          f"each window (after a warm-up step of {PRIMER} throwaway "
+          f"kernels): {records} over {windows} windows; DGEMM card-clock "
+          f"samples retaken with a longer hold: {retries}")
     out["lost"] = {"kernel_records": records, "windows": windows}
     return out
 
@@ -2903,6 +2923,13 @@ def launcher_training() -> dict:
         if ssd == 0 or run["launches"]["flash_attention"] != 0:
             fail(f"{cfg.name} {label}: launches {run['launches']}; want "
                  f"SSD launches and no flash launch")
+        if not run["result"]["dtensor"]:
+            fail(f"{cfg.name} {label}: the launcher's parameters are not "
+                 f"DTensors on the host mesh")
+        if ssd != 2 * cfg.n_layers * n:
+            fail(f"{cfg.name} {label}: {ssd} SSD launches over {n} steps, "
+                 f"want {2 * cfg.n_layers} a step (forward and remat "
+                 f"recompute)")
         run.update(steps=n, ssd_per_step=ssd / n,
                    step_ms=run["result"]["mean_step_s"] * 1e3,
                    update_ms_mean=statistics.mean(run["update_ms"][1:]))
@@ -2930,8 +2957,10 @@ def launcher_training() -> dict:
               f"step, loss {losses[0]:.6f} -> {losses[-1]:.6f}, peak memory "
               f"{run['peak_gib']:.2f} GiB, SSD launches "
               f"{run['launches']['ssd_chunk_scan']} "
-              f"({run['ssd_per_step']:g} a step), flash 0, wall "
-              f"{run['wall_s']:.1f} s")
+              f"({run['ssd_per_step']:g} a step: {cfg.n_layers} + "
+              f"{cfg.n_layers} recomputed), flash 0, wall "
+              f"{run['wall_s']:.1f} s; DTensors on the host mesh "
+              f"{run['result']['mesh']}")
     print(f"  checkpoints kept {kept}, {size / 2 ** 30:.3f} GiB on disk")
     print(f"  loss drop over {spec['steps']} steps {first - last:.6f} "
           f"(must exceed {spec['loss_drop']}); resumed last loss "
@@ -2976,7 +3005,7 @@ def dense_training(tile: tuple[int, int]) -> dict:
     step_cfg = StepConfig(use_flash=True, flash_block_q=tile[0],
                           flash_block_k=tile[1], remat=True)
     bundle = build_train_step(cfg, WorkloadShape("train_4k_b1", s, b,
-                                                 "train"), step_cfg)
+                                                 "train"), step_cfg=step_cfg)
     defs = api.param_defs(cfg)
     params = materialize(torch.Generator(device="cuda").manual_seed(0), defs)
     opt = adamw_init(defs, "cuda")
@@ -3109,6 +3138,342 @@ def training_launch_path(tile: tuple[int, int]) -> dict:
     :func:`launcher_training` and (b) :func:`dense_training`."""
     return {"adamw_check": adamw_card_check(),
             "launcher": launcher_training(), "dense": dense_training(tile)}
+
+
+def start_dry_runs() -> dict:
+    """Phase 16 (a, b): the dry-run cells and the perf driver, each in a
+    process of its own with ``CUDA_VISIBLE_DEVICES=""`` (a fake world of
+    256 or 512 ranks, nothing on the card), started together; collected
+    by :func:`dry_run_checks`."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    (WORK / "dryrun").mkdir(parents=True, exist_ok=True)
+    for label, args in DRY_RUN.items():
+        out = WORK / "dryrun" / f"{label}.jsonl"
+        out.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+               "--out", str(out)]
+        procs[label] = (cmd, out)
+    procs["perf"] = ([sys.executable, "-m", "repro_torch.launch.perf",
+                      *PERF_VARIANT], None)
+    running = {}
+    for label, (cmd, out) in procs.items():
+        print("$ CUDA_VISIBLE_DEVICES= " + " ".join(cmd[1:]), flush=True)
+        log = open(WORK / "dryrun" / f"{label}.log", "w", encoding="utf-8")
+        running[label] = (subprocess.Popen(cmd, cwd=REPO, env=env,
+                                           stdout=log,
+                                           stderr=subprocess.STDOUT),
+                          out, log, time.perf_counter())
+    return running
+
+
+def local_args_bytes(cfg, shape, sizes: dict) -> float:
+    """Bytes of rank 0's local shards of a train step's arguments
+    (params, opt state, batch, step) on a mesh of ``sizes``: each leaf's
+    numel over the product of the mesh axes its spec gives it (the rules
+    only take axes that divide)."""
+    import math
+    import types
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import api
+    from repro_torch.models.config import input_specs
+    from repro_torch.optim import opt_state_defs
+    mesh = types.SimpleNamespace(shape=sizes)
+    defs = api.param_defs(cfg)
+    leaves = []
+
+    def walk(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                walk(v)
+            else:
+                leaves.append((v.logical, v.shape, v.dtype))
+
+    walk(defs)
+    walk(opt_state_defs(defs))
+    for s in input_specs(cfg, shape).values():
+        leaves.append((("batch",) + (None,) * (len(s.shape) - 1),
+                       tuple(s.shape), s.dtype))
+    total = 4.0                                       # the int32 step
+    for logical, dims, dtype in leaves:
+        spec = sh.logical_to_spec(logical, dims, sh.TRAIN_RULES, mesh)
+        n = math.prod(dims)
+        for entry in spec:
+            for ax in ((entry,) if isinstance(entry, str) else entry or ()):
+                n //= sizes[ax]
+        total += n * dtype.itemsize
+    return total
+
+
+def dry_run_checks(running: dict) -> dict:
+    """Phase 16 (a, b): wait for :func:`start_dry_runs`' processes and
+    check them: granite-3-2b train_4k on the (16, 16) world with its
+    three terms finite and positive, its model FLOPs 6·N_active·tokens,
+    its argument bytes the sum of rank 0's local shards, and the full
+    depth's FLOPs equal to the 1-/2-unit extrapolation (1e-6 relative);
+    zamba2-2.7b decode_32k on the (2, 16, 16) world ok; the perf driver's
+    baseline, variant and delta."""
+    import math
+    from repro_torch.configs import get
+    from repro_torch.models.config import SHAPES
+    out = {}
+    for label, (proc, path, log, t0) in running.items():
+        rc = proc.wait(timeout=SUBPROCESS_TIMEOUT_S)
+        log.close()
+        seconds = time.perf_counter() - t0
+        text = (WORK / "dryrun" / f"{label}.log").read_text(encoding="utf-8")
+        if rc != 0:
+            print(text[-4000:])
+            fail(f"dry run {label}: exit {rc}")
+        out[label] = {"seconds": seconds, "log": text}
+        if path is not None:
+            out[label]["record"] = json.loads(
+                path.read_text(encoding="utf-8").splitlines()[-1])
+    rec = out["granite"]["record"]
+    cfg, shape = get("granite_3_2b"), SHAPES["train_4k"]
+    terms = [rec[k] for k in ("compute_ms", "memory_ms", "collective_ms")]
+    if rec["status"] != "ok" or not all(math.isfinite(t) and t > 0
+                                        for t in terms):
+        fail(f"dry run granite: {rec}")
+    want_flops = 6.0 * cfg.n_active_params() * shape.tokens
+    if rec["model_flops_total"] != want_flops:
+        fail(f"dry run granite: model FLOPs {rec['model_flops_total']} vs "
+             f"6·N·D {want_flops}")
+    args = local_args_bytes(cfg, shape, {"data": 16, "model": 16})
+    if rec["args_bytes_per_dev"] != args:
+        fail(f"dry run granite: argument bytes {rec['args_bytes_per_dev']} "
+             f"vs rank 0's local shards {args}")
+    if not rec["extrapolation_rel_err"] <= 1e-6:
+        fail(f"dry run granite: full depth vs extrapolation "
+             f"{rec['extrapolation_rel_err']:.3e}")
+    zam = out["zamba2"]["record"]
+    if zam["status"] != "ok" or zam["chips"] != 512:
+        fail(f"dry run zamba2: {zam}")
+    perf_log = out["perf"]["log"]
+    for tag in ("[baseline] compute=", "[variant ] compute=",
+                "[delta] lower bound"):
+        if tag not in perf_log:
+            fail(f"launch.perf printed no {tag!r}")
+    print(f"dry run granite-3-2b train_4k on a fake (16, 16) world "
+          f"({out['granite']['seconds']:.1f} s, trace {rec['compile_s']} s): "
+          f"H100 estimates compute {rec['compute_ms']} ms, memory "
+          f"{rec['memory_ms']} ms, collective {rec['collective_ms']} ms -> "
+          f"{rec['dominant']}; peak {rec['peak_gb']} GB/dev, args "
+          f"{rec['args_bytes_per_dev'] / 1e9:.4f} GB = rank 0's local shards;"
+          f" model FLOPs {rec['model_flops_total']:.4e} = 6·N·D; "
+          f"extrapolation rel. difference {rec['extrapolation_rel_err']:.1e}"
+          f"; collectives {rec['collectives']}")
+    print(f"dry run zamba2-2.7b decode_32k on a fake (2, 16, 16) world "
+          f"({out['zamba2']['seconds']:.1f} s): {zam['status']}, peak "
+          f"{zam['peak_gb']} GB/dev")
+    print("launch.perf granite-3-2b train_4k --remat-policy dots_saveable "
+          f"({out['perf']['seconds']:.1f} s):")
+    for line in perf_log.splitlines():
+        if line.startswith(("[baseline]", "[variant ]", "[delta]")):
+            print("  " + line)
+    return {"granite": rec, "zamba2": zam,
+            "seconds": {k: v["seconds"] for k, v in out.items()}}
+
+
+def sharded_steps(tile: tuple[int, int]) -> dict:
+    """Phase 16 (c, d): granite-3-2b at full width (DIST_STEP) through
+    ``build_train_step`` on ``make_host_mesh()`` with TRAIN_RULES, the
+    bf16 flash kernel at ``tile`` and remat: DIST_STEP["steps"] steps
+    against the same steps with ``mesh=None`` from the same weights and
+    batches (losses, global norms and final parameters bitwise); the
+    flash launches, all on the tensor cores; both step times and peak
+    memory; the dry run's peak-bytes estimate of this step (traced on
+    ``meta``) within PEAK_ESTIMATE of the measured peak; then one step
+    under each of DIST_POLICIES from the same weights: loss, global norm
+    and updated parameters equal to nothing_saveable's, its peak memory,
+    and nothing_saveable's peak below everything_saveable's."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.models.config import WorkloadShape
+    from repro_torch.models.params import flatten, materialize
+    from repro_torch.models.transformer import StepConfig
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.steps import build_train_step
+    spec = DIST_STEP
+    cfg = dataclasses.replace(get(spec["arch"]), n_layers=spec["layers"])
+    b, s = spec["batch"], spec["seq"]
+    shape = WorkloadShape("train_4k_b1", s, b, "train")
+    mesh = make_host_mesh()
+    defs = api.param_defs(cfg)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size), b, s,
+                       device="cuda")
+    batches = [data.batch_at(i) for i in range(spec["steps"])]
+
+    def whole(x):
+        return x.full_tensor() if type(x).__name__ == "DTensor" else x
+
+    def run(m, policy: str, steps: int) -> dict:
+        step_cfg = StepConfig(use_flash=True, flash_block_q=tile[0],
+                              flash_block_k=tile[1], remat=True,
+                              remat_policy=policy)
+        bundle = build_train_step(cfg, shape, m, step_cfg=step_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the step's own memory: its arguments and what it allocates,
+        # not what this process holds already
+        base = torch.cuda.memory_allocated()
+        params = materialize(torch.Generator(device="cuda").manual_seed(0),
+                             defs)
+        opt = adamw_init(defs, "cuda")
+        fn = bundle.jitted()
+        kernels.reset_launch_counts()
+        metrics, step_ms = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, mt = fn(params, opt, batches[i], i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: whole(v).clone() for k, v in mt.items()})
+        out = {"metrics": metrics, "step_ms": step_ms,
+               "peak_bytes": torch.cuda.max_memory_allocated() - base,
+               "launches": kernels.launch_counts(),
+               "routes": dict(kernels.flash_attention.route_launches),
+               "dtensor": type(next(iter(flatten(params).values())))
+               .__name__ == "DTensor",
+               "params": {k: whole(v) for k, v in flatten(params).items()}}
+        if m is not None:
+            out["estimate"] = bundle.lower().peak_bytes
+        return out
+
+    plain = run(None, "nothing_saveable", spec["steps"])
+    plain_params = plain.pop("params")
+    sharded = run(mesh, "nothing_saveable", spec["steps"])
+    if not sharded["dtensor"]:
+        fail("the sharded step's parameters are not DTensors")
+    for i, (a, c) in enumerate(zip(plain["metrics"], sharded["metrics"])):
+        for key in ("loss", "grad_norm"):
+            if not torch.equal(a[key], c[key]):
+                fail(f"sharded step {i}: {key} {float(c[key])!r} vs meshless "
+                     f"{float(a[key])!r}")
+    diff = [k for k, v in sharded.pop("params").items()
+            if not torch.equal(v, plain_params[k])]
+    if diff:
+        fail(f"sharded steps: final parameters differ from the meshless "
+             f"ones at {diff[:5]}")
+    del plain_params
+    flash = sharded["launches"]["flash_attention"]
+    per_step = 2 * spec["layers"]          # forward + remat recompute
+    if flash != per_step * spec["steps"] or \
+            sharded["routes"]["tensor_cores"] != flash:
+        fail(f"sharded steps: flash launches {flash}, routes "
+             f"{sharded['routes']}; want {per_step} a step, all on the "
+             f"tensor cores")
+    ratio = sharded["estimate"] / sharded["peak_bytes"]
+    if not PEAK_ESTIMATE[0] <= ratio <= PEAK_ESTIMATE[1]:
+        fail(f"the dry run's peak estimate {sharded['estimate']} bytes is "
+             f"{ratio:.3f}x the measured {sharded['peak_bytes']}")
+    print(f"{cfg.name} at full width ({spec['layers']} of 40 layers, B={b}, "
+          f"S={s}, bf16, flash tile {tile}, remat) on make_host_mesh() "
+          f"{tuple(mesh.shape)} with TRAIN_RULES: {spec['steps']} steps "
+          f"bitwise equal to mesh=None (losses "
+          + ", ".join(f"{float(m['loss']):.6f}" for m in sharded["metrics"])
+          + ", global norms "
+          + ", ".join(f"{float(m['grad_norm']):.6f}"
+                      for m in sharded["metrics"]) + ", final params)")
+    print(f"  step ms (each): sharded "
+          + ", ".join(f"{t:.1f}" for t in sharded["step_ms"])
+          + "; meshless " + ", ".join(f"{t:.1f}" for t in plain["step_ms"]))
+    print(f"  peak memory: sharded {sharded['peak_bytes'] / 2 ** 30:.3f} GiB,"
+          f" meshless {plain['peak_bytes'] / 2 ** 30:.3f} GiB; the dry run's "
+          f"estimate on meta {sharded['estimate'] / 2 ** 30:.3f} GiB "
+          f"({ratio:.3f}x the measured)")
+    print(f"  flash launches {flash} ({per_step} a step), routes "
+          f"{sharded['routes']}")
+    policies = {}
+    first = None                 # the parameters after nothing_saveable's step
+    for policy in DIST_POLICIES:
+        r = run(mesh, policy, 1)
+        updated = r.pop("params")
+        for key in ("loss", "grad_norm"):
+            if not torch.equal(r["metrics"][0][key],
+                               sharded["metrics"][0][key]):
+                fail(f"remat {policy}: {key} {float(r['metrics'][0][key])!r}"
+                     f" vs nothing_saveable's "
+                     f"{float(sharded['metrics'][0][key])!r}")
+        if first is None:
+            first = updated
+        else:
+            # the same gradients give the same AdamW update
+            diff = [k for k, v in updated.items()
+                    if not torch.equal(v, first[k])]
+            if diff:
+                fail(f"remat {policy}: parameters after one step differ "
+                     f"from nothing_saveable's at {diff[:5]}")
+        del updated
+        policies[policy] = {"peak_bytes": r["peak_bytes"],
+                            "step_ms": r["step_ms"][0],
+                            "flash": r["launches"]["flash_attention"]}
+        print(f"  remat {policy}: loss, global norm and updated parameters "
+              f"equal to nothing_saveable's; peak "
+              f"{r['peak_bytes'] / 2 ** 30:.3f} GiB,"
+              f" step {r['step_ms'][0]:.1f} ms (first), flash launches "
+              f"{r['launches']['flash_attention']}")
+    if not policies["nothing_saveable"]["peak_bytes"] < \
+            policies["everything_saveable"]["peak_bytes"]:
+        fail(f"remat: nothing_saveable's peak is not below "
+             f"everything_saveable's ({policies})")
+    launches = flash + sum(p["flash"] for p in policies.values())
+    return {"sharded": {k: v for k, v in sharded.items() if k != "metrics"},
+            "plain": {k: v for k, v in plain.items() if k != "metrics"},
+            "losses": [float(m["loss"]) for m in sharded["metrics"]],
+            "policies": policies, "estimate_ratio": ratio,
+            "flash_launches": launches}
+
+
+def distributed_tuner_bench() -> dict:
+    """Phase 16 (e): the ``distributed_tuner`` bench through
+    ``bench.run``'s own runner in this process: 5 backend rows and 6
+    strategy rows with finite GFLOP/s, and the hand GEMM launched."""
+    import math
+    from repro_torch import kernels
+    from repro_torch.bench import run as bench_run
+    from repro_torch.bench.distributed_tuner import BACKENDS, STRATEGIES
+    print("$ repro_torch.bench.run --only distributed_tuner (in process)",
+          flush=True)
+    kernels.reset_launch_counts()
+    rows = bench_run.run_benches(["distributed_tuner"])["distributed_tuner"]
+    launches = kernels.launch_counts()
+    backends = [r for r in rows if "backend" in r]
+    strategies = [r for r in rows if "strategy" in r]
+    if [r["backend"] for r in backends] != list(BACKENDS) or \
+            [r["strategy"] for r in strategies] != list(STRATEGIES):
+        fail(f"distributed_tuner rows: {rows}")
+    if not all(math.isfinite(r["gflops"]) and r["gflops"] > 0
+               for r in rows):
+        fail(f"distributed_tuner: non-finite GFLOP/s in {rows}")
+    if launches["matmul"] == 0:
+        fail("the distributed_tuner bench never launched the GEMM kernel")
+    print(f"  distributed_tuner: {len(backends)} backend rows, "
+          f"{len(strategies)} strategy rows; GEMM kernel launches "
+          f"{launches['matmul']}")
+    return {"rows": rows, "launches": launches}
+
+
+def distribution_path(tile: tuple[int, int]) -> dict:
+    """Phase 16: the dry runs and the perf driver in processes of their
+    own (host CPU only), beside the sharded steps on the card (c, d) and
+    the distributed tuner bench (e), which times on the card's clock;
+    then the dry runs' checks."""
+    running = start_dry_runs()
+    steps = sharded_steps(tile)
+    bench = distributed_tuner_bench()
+    dry = dry_run_checks(running)
+    return {"dry": dry, "steps": steps, "bench": bench}
 
 
 def main() -> int:
@@ -3762,11 +4127,16 @@ def main() -> int:
     d128 = stack["flash"]["d128"]
 
     # -- 15. training launch ---------------------------------------------------
-    phase("training launch (mamba2-130m through launch.train: 40 steps, "
-          "20 + resume to 40; granite-3-2b at 40 layers, 3 AdamW steps)")
+    phase("training launch (mamba2-130m through launch.train: 10 steps, "
+          "5 + resume to 10; granite-3-2b at 40 layers, 3 AdamW steps)")
     training = training_launch_path(step["tile"])
     dense_train = training["dense"]
     launcher_runs = training["launcher"]["runs"]
+
+    # -- 16. distribution ------------------------------------------------------
+    phase("distribution (dry runs on fake worlds, launch.perf, granite-3-2b "
+          "sharded steps on the host mesh, remat policies, distributed tuner)")
+    dist = distribution_path(step["tile"])
 
     # -- result lines ------------------------------------------------------
     phase("result")
@@ -3785,6 +4155,7 @@ def main() -> int:
          "launches_history_search": search["launches"],
          "launches_observability": (
              observe["tune_launches"]["gemm_tiled"]["matmul"]),
+         "launches_distribution": dist["bench"]["launches"]["matmul"],
          "max_abs_err": errs["matmul"],
          "ms": gemm_ms, "plain_ms": gemm_plain_ms,
          "bound_ms": gemm_bound_ms, "bound_by": "operations",
@@ -3799,6 +4170,7 @@ def main() -> int:
          "launches_paper_tables": tables["launches"]["triad"],
          "launches_observability": (
              observe["tune_launches"]["triad"]["triad"]),
+         "launches_distribution": dist["bench"]["launches"]["triad"],
          "host_us_per_call": observe["ops"]["host_us"],
          "profiled_ms": {label: run["timings"][0][1]["device_time_s"] * 1e3
                          for label, run in timing.items()
@@ -3819,6 +4191,7 @@ def main() -> int:
          "launches_zamba2_step": hyb["routes"]["tensor_cores"],
          "launches_model_stack": stack_flash,
          "launches_training": dense_train["launches"]["flash_attention"],
+         "launches_distribution": dist["steps"]["flash_launches"],
          "launches_observability": (
              observe["launches"]["granite"]["flash_attention"]
              + observe["launches"]["zamba2"]["flash_attention"]),
@@ -3856,6 +4229,22 @@ def main() -> int:
                                if k != "launches"}
                        for label, run in stack["serve"].items()},
              "continue": stack["continue"]},
+         "distribution": {
+             "arch": DIST_STEP["arch"], "layers": DIST_STEP["layers"],
+             "sharded_step_ms": dist["steps"]["sharded"]["step_ms"],
+             "meshless_step_ms": dist["steps"]["plain"]["step_ms"],
+             "sharded_peak_gib": (dist["steps"]["sharded"]["peak_bytes"]
+                                  / 2 ** 30),
+             "meshless_peak_gib": (dist["steps"]["plain"]["peak_bytes"]
+                                   / 2 ** 30),
+             "estimate_ratio": dist["steps"]["estimate_ratio"],
+             "losses": dist["steps"]["losses"],
+             "remat": dist["steps"]["policies"],
+             "dry_run": {"granite": {k: dist["dry"]["granite"][k] for k in
+                                     ("compute_ms", "memory_ms",
+                                      "collective_ms", "peak_gb",
+                                      "compile_s")},
+                         "seconds": dist["dry"]["seconds"]}},
          "training": {"arch": TRAIN_DENSE["arch"],
                       "step_ms": dense_train["step_ms"],
                       "step_ms_each": dense_train["step_ms_each"],
@@ -3868,6 +4257,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention_tf32x3.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:33",
          "launches": step["f32_launches"],
+         "launches_distribution": 0,
          "launches_granite_f32_step": step["f32_launches"],
          "max_abs_err": errs["flash_f32_main"],
          "max_abs_err_f32_cases": errs["flash_f32_cases"],
@@ -3887,6 +4277,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:33",
          "launches": (step["routes"]["cuda_cores"]
                       + hyb["routes"]["cuda_cores"]),
+         "launches_distribution": 0,
          "max_abs_err": errs["flash_f32_d256"],
          "ms": flash256["kernel"], "plain_ms": flash256["plain"],
          "bound_ms": flash256["bound"], "bound_by": flash256["bound_by"],
@@ -3904,6 +4295,7 @@ def main() -> int:
          "launches_serving_zamba2": zamba2_serve_ssd,
          "launches_zamba2_step": hyb["launches"]["ssd_chunk_scan"],
          "launches_training": training["launcher"]["ssd_launches"],
+         "launches_distribution": 0,
          "launches_observability": (
              observe["launches"]["mamba2"]["ssd_chunk_scan"]
              + observe["launches"]["zamba2"]["ssd_chunk_scan"]),

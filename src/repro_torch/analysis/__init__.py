@@ -1,6 +1,11 @@
-"""Per-op cost of one eager call: the port's counterpart of the JAX
-package's HLO cost parser (:mod:`.ops`)."""
+"""Cost analysis: per-op FLOPs and bytes of one eager call (``ops``), the
+per-device trace of a sharded step (``trace``) and its roofline terms
+(``terms``)."""
 
-from .ops import ModuleOps, OpCost, count_ops
+from .ops import ModuleOps, OpCost, OpCounter, count_ops, op_key, scope
+from .terms import RooflineTerms, analyze, model_flops
+from .trace import CollectiveStats, DeviceCounter, StepTrace, trace_call
 
-__all__ = ["ModuleOps", "OpCost", "count_ops"]
+__all__ = ["CollectiveStats", "DeviceCounter", "ModuleOps", "OpCost",
+           "OpCounter", "RooflineTerms", "StepTrace", "analyze",
+           "count_ops", "model_flops", "op_key", "scope", "trace_call"]

@@ -28,7 +28,10 @@ instead, through a ``TorchDispatchMode``:
   none.
 
 It runs on ``meta`` tensors as well as real ones: the counterpart of
-tracing with ``jax.ShapeDtypeStruct``, with nothing allocated.
+tracing with ``jax.ShapeDtypeStruct``, with nothing allocated. Over
+DTensors it counts the ops DTensor runs on this rank's local shards
+(per device, as XLA's ``cost_analysis`` of an SPMD module is), not the
+DTensor-level ops over the global shapes.
 """
 
 from __future__ import annotations
@@ -150,6 +153,19 @@ def _nbytes(tree) -> float:
     return float(sum(t.nbytes for t in leaves if isinstance(t, torch.Tensor)))
 
 
+def _is_dtensor_call(types) -> bool:
+    return any(t.__name__ == "DTensor" for t in types)
+
+
+def _is_fake_call(args, kwargs) -> bool:
+    if torch._C._get_dispatch_mode(
+            torch._C._TorchDispatchModeKey.FAKE) is not None:
+        return True
+    from torch._subclasses.fake_tensor import FakeTensor
+    leaves, _ = tree_flatten((args, kwargs))
+    return any(isinstance(t, FakeTensor) for t in leaves)
+
+
 class OpCounter(TorchDispatchMode):
     """The dispatch mode behind :func:`count_ops`: one record per
     non-aliasing op, in call order. ``n_dispatched`` counts every op
@@ -178,6 +194,15 @@ class OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _is_dtensor_call(types):
+            # let DTensor run first: it calls the op on this rank's local
+            # shards (and plans its collectives), which come back through
+            # this mode, so a count is per device, never global
+            return NotImplemented
+        if _is_fake_call(args, kwargs):
+            # DTensor's shape propagation runs each new op once more on
+            # fake tensors of the global shapes: not this rank's work
+            return func(*args, **kwargs)
         self.n_dispatched += 1
         if _aliases(func):
             return func(*args, **kwargs)

@@ -296,10 +296,15 @@ def gemm_tiled_invocation_factory(bm: int, bn: int, bk: int,
     """The hand-written GEMM at one (bm, bn, bk) tile; a GFLOP/s
     sampler. ``data`` supplies the (m, k) and (k, n) operands, shared
     across tiles and invocations: GEMM's runtime is data-oblivious, and
-    redrawing ~38 M normals per invocation would dominate the search."""
+    redrawing ~38 M normals per invocation would dominate the search. On
+    a card the sampler times on the card's clock (one
+    :class:`~repro_torch.core.card_clock.CardClock` per tile), as the
+    DGEMM samplers do: the launch and the synchronize's return, which
+    grow with the host's other work, stay out of the score."""
     dev = resolve_device(device)
     cache = exec_cache if exec_cache is not None else default_cache()
     sync = synchronizer(dev)
+    card = CardClock() if dev.type == "cuda" else None
 
     def factory():
         a, b = data()
@@ -311,6 +316,9 @@ def gemm_tiled_invocation_factory(bm: int, bn: int, bk: int,
         sync()
         trace_instant("workload", kernel="gemm_tiled", m=m, n=n, k=k,
                       bm=bm, bn=bn, bk=bk, flops=flops, dtype=str(a.dtype))
+        if card is not None:
+            return timed_sampler(lambda: f(a, b), work=flops / 1e9,
+                                 card_clock=card)
 
         def run():
             f(a, b)

@@ -12,8 +12,6 @@ budgets. Everything runs on the card unless ``--device cpu`` is given.
 run ledger's trends and regression verdicts when ``DIR/history.jsonl``
 exists) from the ``--resume`` cache dir.
 
-``distributed_tuner`` keeps its key but is not ported yet: ``--only
-distributed_tuner`` raises, and a run of every bench leaves it out.
 """
 
 from __future__ import annotations
@@ -23,16 +21,9 @@ import inspect
 import sys
 import time
 
-from . import (iteration_counts, kernel_autotune, matmul_peak,
-               optimizations, roofline_model, size_sweep, triad)
+from . import (distributed_tuner, iteration_counts, kernel_autotune,
+               matmul_peak, optimizations, roofline_model, size_sweep, triad)
 from .common import emit
-
-
-def distributed_tuner(quick: bool = True, **_) -> None:
-    raise NotImplementedError(
-        "distributed_tuner: the sharded tuner is not ported yet (ROADMAP "
-        "'Distribution and launch topology')")
-
 
 BENCHES = {
     "matmul_peak": matmul_peak.run,                # Tables IV/V
@@ -43,10 +34,8 @@ BENCHES = {
     "roofline_model": roofline_model.run,          # Fig. 1
     "kernel_autotune": kernel_autotune.run,        # beyond-paper
     # beyond-paper: execution backends + search-strategy comparison
-    "distributed_tuner": distributed_tuner,
+    "distributed_tuner": distributed_tuner.run,
 }
-#: benches a run of every bench leaves out (they raise)
-UNPORTED = ("distributed_tuner",)
 
 
 def run_benches(names, *, quick: bool = True, device: str = "cuda",
@@ -99,8 +88,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     print("name,us_per_call,derived")
-    names = [args.only] if args.only else [n for n in BENCHES
-                                           if n not in UNPORTED]
+    names = [args.only] if args.only else list(BENCHES)
     run_benches(names, quick=not args.full, device=args.device,
                 resume=args.resume)
 

@@ -29,7 +29,8 @@ check, same operands throughout:
 
 Profiler (``torch.profiler``, CPU + CUDA activity): windows of 64 small
 kernels launched, each followed by a synchronize, at process ages from
-0 to ``--minutes`` with f32 products keeping the card busy between them.
+0 to ``--minutes`` with f32 products keeping the card busy between them,
+each as a plain window and as a window with a warm-up step.
 Per window: the launches with no kernel record, where they lie (their
 launch index and host offset from the window's first launch), and the
 offset of each kept kernel's start from its launch's start (negative
@@ -331,17 +332,29 @@ def samplers(n: int) -> dict:
     return out
 
 
-def _window() -> dict:
+def _window(warmup: bool = False) -> dict:
     """One profiler window of WINDOW_KERNELS small kernels, each followed
-    by a synchronize; what its trace kept."""
-    from torch.profiler import ProfilerActivity, profile
+    by a synchronize; what its trace kept. ``warmup``: the window is a
+    schedule of one warm-up step (the tracer starts there, WINDOW_KERNELS
+    kernels) and one recorded step, as ``obs/device_timing.py`` opens
+    its windows."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     x = torch.zeros(1024, device="cuda")
+    kw = ({"schedule": schedule(wait=0, warmup=1, active=1, repeat=1)}
+          if warmup else {})
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA], **kw) as prof:
+        if warmup:
+            for _ in range(WINDOW_KERNELS):
+                x.add_(1.0)
+            torch.cuda.synchronize()
+            prof.step()
         for _ in range(WINDOW_KERNELS):
             x.add_(1.0)
             torch.cuda.synchronize()
+        if warmup:
+            prof.step()
     launches, kernels = _launches_kernels(_export(prof))
     t_first = float(launches[0]["ts"]) if launches else 0.0
     lost, offsets = [], []
@@ -377,10 +390,12 @@ def profiler(minutes: float, n: int = 4096) -> list[dict]:
             for _ in range(32):
                 torch.matmul(a, a)
             torch.cuda.synchronize()
-        row = _window()
-        row["age_s"] = round(time.perf_counter() - t_start, 1)
-        rows.append(row)
-        print(json.dumps(row), flush=True)
+        for warmup in (False, True):
+            row = _window(warmup)
+            row["warmup_step"] = warmup
+            row["age_s"] = round(time.perf_counter() - t_start, 1)
+            rows.append(row)
+            print(json.dumps(row), flush=True)
     return rows
 
 

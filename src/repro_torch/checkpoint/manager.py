@@ -46,6 +46,8 @@ _STEP_RE = re.compile(r"^step_(\d{8})$")
 def _to_numpy(leaf: Any) -> tuple[np.ndarray, str]:
     """A leaf as the array npz stores and its true dtype's name."""
     if isinstance(leaf, torch.Tensor):
+        if type(leaf).__name__ == "DTensor":
+            leaf = leaf.full_tensor()        # stored unsharded
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"

@@ -4,6 +4,9 @@ Properties this substrate provides:
   * **Determinism & resumability** — batch ``i`` is a pure function of
     (seed, i); restart from any step reproduces the exact stream with no
     state files (the checkpoint only needs the step counter).
+  * **Sharding awareness** — :func:`make_batch_sharded` makes each
+    rank's rows of the step's batch locally (no global batch on the
+    host) and returns them as a DTensor.
   * **Structured tokens** — a tiny k-order Markov construction instead of
     iid noise, so the LM loss actually decreases during training
     (learnable bigram structure).
@@ -15,8 +18,10 @@ generator seeded by ``(seed, step)``, so for the same seed the streams
 differ (the same distribution, other draws) while each stays a pure
 function of (seed, step). :func:`markov_tokens` is the recurrence alone,
 a function of the three draws, so the reference's draws give the
-reference's tokens. The sharded batch (``make_batch_sharded``) belongs
-to distribution.
+reference's tokens. A shard's draws are seeded by (seed, step, its first
+row), as the reference folds the row start into its key, so the sharded
+stream is not the :meth:`SyntheticLM.batch_at` stream (in either
+package).
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["DataConfig", "SyntheticLM", "markov_tokens"]
+__all__ = ["DataConfig", "SyntheticLM", "make_batch_sharded",
+           "markov_tokens"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,10 +75,14 @@ class SyntheticLM:
         self._succ = rng.integers(0, cfg.vocab_size,
                                   size=cfg.vocab_size).astype(np.int32)
 
-    def draws(self, step: int, rows: int) -> tuple[np.ndarray, ...]:
+    def draws(self, step: int, rows: int,
+              start: "int | None" = None) -> tuple[np.ndarray, ...]:
         """The step's first tokens (rows, 1), noise (rows, S) and follow
-        mask (rows, S), from numpy's generator seeded by (seed, step)."""
-        rng = np.random.default_rng([self.cfg.seed, step])
+        mask (rows, S), from numpy's generator seeded by (seed, step), or
+        by (seed, step, start) for the shard whose first row is
+        ``start``."""
+        key = [self.cfg.seed, step] + ([] if start is None else [start])
+        rng = np.random.default_rng(key)
         vocab = self.cfg.vocab_size
         first = rng.integers(0, vocab, (rows, 1), dtype=np.int32)
         noise = rng.integers(0, vocab, (rows, self.seq_len), dtype=np.int32)
@@ -84,3 +94,29 @@ class SyntheticLM:
         toks = markov_tokens(self._succ, *self.draws(step, self.batch))
         return {"tokens": torch.from_numpy(toks).to(self.device,
                                                     torch.int64)}
+
+
+def make_batch_sharded(pipeline: SyntheticLM, step: int, mesh, spec) -> dict:
+    """The step's batch as a DTensor of ``spec`` (a sharding spec, as
+    :func:`repro_torch.distributed.sharding.logical_to_spec` gives) on
+    ``mesh``: this rank makes only its own rows, from draws seeded by
+    (seed, step, first row), and keeps its columns of them (the
+    reference's per-shard callback)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from ..distributed.sharding import placements
+    shape = (pipeline.batch, pipeline.seq_len)
+    pl = placements(spec, mesh)
+    local_shape, offset = compute_local_shape_and_global_offset(shape, mesh,
+                                                                pl)
+    rows = local_shape[0]
+    toks = markov_tokens(pipeline._succ,
+                         *pipeline.draws(step, rows, start=offset[0]))
+    toks = toks[:, offset[1]:offset[1] + local_shape[1]]
+    local = torch.from_numpy(np.ascontiguousarray(toks)).to(pipeline.device,
+                                                            torch.int64)
+    return {"tokens": DTensor.from_local(local, mesh, pl, run_check=False,
+                                         shape=shape,
+                                         stride=(pipeline.seq_len, 1))}

@@ -52,6 +52,7 @@ from typing import Any, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from ...distributed.local import local_vjp, to_layout
 from .. import build, registry
 
 __all__ = ["OP", "SM90_TILES", "TF32X3_TILES", "attention_ref",
@@ -346,6 +347,54 @@ OP = registry.define(
     cpu=_plain, cuda=_kernel, fake=_fake, flops=_op_flops)
 
 
+def _sharding(q, k, v, sm_scale, causal, window, bq, bk) -> list:
+    """The op's DTensor strategies, per mesh dim: all replicated, all
+    split on the batch, or all split on the heads — the last only where
+    both the q heads and the kv heads divide by every rank count the mesh
+    could split them over, so each GQA group stays whole on one rank
+    (local q head i reads local kv head i // (H / Hkv), as it must)."""
+    from torch.distributed.tensor import Replicate, Shard
+    statics = [None] * 5
+    out = [([Replicate()], [Replicate()] * 3 + statics),
+           ([Shard(0)], [Shard(0)] * 3 + statics)]
+    ranks = q.mesh.size()
+    if q.shape[1] % ranks == 0 and k.shape[1] % ranks == 0:
+        out.append(([Shard(1)], [Shard(1)] * 3 + statics))
+    return out
+
+
+def _is_dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor"
+
+
+def _layout(q, k) -> tuple:
+    """The placements q, k, v and the output take for the kernel on local
+    shards: each mesh dim keeps a batch split, or a heads split where
+    :func:`_sharding` allows one, and replicates anything else."""
+    from torch.distributed.tensor import Replicate, Shard
+    ranks = q.device_mesh.size()
+    heads_ok = q.shape[1] % ranks == 0 and k.shape[1] % ranks == 0
+    out = []
+    for p in q.placements:
+        dim = getattr(p, "dim", None)
+        if isinstance(p, Shard) and (dim == 0 or (dim == 1 and heads_ok)):
+            out.append(Shard(dim))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def register_sharding_strategy() -> None:
+    """Register :func:`_sharding` for the op with DTensor (once)."""
+    if not _SHARDING:
+        from torch.distributed.tensor.experimental import register_sharding
+        register_sharding(OP)(_sharding)
+        _SHARDING.append(OP)
+
+
+_SHARDING: list = []
+
+
 def _forward(q, k, v, *, sm_scale: float, causal: bool,
              window: Optional[int], bq: int, bk: int) -> torch.Tensor:
     """The padded forward through the op: pad S by the JAX wrapper's
@@ -365,6 +414,9 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, sm_scale, causal, window, bq, bk):
         ctx.save_for_backward(q, k, v)
         ctx.opts = (sm_scale, causal, window)
+        if _is_dtensor(q):
+            pl = _layout(q, k)
+            q, k, v = (to_layout(x, pl) for x in (q, k, v))
         return _forward(q, k, v, sm_scale=sm_scale, causal=causal,
                         window=window, bq=bq, bk=bk)
 
@@ -372,6 +424,14 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         sm_scale, causal, window = ctx.opts
+        if _is_dtensor(q):
+            pl = _layout(q, k)
+            dq, dk, dv = local_vjp(
+                lambda q, k, v: (attention_ref(q, k, v, sm_scale=sm_scale,
+                                               causal=causal,
+                                               window=window),),
+                (q, k, v), (pl,) * 3, (g,), (pl,), (pl,) * 3)
+            return dq, dk, dv, None, None, None, None, None
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             out = attention_ref(*leaves, sm_scale=sm_scale, causal=causal,

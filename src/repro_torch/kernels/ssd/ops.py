@@ -33,6 +33,8 @@ from typing import Any, Optional, Sequence
 
 import torch
 
+from ...distributed.actctx import cumsum, reshape
+from ...distributed.local import local_vjp, to_layout
 from .. import build, registry
 from .ref import ssd_chunk_scan_ref
 
@@ -227,6 +229,67 @@ OP = registry.define(
     cpu=_plain, cuda=_kernel, fake=_fake, flops=_op_flops)
 
 
+def _sharding(xdt, bm, cm, cum, h0, return_state) -> list:
+    """The op's DTensor strategies, per mesh dim: all replicated, all
+    split on the batch, or split on the heads (``xdt``, ``cum``, ``h0``,
+    ``y`` and the state; the heads share ``bm``/``cm``, replicated).
+    Chunks are never split: the state carries from one to the next. An
+    empty state (no ``return_state``) stays replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    r = Replicate()
+    h0_r = None if h0 is None else r
+    state = (lambda pl: pl) if return_state else (lambda pl: r)
+    out = [([r, r], [r, r, r, r, h0_r, None])]
+    for dim in (0, 1):
+        sd = Shard(dim)
+        h0_pl = None if h0 is None else sd
+        if dim == 0:
+            ins = [sd, sd, sd, sd, h0_pl, None]
+        else:
+            ins = [sd, r, r, sd, h0_pl, None]
+        out.append(([sd, state(sd)], ins))
+    return out
+
+
+def _layouts(xdt) -> tuple[list, list, list]:
+    """Placements for the kernel on local shards: (inputs xdt, bm, cm,
+    cum, h0; outputs y, state; the inputs' local gradients). Each mesh
+    dim keeps a batch split of ``xdt`` (every operand split on its batch)
+    or a heads split (``xdt``, ``cum``, ``h0`` and the outputs; ``bm``/
+    ``cm`` replicated, their local gradients partial sums over the
+    heads), and replicates anything else."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    r = Replicate()
+    ins, outs, dins = [[] for _ in range(5)], [[], []], [[] for _ in range(5)]
+    for p in xdt.placements:
+        dim = getattr(p, "dim", None) if isinstance(p, Shard) else None
+        if dim == 0:
+            row_in, row_out, row_d = [Shard(0)] * 5, [Shard(0)] * 2, \
+                [Shard(0)] * 5
+        elif dim == 1:
+            s = Shard(1)
+            row_in, row_out = [s, r, r, s, s], [s, s]
+            row_d = [s, Partial(), Partial(), s, s]
+        else:
+            row_in, row_out, row_d = [r] * 5, [r] * 2, [r] * 5
+        for lst, row in ((ins, row_in), (outs, row_out), (dins, row_d)):
+            for i, pl in enumerate(row):
+                lst[i].append(pl)
+    return ([tuple(x) for x in ins], [tuple(x) for x in outs],
+            [tuple(x) for x in dins])
+
+
+def register_sharding_strategy() -> None:
+    """Register :func:`_sharding` for the op with DTensor (once)."""
+    if not _SHARDING:
+        from torch.distributed.tensor.experimental import register_sharding
+        register_sharding(OP)(_sharding)
+        _SHARDING.append(OP)
+
+
+_SHARDING: list = []
+
+
 def _forward(xdt, bm, cm, cum, h0, return_state: bool):
     """The kernel (CUDA operands), its plain version (CPU) or the output
     shapes (meta), through the op; returns (y, final state or None)."""
@@ -244,12 +307,27 @@ class _ChunkScan(torch.autograd.Function):
     def forward(ctx, xdt, bm, cm, cum, h0, return_state):
         ctx.save_for_backward(xdt, bm, cm, cum, h0)
         ctx.return_state = return_state
+        if type(xdt).__name__ == "DTensor":
+            ins, _, _ = _layouts(xdt)
+            xdt, bm, cm, cum, h0 = (to_layout(x, pl) for x, pl in
+                                    zip((xdt, bm, cm, cum, h0), ins))
         y, h_final = _forward(xdt, bm, cm, cum, h0, return_state)
         return (y, h_final) if return_state else y
 
     @staticmethod
     def backward(ctx, *grads):
         saved = ctx.saved_tensors
+        if type(saved[0]).__name__ == "DTensor":
+            ins, outs, dins = _layouts(saved[0])
+            rs = ctx.return_state
+
+            def ref(xdt, bm, cm, cum, h0):
+                out = ssd_chunk_scan_ref(xdt, bm, cm, cum, h0=h0,
+                                         return_state=rs)
+                return out if rs else (out,)
+
+            dx = local_vjp(ref, saved, ins, grads, outs[:len(grads)], dins)
+            return (*dx, None)
         with torch.enable_grad():
             leaves = [None if t is None else t.detach().requires_grad_()
                       for t in saved]
@@ -299,15 +377,15 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"chunk {q} must be positive and divide the "
                          f"sequence length {s}")
     c = s // q
-    xdt = (x * dt[..., None]).reshape(b, c, q, h, p)
+    xdt = reshape(x * dt[..., None], (b, c, q, h, p))
     xdt = xdt.movedim(3, 1)                                # (B, H, C, Q, P)
-    cum = torch.cumsum((dt * a).reshape(b, c, q, h), dim=2)
+    cum = cumsum(reshape(dt * a, (b, c, q, h)), dim=2)
     cum = cum.movedim(3, 1)                                # (B, H, C, Q)
-    bm_c = bm.reshape(b, c, q, n)
-    cm_c = cm.reshape(b, c, q, n)
+    bm_c = reshape(bm, (b, c, q, n))
+    cm_c = reshape(cm, (b, c, q, n))
     out = chunk_scan(xdt, bm_c, cm_c, cum, h0=h0, return_state=return_state)
     y, h_final = out if return_state else (out, None)
-    y = y.movedim(1, 3).reshape(b, s, h, p)                # (B, S, H, P)
+    y = reshape(y.movedim(1, 3), (b, s, h, p))             # (B, S, H, P)
     return (y, h_final) if return_state else y
 
 

@@ -9,6 +9,12 @@ Fault tolerance in the loop:
   * per-step wall-time watchdog flags stragglers (CI-based detection uses
     the same Welford machinery as the paper's stop conditions).
 
+The step is built on the host mesh (:func:`repro_torch.launch.mesh.
+make_host_mesh`, one rank per card; ``gloo`` for ``--device cpu``) with
+``TRAIN_RULES``, as in the reference: parameters, optimizer state and
+batches are DTensors, also at world size 1. The metrics are read back
+whole (replicated DTensors).
+
 Each step is timed on the host's clock between two device
 synchronizes, so a step's time holds its kernels; the reference's first
 (compiling) step is left out of the statistics, and so is the port's
@@ -33,12 +39,14 @@ from ..core import welford
 from ..core.confidence import ci_mean
 from ..data import DataConfig, SyntheticLM
 from ..device import resolve_device, synchronizer
+from ..distributed import sharding as sh
 from ..models import api
 from ..models.config import WorkloadShape
-from ..models.params import materialize
+from ..models.params import flatten, materialize
 from ..models.transformer import StepConfig
 from ..optim import adamw_init
 from ..train.steps import build_train_step
+from .mesh import make_host_mesh
 
 __all__ = ["main", "train"]
 
@@ -52,15 +60,17 @@ def train(arch: str, steps: int = 100, batch: int = 8, seq: int = 256,
     ``smoke=False``) for ``steps`` steps of (batch, seq) tokens on
     ``device``: weights from ``materialize`` with a generator seeded 0,
     or the newest checkpoint in ``ckpt_dir``. Returns the losses of the
-    steps run, the final loss and the mean seconds of a step after the
-    first."""
+    steps run, the final loss, the mean seconds of a step after the
+    first, the host mesh's shape and whether the parameters were
+    DTensors."""
     dev = resolve_device(device)
     cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
     shape = WorkloadShape("custom", seq, batch, "train")
     step_cfg = StepConfig(remat=True, loss_chunk=min(128, seq))
-    bundle = build_train_step(cfg, shape, step_cfg, peak_lr=peak_lr,
-                              total_steps=steps)
-    step_fn = bundle.fn
+    mesh = make_host_mesh(device=dev)
+    bundle = build_train_step(cfg, shape, mesh, sh.TRAIN_RULES, step_cfg,
+                              peak_lr=peak_lr, total_steps=steps)
+    step_fn = bundle.jitted()
 
     defs = api.param_defs(cfg)
     manager = CheckpointManager(ckpt_dir) if ckpt_dir else None
@@ -79,17 +89,19 @@ def train(arch: str, steps: int = 100, batch: int = 8, seq: int = 256,
 
     pipeline = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size), batch, seq,
                            device=dev)
-    sync = synchronizer(dev)
+    # the card's synchronize, named as the reference's wait for a jitted
+    # step's outputs
+    block_until_ready = synchronizer(dev)
     losses = []
     # straggler watchdog: CI over observed step times (the paper's Welford)
     times = welford.init()
     for step in range(start_step, steps):
         batch_data = pipeline.batch_at(step)
-        sync()
+        block_until_ready()
         t0 = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, batch_data,
                                              step)
-        sync()
+        block_until_ready()
         dt = time.perf_counter() - t0
         if times.count >= 5:
             interval = ci_mean(times, confidence=0.99)
@@ -98,17 +110,27 @@ def train(arch: str, steps: int = 100, batch: int = 8, seq: int = 256,
                       f"CI hi {interval.hi:.3f}s")
         if step > 0:  # skip the first step (one-time costs) in the stats
             times = welford.update(times, dt)
-        losses.append(float(metrics["loss"]))
+        losses.append(_scalar(metrics["loss"]))
         if step % log_every == 0:
             print(f"[train] step {step:5d} loss={losses[-1]:.4f} "
-                  f"|g|={float(metrics['grad_norm']):.3f} "
-                  f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms")
+                  f"|g|={_scalar(metrics['grad_norm']):.3f} "
+                  f"lr={_scalar(metrics['lr']):.2e} {dt*1e3:.0f}ms")
         if manager is not None and (step + 1) % ckpt_every == 0:
             manager.save(step + 1, {"params": params, "opt": opt_state})
     if manager is not None:
         manager.save(steps, {"params": params, "opt": opt_state})
+    leaf = next(iter(flatten(params).values()))
     return {"losses": losses, "final_loss": losses[-1],
-            "mean_step_s": float(times.mean) if times.count else None}
+            "mean_step_s": float(times.mean) if times.count else None,
+            "mesh": tuple(mesh.shape),
+            "dtensor": type(leaf).__name__ == "DTensor"}
+
+
+def _scalar(x: torch.Tensor) -> float:
+    """A 0-d metric on the host (a DTensor read whole)."""
+    if type(x).__name__ == "DTensor":
+        x = x.full_tensor()
+    return float(x)
 
 
 def main(argv: Optional[list[str]] = None) -> None:

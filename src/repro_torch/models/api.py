@@ -7,6 +7,7 @@ point per step kind, dispatched by family.
     prefill_fn(params, batch, cfg, step) -> (logits, cache)        (prefill)
     decode_fn(params, batch, cache, pos, cfg, step) -> (logits, cache)
     cache_shapes(cfg, shape)             -> tree of ShapeDtype
+    cache_logical(cfg)                   -> tree of logical axes
     cache_init(cfg, shape, device)       -> zero cache
     extend_cache(cache, extra)           -> cache with room for more tokens
 
@@ -28,7 +29,7 @@ from .config import ModelConfig, WorkloadShape, cache_len
 from .params import flatten, unflatten
 from .transformer import StepConfig
 
-__all__ = ["cache_init", "cache_shapes", "decode_fn", "extend_cache",
+__all__ = ["cache_init", "cache_logical", "cache_shapes", "decode_fn", "extend_cache",
            "loss_and_grads", "loss_fn", "param_defs", "prefill_fn"]
 
 
@@ -111,6 +112,16 @@ def cache_shapes(cfg: ModelConfig, shape: WorkloadShape) -> dict:
         return {"attn": transformer.kv_cache_spec(
             cfg, B, length, layers=n_cross * per_group).shape_tree()}
     return {"attn": transformer.kv_cache_spec(cfg, B, length).shape_tree()}
+
+
+def cache_logical(cfg: ModelConfig) -> dict:
+    """The logical axes of the decode cache's leaves (same tree as
+    :func:`cache_shapes`)."""
+    if cfg.family == "encdec":
+        return encdec.cache_logical(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        return hybrid.cache_logical(cfg)
+    return {"attn": layers.KVCacheSpec(1, 1, 1, 1, 1, torch.bfloat16).logical}
 
 
 def cache_init(cfg: ModelConfig, shape: WorkloadShape,

@@ -15,7 +15,7 @@ import torch
 
 __all__ = ["DECODE_32K", "LONG_500K", "PREFILL_32K", "SHAPES", "TRAIN_4K",
            "ModelConfig", "WorkloadShape", "cache_len",
-           "cell_is_applicable"]
+           "cell_is_applicable", "input_specs"]
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -149,3 +149,31 @@ def cache_len(cfg: ModelConfig, shape: WorkloadShape) -> int:
     if cfg.window is not None:
         return min(shape.seq_len, cfg.window)
     return shape.seq_len
+
+
+# ---------------------------------------------------------------------------
+# Input stand-ins (no allocation)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: WorkloadShape) -> dict:
+    """Shape and dtype of every model input of this cell.
+
+    train:   {tokens (B,S), [frames|image_embeds]}
+    prefill: {tokens (B,S), [frames|image_embeds]}
+    decode:  {tokens (B,1), [frames|image_embeds]}
+
+    Tokens are int64 (torch's index dtype) where the reference's are
+    int32."""
+    from .params import ShapeDtype
+    B, S = shape.global_batch, shape.seq_len
+    out: dict = {"tokens": ShapeDtype(
+        torch.Size((B, S if shape.kind in ("train", "prefill") else 1)),
+        torch.int64)}
+    if cfg.family == "encdec":
+        out["frames"] = ShapeDtype(torch.Size((B, cfg.n_frames, cfg.d_enc)),
+                                   cfg.tdtype)
+    if cfg.family == "vlm":
+        out["image_embeds"] = ShapeDtype(
+            torch.Size((B, cfg.n_image_tokens, cfg.d_model)), cfg.tdtype)
+    return out

@@ -13,14 +13,16 @@ the plain attention, as the reference does.
 Decode carries the decoder's self-attention KV cache (written in place,
 :func:`repro_torch.models.layers.attention_decode`) and the encoder
 output's K/V of every cross-attention, computed once by the prefill:
-``cross_k``/``cross_v`` (L, B, Hkv, n_frames, Dh). Their logical axes
-(the reference's ``cache_logical``) wait for distribution.
+``cross_k``/``cross_v`` (L, B, Hkv, n_frames, Dh), with the logical axes
+of :func:`cache_logical`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .dots import einsum
+from ..distributed.actctx import on_mesh_of
 from . import layers as L
 from .config import ModelConfig
 from .params import ShapeDtype
@@ -56,8 +58,8 @@ def encdec_defs(cfg: ModelConfig) -> dict:
 
 def _with_positions(h: torch.Tensor) -> torch.Tensor:
     """``h`` (B, S, D) plus the sinusoidal table of its S positions."""
-    return h + L.sinusoidal_positions(h.shape[1], h.shape[2],
-                                      device=h.device).to(h.dtype)
+    table = L.sinusoidal_positions(h.shape[1], h.shape[2], device=h.device)
+    return h + on_mesh_of(table.to(h.dtype), h)
 
 
 def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig,
@@ -86,11 +88,11 @@ def _dec_block(c: torch.Tensor, lp: dict, enc_out: torch.Tensor,
     is the plain path and the block also returns its (K, V)."""
     a_in = L.apply_norm(lp["ln1"], c, cfg)
     if collect_kv:
-        q = torch.einsum("bsd,dhk->bhsk", a_in, lp["attn"]["wq"])
-        k = torch.einsum("bsd,dhk->bhsk", a_in, lp["attn"]["wk"])
-        v = torch.einsum("bsd,dhk->bhsk", a_in, lp["attn"]["wv"])
+        q = einsum("bsd,dhk->bhsk", a_in, lp["attn"]["wq"])
+        k = einsum("bsd,dhk->bhsk", a_in, lp["attn"]["wk"])
+        v = einsum("bsd,dhk->bhsk", a_in, lp["attn"]["wv"])
         out = L._attend(q, k, v, causal=True, window=None)
-        c = c + torch.einsum("bhsk,hkd->bsd", out, lp["attn"]["wo"])
+        c = c + einsum("bhsk,hkd->bsd", out, lp["attn"]["wo"])
         kv = (k, v)
     else:
         c = c + L.attention_full(lp["attn"], a_in, cfg, causal=True,
@@ -136,6 +138,12 @@ def cache_shapes(cfg: ModelConfig, batch: int, cache_length: int) -> dict:
             "cross_k": cross, "cross_v": cross}
 
 
+def cache_logical(cfg: ModelConfig) -> dict:
+    kv = ("layers", "cache_batch", "kv_heads", "frames", "head_dim")
+    return {"attn": L.KVCacheSpec(1, 1, 1, 1, 1, torch.bfloat16).logical,
+            "cross_k": kv, "cross_v": kv}
+
+
 def prefill(params: dict, batch: dict, cfg: ModelConfig,
             step: StepConfig) -> tuple[torch.Tensor, dict]:
     """Encode the frames, run the decoder over the prompt and build the
@@ -151,9 +159,9 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
         lp = _layer(params["dec_layers"], i)
         h, kv = _dec_block(h, lp, enc_out, cfg, step, collect_kv=True)
         kvs.append(kv)
-        cross_ks.append(torch.einsum("bsd,dhk->bhsk", enc_out,
+        cross_ks.append(einsum("bsd,dhk->bhsk", enc_out,
                                      lp["xattn"]["wk"]))
-        cross_vs.append(torch.einsum("bsd,dhk->bhsk", enc_out,
+        cross_vs.append(einsum("bsd,dhk->bhsk", enc_out,
                                      lp["xattn"]["wv"]))
     h = L.apply_norm(params["ln_f"], h, cfg)
     logits = L.logits_fn(params["embed"], h[:, -1:], cfg)
@@ -169,7 +177,7 @@ def decode(params: dict, tokens: torch.Tensor, cache: dict, pos,
     self-attention KV cache is written in place; the cross K/V are
     read. Returns (logits (B, 1, V), cache)."""
     h = L.embed_tokens(params["embed"], tokens, cfg)
-    pos = L.decode_position(pos, h.device)
+    pos = L.decode_position(pos, h)
     h = h + L.sinusoidal_at(pos, cfg.d_model)[None, None].to(h.dtype)
     attn = cache["attn"]
     for i in range(cfg.n_layers):
@@ -180,10 +188,10 @@ def decode(params: dict, tokens: torch.Tensor, cache: dict, pos,
         h = h + a
         # cross attention over the precomputed encoder K/V
         x_in = L.apply_norm(lp["lnx"], h, cfg)
-        q = torch.einsum("bsd,dhk->bhsk", x_in, lp["xattn"]["wq"])
+        q = einsum("bsd,dhk->bhsk", x_in, lp["xattn"]["wq"])
         out = L._attend(q, cache["cross_k"][i], cache["cross_v"][i],
                         causal=False, window=None)
-        h = h + torch.einsum("bhsk,hkd->bsd", out, lp["xattn"]["wo"])
+        h = h + einsum("bhsk,hkd->bsd", out, lp["xattn"]["wo"])
         h = h + L.apply_mlp(lp["mlp"], L.apply_norm(lp["ln2"], h, cfg), cfg)
     h = L.apply_norm(params["ln_f"], h, cfg)
     logits = L.logits_fn(params["embed"], h, cfg)

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from .dots import einsum
+from ..distributed.actctx import on_mesh_of
 from . import layers as L
 from . import ssd
 from .config import ModelConfig
@@ -99,14 +101,14 @@ def _shared_block(h: torch.Tensor, sp: dict, cfg: ModelConfig,
     if collect_kv:
         # prefill: the plain attention, as in the reference, plus the
         # roped K/V for the decode cache
-        q = torch.einsum("bsd,dhk->bhsk", a_in, sp["attn"]["wq"])
-        k = torch.einsum("bsd,dhk->bhsk", a_in, sp["attn"]["wk"])
-        v = torch.einsum("bsd,dhk->bhsk", a_in, sp["attn"]["wv"])
+        q = einsum("bsd,dhk->bhsk", a_in, sp["attn"]["wq"])
+        k = einsum("bsd,dhk->bhsk", a_in, sp["attn"]["wk"])
+        v = einsum("bsd,dhk->bhsk", a_in, sp["attn"]["wv"])
         pos = torch.arange(h.shape[1], device=h.device)
         q = L.apply_rope(q, pos, cfg.rope_theta)
         k = L.apply_rope(k, pos, cfg.rope_theta)
         out = L._attend(q, k, v, causal=True, window=cfg.window)
-        a = torch.einsum("bhsk,hkd->bsd", out, sp["attn"]["wo"])
+        a = einsum("bhsk,hkd->bsd", out, sp["attn"]["wo"])
         kv = (k, v)
     else:
         a = L.attention_full(sp["attn"], a_in, cfg, causal=True,
@@ -166,11 +168,12 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
     cache = {"ssm": torch.stack([s["ssm"] for s in states]),
              "conv": torch.stack([s["conv"] for s in states])}
     if kvs:
+        k = torch.stack([k for k, _ in kvs])
         pos = torch.arange(S, dtype=torch.int32, device=tokens.device)
         cache["attn"] = {
-            "k": torch.stack([k for k, _ in kvs]),
+            "k": k,
             "v": torch.stack([v for _, v in kvs]),
-            "pos": pos.expand(len(kvs), B, S).clone()}
+            "pos": on_mesh_of(pos.expand(len(kvs), B, S).clone(), k)}
     h = L.apply_norm(params["ln_f"], h, cfg)
     logits = L.logits_fn(params["embed"], h[:, -1:], cfg)
     return logits, cache
@@ -190,6 +193,13 @@ def cache_shapes(cfg: ModelConfig, batch: int, cache_length: int) -> dict:
     if not _is_pure_ssm(cfg):
         out["attn"] = kv_cache_spec(cfg, batch, cache_length,
                                     layers=n_shared_uses(cfg)).shape_tree()
+    return out
+
+
+def cache_logical(cfg: ModelConfig) -> dict:
+    out = dict(ssd.ssm_cache_logical())
+    if not _is_pure_ssm(cfg):
+        out["attn"] = L.KVCacheSpec(1, 1, 1, 1, 1, torch.bfloat16).logical
     return out
 
 
@@ -217,7 +227,7 @@ def decode(params: dict, tokens: torch.Tensor, cache: dict, pos,
             h = mamba(h, i)
     else:
         sp = params["shared"]
-        pos = L.decode_position(pos, h.device)
+        pos = L.decode_position(pos, h)
         for g, group in enumerate(_groups(cfg)):
             for i in group:
                 h = mamba(h, i)

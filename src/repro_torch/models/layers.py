@@ -10,11 +10,13 @@ Conventions, as in the reference:
     one-token decode path over a position-tagged KV cache, linear or
     rolling (sliding window).
 
-The reference wraps activations in ``shard_act`` (a no-op outside a
-sharding resolver context); the port runs on one card, so those calls
-are dropped. Its ``xscan`` is a Python loop here, ``jax.checkpoint`` is
-``torch.utils.checkpoint``. The KV cache's logical axes (the
-reference's ``KVCacheSpec.logical``) belong to distribution and wait.
+Activations are wrapped in ``shard_act`` at the reference's sites (a
+no-op outside a sharding resolver context; inside one, a DTensor
+redistribution). The small tensors the layers make themselves
+(positions, masks) join a DTensor step replicated
+(:func:`~repro_torch.distributed.actctx.on_mesh_of`). The reference's
+``xscan`` is a Python loop here, ``jax.checkpoint`` is
+``torch.utils.checkpoint`` (:mod:`repro_torch.models.remat`).
 """
 
 from __future__ import annotations
@@ -27,11 +29,14 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .dots import einsum
+from ..distributed.actctx import (along, is_sharded, on_mesh_of,
+                                  reduce_partial, reshape, shard_act)
 from ..kernels.flash_attention import flash_attention
 from .config import ModelConfig
 from .params import ParamDef, ShapeDtype
 
-__all__ = ["KVCacheSpec", "apply_mlp", "apply_norm", "apply_rope",
+__all__ = ["ACT_BSD", "ACT_KVHEADS", "ACT_QHEADS", "KVCacheSpec", "apply_mlp", "apply_norm", "apply_rope",
            "attention_decode", "attention_defs", "attention_full",
            "checkpointed", "cross_entropy_loss", "decode_position",
            "embed_tokens", "embedding_defs", "logits_fn", "mlp_defs",
@@ -90,13 +95,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, H, S, Dh); positions: (S,) or (B, S)."""
     dh = x.shape[-1]
-    freqs = _rope_freqs(dh, theta, x.device)              # (Dh/2,)
+    freqs = on_mesh_of(_rope_freqs(dh, theta, x.device),
+                       positions)                          # (Dh/2,)
     angles = positions[..., None].float() * freqs          # (..., S, Dh/2)
     if angles.dim() == 2:                                  # (S, Dh/2)
         angles = angles[None, None]                        # (1, 1, S, Dh/2)
     else:                                                  # (B, S, Dh/2)
         angles = angles[:, None]                           # (B, 1, S, Dh/2)
-    cos, sin = torch.cos(angles), torch.sin(angles)
+    cos = on_mesh_of(torch.cos(angles), x)
+    sin = on_mesh_of(torch.sin(angles), x)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -116,7 +123,8 @@ def sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:
     float32: the reference's ops in its order (a 0-d tensor stays on its
     device)."""
     pos = positions.float()[..., None]
-    dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
+    dim = on_mesh_of(torch.arange(0, d, 2, dtype=torch.float32,
+                                  device=pos.device), pos)
     angle = pos / torch.pow(10000.0, dim / d)
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
@@ -150,10 +158,15 @@ def attention_defs(cfg: ModelConfig, layers: int | None = None,
     }
 
 
+ACT_BSD = ("batch", "act_seq", "act_embed")
+ACT_QHEADS = ("batch", "heads", "act_seq", "head_dim")
+ACT_KVHEADS = ("batch", "kv_heads", "act_seq", "head_dim")
+
+
 def _qkv(p: dict, x: torch.Tensor, kv_x: torch.Tensor):
-    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bhsk", kv_x, p["wk"])
-    v = torch.einsum("bsd,dhk->bhsk", kv_x, p["wv"])
+    q = shard_act(einsum("bsd,dhk->bhsk", x, p["wq"]), ACT_QHEADS)
+    k = shard_act(einsum("bsd,dhk->bhsk", kv_x, p["wk"]), ACT_KVHEADS)
+    v = shard_act(einsum("bsd,dhk->bhsk", kv_x, p["wv"]), ACT_KVHEADS)
     return q, k, v
 
 
@@ -176,7 +189,7 @@ def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                               bq=block_q, bk=block_k)
     else:
         out = _attend(q, k, v, causal=causal and kv_x is None, window=window)
-    return torch.einsum("bhsk,hkd->bsd", out, p["wo"])
+    return shard_act(einsum("bhsk,hkd->bsd", out, p["wo"]), ACT_BSD)
 
 
 def _expand_kv(k: torch.Tensor, h: int) -> torch.Tensor:
@@ -186,7 +199,8 @@ def _expand_kv(k: torch.Tensor, h: int) -> torch.Tensor:
     b, hkv, s, dh = k.shape
     if hkv == h:
         return k
-    return k[:, :, None].expand(b, hkv, h // hkv, s, dh).reshape(b, h, s, dh)
+    return shard_act(reshape(k[:, :, None].expand(b, hkv, h // hkv, s, dh),
+                             (b, h, s, dh)), ACT_QHEADS)
 
 
 # Sequences at or above this length use the q-chunked path so the (S, S)
@@ -201,16 +215,26 @@ def _attend(q, k, v, *, causal: bool,
     b, h, sq, dh = q.shape
     k = _expand_kv(k, h)
     v = _expand_kv(v, h)
-    if sq >= _CHUNK_THRESHOLD and sq % _Q_CHUNK == 0:
+    if sq >= _CHUNK_THRESHOLD and sq % _Q_CHUNK == 0 \
+            and not _seq_sharded(q):
         return _attend_chunked(q, k, v, causal=causal, window=window)
     return _attend_direct(q, k, v, causal=causal, window=window)
+
+
+def _seq_sharded(q: torch.Tensor) -> bool:
+    """Whether a DTensor q splits its sequence over ranks (heads that do
+    not divide the model axis leave it to the sequence): each rank then
+    holds a slice of the queries already, and cutting the sequence into
+    chunks would gather it."""
+    return is_sharded(q) and any(getattr(p, "dim", None) == 2
+                                 for p in q.placements)
 
 
 def _attend_direct(q, k, v, *, causal: bool, window: Optional[int],
                    q_offset: Optional[int] = None) -> torch.Tensor:
     b, h, sq, dh = q.shape
     sk = k.shape[2]
-    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+    scores = einsum("bhqd,bhkd->bhqk", q.float(),
                           k.float()) / math.sqrt(dh)
     if causal or window is not None:
         dev = q.device
@@ -222,10 +246,10 @@ def _attend_direct(q, k, v, *, causal: bool, window: Optional[int],
             mask &= q_pos >= k_pos
         if window is not None:
             mask &= (q_pos - k_pos) < window
-        scores = torch.where(mask, scores, NEG_INF)
+        scores = torch.where(along(mask, scores, (2, 3)), scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float())
-    return out.to(q.dtype)
+    out = einsum("bhqk,bhkd->bhqd", probs, v.float())
+    return shard_act(out.to(q.dtype), ACT_QHEADS)
 
 
 def _attend_chunked(q, k, v, *, causal: bool,
@@ -267,6 +291,12 @@ class KVCacheSpec:
                          torch.int32)
         return {"k": kv, "v": kv, "pos": pos}
 
+    @property
+    def logical(self) -> dict:
+        kv = ("layers", "cache_batch", "kv_heads", "cache_seq", "head_dim")
+        return {"k": kv, "v": kv,
+                "pos": ("layers", "cache_batch", "cache_seq")}
+
     def init_tree(self, device: "str | torch.device" = "cuda") -> dict:
         shapes = self.shape_tree()
         return {
@@ -279,14 +309,31 @@ class KVCacheSpec:
         }
 
 
-def decode_position(pos, device: torch.device) -> torch.Tensor:
-    """A decode position as a 0-d tensor on ``device``: a tensor passes
-    through as it is (so a CUDA graph can advance it in place), a Python
-    int is filled in there by a kernel (no copy from the host, so the
-    host does not wait for the stream)."""
-    if isinstance(pos, torch.Tensor):
-        return pos
-    return torch.full((), pos, dtype=torch.int64, device=device)
+def decode_position(pos, like: "torch.Tensor | torch.device"
+                    ) -> torch.Tensor:
+    """A decode position as a 0-d tensor on ``like`` (a device, or a
+    tensor's device): a tensor passes through as it is (so a CUDA graph
+    can advance it in place), a Python int is filled in there by a kernel
+    (no copy from the host, so the host does not wait for the stream);
+    either joins ``like``'s mesh, replicated, when ``like`` is a
+    DTensor."""
+    device = like if isinstance(like, torch.device) else like.device
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), pos, dtype=torch.int64, device=device)
+    return pos if isinstance(like, torch.device) else on_mesh_of(pos, like)
+
+
+def _write_slot(cache: torch.Tensor, dim: int, slot: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """``cache``'s entry ``slot`` along ``dim`` set to ``new`` in place,
+    for a cache sharded along that dim: each rank compares its own slots
+    with ``slot`` and keeps its entries where they differ (the one rank
+    holding the slot writes it; an index copy would need the whole
+    dim)."""
+    n = cache.shape[dim]
+    hit = along(torch.arange(n, device=slot.device), cache, dim) == slot
+    hit = hit.reshape((n,) + (1,) * (cache.ndim - dim - 1))
+    cache.copy_(torch.where(hit, new.to(cache.dtype), cache))
 
 
 def attention_decode(p: dict, x: torch.Tensor, layer_cache: dict, pos,
@@ -308,29 +355,40 @@ def attention_decode(p: dict, x: torch.Tensor, layer_cache: dict, pos,
     window, out of it (pos - tag >= window)."""
     q, k_new, v_new = _qkv(p, x, x)                      # (B, *, 1, Dh)
     b = x.shape[0]
-    pos = decode_position(pos, x.device)
+    pos = decode_position(pos, x)
     if rope:
         pos_b = pos.reshape(1, 1).expand(b, 1)
         q = apply_rope(q, pos_b, cfg.rope_theta)
         k_new = apply_rope(k_new, pos_b, cfg.rope_theta)
     k, v, tags = layer_cache["k"], layer_cache["v"], layer_cache["pos"]
     slot = (pos % k.shape[2]).reshape(1).long()
-    k.index_copy_(2, slot, k_new.to(k.dtype))
-    v.index_copy_(2, slot, v_new.to(v.dtype))
-    tags.index_copy_(1, slot, pos.reshape(1, 1).expand(b, 1).to(tags.dtype))
+    tag = pos.reshape(1, 1).expand(b, 1).to(tags.dtype)
+    if is_sharded(k):
+        _write_slot(k, 2, slot, k_new)
+        _write_slot(v, 2, slot, v_new)
+        _write_slot(tags, 1, slot, tag)
+    else:
+        # one rank: every tensor is whole on it (DTensors replicated), so
+        # the update runs on the local tensors
+        k_l, v_l, t_l, s_l, kn, vn, tg = (
+            x.to_local() if type(x).__name__ == "DTensor" else x
+            for x in (k, v, tags, slot, k_new, v_new, tag))
+        k_l.index_copy_(2, s_l, kn.to(k_l.dtype))
+        v_l.index_copy_(2, s_l, vn.to(v_l.dtype))
+        t_l.index_copy_(1, s_l, tg)
 
     h, dh = q.shape[1], q.shape[-1]
     k_exp = _expand_kv(k, h)
     v_exp = _expand_kv(v, h)
-    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+    scores = einsum("bhqd,bhkd->bhqk", q.float(),
                           k_exp.float()) / math.sqrt(dh)
     valid = (tags >= 0) & (tags <= pos)
     if window is not None:
         valid &= (pos - tags) < window
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, v_exp.float()).to(x.dtype)
-    y = torch.einsum("bhsk,hkd->bsd", out, p["wo"])
+    out = einsum("bhqk,bhkd->bhqd", probs, v_exp.float()).to(x.dtype)
+    y = einsum("bhsk,hkd->bsd", out, p["wo"])
     return y, layer_cache
 
 
@@ -363,12 +421,17 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    mlp_hidden = ("batch", "act_seq", "mlp")
     if cfg.mlp_type == "plain":
-        h = _act(torch.einsum("bsd,df->bsf", x, p["w_up"]), cfg.act)
-        return torch.einsum("bsf,fd->bsd", h, p["w_down"])
-    g = _act(torch.einsum("bsd,df->bsf", x, p["w_gate"]), cfg.act)
-    u = torch.einsum("bsd,df->bsf", x, p["w_up"])
-    return torch.einsum("bsf,fd->bsd", g * u, p["w_down"])
+        h = _act(shard_act(einsum("bsd,df->bsf", x, p["w_up"]),
+                           mlp_hidden), cfg.act)
+        return shard_act(einsum("bsf,fd->bsd", h, p["w_down"]),
+                         ACT_BSD)
+    g = _act(shard_act(einsum("bsd,df->bsf", x, p["w_gate"]),
+                       mlp_hidden), cfg.act)
+    u = shard_act(einsum("bsd,df->bsf", x, p["w_up"]), mlp_hidden)
+    return shard_act(einsum("bsf,fd->bsd", g * u, p["w_down"]),
+                     ACT_BSD)
 
 
 # ---------------------------------------------------------------------------
@@ -389,13 +452,17 @@ def embedding_defs(cfg: ModelConfig) -> dict:
 
 def embed_tokens(p: dict, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    return p["table"][tokens.long()]
+    if is_sharded(p["table"]):
+        # the vocab-split lookup (DTensor's rule for ``embedding``: each
+        # rank looks up its rows, a masked partial sum)
+        return shard_act(F.embedding(tokens.long(), p["table"]), ACT_BSD)
+    return shard_act(p["table"][tokens.long()], ACT_BSD)
 
 
 def logits_fn(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", h, p["table"])
-    return torch.einsum("bsd,dv->bsv", h, p["lm_head"])
+        return einsum("bsd,vd->bsv", h, p["table"])
+    return einsum("bsd,dv->bsv", h, p["lm_head"])
 
 
 def cross_entropy_loss(p_embed: dict, h: torch.Tensor, targets: torch.Tensor,
@@ -409,17 +476,22 @@ def cross_entropy_loss(p_embed: dict, h: torch.Tensor, targets: torch.Tensor,
     chunk = min(chunk, s)
     n_chunks = s // chunk
     if mask is None:
-        mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
+        mask = torch.ones_like(h[..., 0], dtype=torch.float32)
 
     def body(hc, tc, mc):
-        logits = logits_fn(p_embed, hc, cfg).float()
+        logits = shard_act(logits_fn(p_embed, hc, cfg),
+                           ("batch", None, "vocab")).float()
         if cfg.vocab_padded != cfg.vocab_size:
             col = torch.arange(logits.shape[-1], device=logits.device)
-            logits = torch.where(col < cfg.vocab_size, logits, NEG_INF)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+            logits = torch.where(along(col < cfg.vocab_size, logits, -1),
+                                 logits, NEG_INF)
+        lse = _logsumexp(logits)
+        gold = _gold(logits, tc)
         return torch.sum((lse - gold) * mc.float())
 
+    # the chunks are slices of the sequence: on a mesh, gather a
+    # sequence-sharded h once here, not once per chunk
+    h = shard_act(h, ("batch", None, "act_embed"))
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
@@ -428,12 +500,40 @@ def cross_entropy_loss(p_embed: dict, h: torch.Tensor, targets: torch.Tensor,
     return total / torch.clamp(mask.sum(), min=1.0)
 
 
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over the last dim. Over a sharded vocab: the row max
+    and the sum of exponentials each reduced across the shards (two
+    all-reduces of (B, chunk)), where a whole-row logsumexp would gather
+    the logits."""
+    if not is_sharded(logits):
+        return torch.logsumexp(logits, dim=-1)
+    m = reduce_partial(torch.amax(logits, dim=-1, keepdim=True).detach())
+    s = reduce_partial(torch.exp(logits - m).sum(-1))
+    return torch.log(s) + m[..., 0]
+
+
+def _gold(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``logits[..., target]``. Over a sharded vocab each rank picks from
+    its own columns and the pick is a partial sum (every other column
+    adds an exact zero), where a gather across the shards would need the
+    whole row."""
+    if not is_sharded(logits):
+        return torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    col = along(torch.arange(logits.shape[-1], device=logits.device),
+                logits, -1)
+    return reduce_partial(
+        torch.where(col == targets[..., None], logits, 0.0).sum(-1))
+
+
 def next_token_targets(tokens: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Keep S intact: targets are tokens rolled left; the final position
     is masked out of the loss."""
-    b, s = tokens.shape
-    targets = torch.roll(tokens, -1, dims=1)
-    mask = torch.ones((b, s), dtype=torch.float32, device=tokens.device)
-    mask[:, -1] = 0.0
+    s = tokens.shape[1]
+    # ``torch.roll(tokens, -1, dims=1)``, as a slice and a concatenation,
+    # which DTensor shards (it has no rule for ``roll`` in torch 2.11)
+    targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    keep = (torch.arange(s, device=tokens.device) < s - 1).float()
+    mask = torch.ones_like(tokens, dtype=torch.float32) * on_mesh_of(
+        keep, tokens)
     return targets, mask

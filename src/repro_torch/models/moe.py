@@ -9,8 +9,8 @@ fall through on the residual stream. ``drop=False`` (prefill, decode)
 sizes C to hold every routed token, so a token's output does not depend
 on the others in its group.
 
-The reference's ``shard_act`` calls are dropped (the identity outside a
-mesh). Every one-hot is a comparison with ``arange``: an index out of
+Activations carry the reference's ``shard_act`` constraints (the
+identity outside a sharded step). Every one-hot is a comparison with ``arange``: an index out of
 range gives a row of zeros, as ``jax.nn.one_hot`` does (that is how a
 dropped token's slot disappears), and nothing checks the indices on the
 host, so a decode step stays capturable in a CUDA graph. The router's
@@ -28,7 +28,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .dots import einsum
 from ..analysis.ops import scope
+from ..distributed.actctx import (cumsum, on_mesh_of, reshape, shard_act,
+                                  topk)
 from .config import ModelConfig
 from .params import ParamDef
 
@@ -81,7 +84,8 @@ def group_shape(cfg: ModelConfig, batch: int, seq: int,
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     """float32 one-hot of integer ``idx`` over ``n`` classes; an index
     outside [0, n) gives zeros."""
-    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+    cls = on_mesh_of(torch.arange(n, device=idx.device), idx)
+    return (idx[..., None] == cls).float()
 
 
 def route(p: dict, xg: torch.Tensor, cfg: ModelConfig
@@ -90,9 +94,9 @@ def route(p: dict, xg: torch.Tensor, cfg: ModelConfig
     indices), each (..., top_k), values in descending order, from the
     float32 logits ``xg @ router``."""
     with scope("moe.router"):
-        logits = torch.einsum("gsd,de->gse", xg.float(),
+        logits = einsum("gsd,de->gse", xg.float(),
                               p["router"].float())
-        return torch.topk(logits, cfg.top_k, dim=-1, sorted=True)
+        return topk(logits, cfg.top_k, dim=-1, sorted=True)
 
 
 def combine_weights(p: dict, xg: torch.Tensor, cfg: ModelConfig,
@@ -110,7 +114,7 @@ def combine_weights(p: dict, xg: torch.Tensor, cfg: ModelConfig,
 
         # position within expert, s-major then k-major priority
         flat = eoh.reshape(G, Sg * K, E)
-        pos = (torch.cumsum(flat, dim=1) - flat).reshape(G, Sg, K, E)
+        pos = (cumsum(flat, dim=1) - flat).reshape(G, Sg, K, E)
         kept = eoh * (pos < C).float()
         slot = (pos * eoh).sum(-1)                          # chosen slot id
         slot_oh = _one_hot(slot.long(), C)                  # (G, Sg, K, C)
@@ -119,18 +123,21 @@ def combine_weights(p: dict, xg: torch.Tensor, cfg: ModelConfig,
         # probs folded into kept and k contracted by one batched product.
         # A token takes each expert at most once, so each element has one
         # nonzero term and equals the reference's exactly.
-        weighted = (kept * probs[..., None]).reshape(G * Sg, K, E)
-        return torch.bmm(weighted.transpose(1, 2),
-                         slot_oh.reshape(G * Sg, K, C)).reshape(G, Sg, E, C)
+        weighted = kept * probs[..., None]
+        return einsum("gske,gskc->gsec", weighted, slot_oh)
 
 
 def expert_ffn(p: dict, ein: torch.Tensor) -> torch.Tensor:
     """Each expert's gated FFN over its capacity-packed tokens: ein
     (G, E, C, D) -> (G, E, C, D)."""
+    hidden = ("batch", None, None, "mlp")
     with scope("moe.experts"):
-        h = F.silu(torch.einsum("gecd,edf->gecf", ein, p["w_gate"]))
-        h = h * torch.einsum("gecd,edf->gecf", ein, p["w_up"])
-        return torch.einsum("gecf,efd->gecd", h, p["w_down"])
+        h = F.silu(shard_act(einsum("gecd,edf->gecf", ein,
+                                          p["w_gate"]), hidden))
+        h = h * shard_act(einsum("gecd,edf->gecf", ein, p["w_up"]),
+                          hidden)
+        return shard_act(einsum("gecf,efd->gecd", h, p["w_down"]),
+                         ("batch", None, None, "act_embed"))
 
 
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -138,17 +145,19 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
     """x: (B, S, D) -> (B, S, D); one layer's experts ``p``."""
     B, S, D = x.shape
     G, Sg, C = group_shape(cfg, B, S, drop)
-    xg = x.reshape(G, Sg, D)
+    xg = reshape(x, (G, Sg, D))
     combine = combine_weights(p, xg, cfg, C)                # (G, Sg, E, C)
     with scope("moe.dispatch"):
         dispatch = (combine > 0.0).to(x.dtype)
-        ein = torch.einsum("gsec,gsd->gecd", dispatch, xg)  # (G, E, C, D)
+        ein = shard_act(einsum("gsec,gsd->gecd", dispatch, xg),
+                        ("batch", None, None, "act_embed"))  # (G, E, C, D)
     del dispatch
     out_e = expert_ffn(p, ein)
     del ein
     with scope("moe.combine"):                              # un-dispatch
-        y = torch.einsum("gecd,gsec->gsd", out_e, combine.to(out_e.dtype))
-    return y.reshape(B, S, D)
+        y = einsum("gecd,gsec->gsd", out_e, combine.to(out_e.dtype))
+    return shard_act(reshape(y, (B, S, D)),
+                     ("batch", "act_seq", "act_embed"))
 
 
 def aux_load_balance_loss(p: dict, x: torch.Tensor,
@@ -156,9 +165,9 @@ def aux_load_balance_loss(p: dict, x: torch.Tensor,
     """Switch-style load-balancing auxiliary loss (fraction of routed
     choices times mean router probability, per expert)."""
     with scope("moe.aux"):
-        logits = torch.einsum("bsd,de->bse", x.float(), p["router"].float())
+        logits = einsum("bsd,de->bse", x.float(), p["router"].float())
         probs = torch.softmax(logits, dim=-1)               # (B, S, E)
-        _, idx = torch.topk(logits, cfg.top_k, dim=-1)
+        _, idx = topk(logits, cfg.top_k, dim=-1)
         frac = _one_hot(idx, cfg.n_experts).mean(dim=(0, 1, 2))
         mean_prob = probs.mean(dim=(0, 1))
         return cfg.n_experts * torch.sum(frac * mean_prob)

@@ -16,7 +16,8 @@ From that tree come:
     the port and back, which is how the parity tests feed both packages
     the same weights.
 
-The logical axis names are kept as data; on one card nothing shards.
+The logical axis names (:func:`logical_tree`) feed the sharding rules
+of :mod:`repro_torch.distributed.sharding`.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ import numpy as np
 import torch
 
 __all__ = ["ParamDef", "ShapeDtype", "empty_like_defs", "from_numpy",
-           "flatten", "map_tree", "materialize", "n_params", "to_numpy",
-           "unflatten"]
+           "flatten", "logical_tree", "map_tree", "materialize", "n_params",
+           "shape_tree", "to_numpy", "unflatten"]
 
 Tree = Any  # nested dict of ParamDef / tensors / arrays
 
@@ -159,6 +160,17 @@ def empty_like_defs(defs: Tree, device: "str | torch.device") -> Tree:
     ``shape_tree``)."""
     return map_tree(_defs_only(lambda _, d: torch.empty(
         d.shape, dtype=d.dtype, device=device)), defs)
+
+
+def shape_tree(defs: Tree) -> Tree:
+    """:class:`ShapeDtype` stand-ins of the tree's leaves."""
+    return map_tree(_defs_only(lambda _, d: ShapeDtype(torch.Size(d.shape),
+                                                       d.dtype)), defs)
+
+
+def logical_tree(defs: Tree) -> Tree:
+    """The logical-axes tree, same structure as the params."""
+    return map_tree(_defs_only(lambda _, d: d.logical), defs)
 
 
 def n_params(defs: Tree) -> int:

@@ -27,8 +27,11 @@ from typing import Optional
 
 import torch
 
+from .dots import einsum
+from ..distributed.actctx import on_mesh_of
 from . import layers as L
 from . import moe as moe_lib
+from . import remat as remat_lib
 from .config import ModelConfig
 from .params import ParamDef
 
@@ -50,6 +53,14 @@ class StepConfig:
     microbatches: int = 1
     inference: bool = False       # prefill/decode: drop-free MoE routing
     grad_bf16: bool = False       # cast grads before sync (halves traffic)
+
+    def __post_init__(self):
+        remat_lib.check_policy(self.remat_policy)
+
+    def policy(self) -> Optional[str]:
+        """The remat policy's name, None without remat (the reference
+        returns the ``jax.checkpoint_policies`` function)."""
+        return self.remat_policy if self.remat else None
 
 
 def _stacked_norm(cfg: ModelConfig, layers: int) -> ParamDef:
@@ -122,14 +133,14 @@ def _self_block(h: torch.Tensor, lp: dict, cfg: ModelConfig,
     reference, and the block also returns this layer's roped (K, V)."""
     a_in = L.apply_norm(lp["ln1"], h, cfg)
     if collect_kv:
-        q = torch.einsum("bsd,dhk->bhsk", a_in, lp["attn"]["wq"])
-        k = torch.einsum("bsd,dhk->bhsk", a_in, lp["attn"]["wk"])
-        v = torch.einsum("bsd,dhk->bhsk", a_in, lp["attn"]["wv"])
+        q = einsum("bsd,dhk->bhsk", a_in, lp["attn"]["wq"])
+        k = einsum("bsd,dhk->bhsk", a_in, lp["attn"]["wk"])
+        v = einsum("bsd,dhk->bhsk", a_in, lp["attn"]["wv"])
         pos = torch.arange(h.shape[1], device=h.device)
         q = L.apply_rope(q, pos, cfg.rope_theta)
         k = L.apply_rope(k, pos, cfg.rope_theta)
         out = L._attend(q, k, v, causal=True, window=cfg.window)
-        a = torch.einsum("bhsk,hkd->bsd", out, lp["attn"]["wo"])
+        a = einsum("bhsk,hkd->bsd", out, lp["attn"]["wo"])
         kv = (k, v)
     else:
         a = L.attention_full(lp["attn"], a_in, cfg, causal=True,
@@ -153,16 +164,9 @@ def _cross_block(h: torch.Tensor, lp: dict, ctx: torch.Tensor,
 
 
 def _maybe_remat(fn, step: StepConfig):
-    """``fn`` itself, or ``fn`` checkpointed (only its inputs are kept for
-    the backward pass: the reference's ``nothing_saveable`` policy, the
-    one policy ported)."""
-    if not step.remat:
-        return fn
-    if step.remat_policy != "nothing_saveable":
-        raise NotImplementedError(
-            f"remat policy {step.remat_policy!r}: only 'nothing_saveable' "
-            f"is ported")
-    return lambda *args: L.checkpointed(fn, *args)
+    """``fn`` itself, or ``fn`` under the step's remat policy
+    (:mod:`repro_torch.models.remat`)."""
+    return remat_lib.remat(fn, step.policy())
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -239,10 +243,12 @@ def _prefill_cache(kvs: list, batch: int, seq: int,
                    device: torch.device) -> dict:
     """The decode cache of a prefill: each self layer's roped (K, V),
     stacked, with position tags 0..S-1."""
+    k = torch.stack([k for k, _ in kvs])
     pos = torch.arange(seq, dtype=torch.int32, device=device)
-    return {"attn": {"k": torch.stack([k for k, _ in kvs]),
+    return {"attn": {"k": k,
                      "v": torch.stack([v for _, v in kvs]),
-                     "pos": pos.expand(len(kvs), batch, seq).clone()}}
+                     "pos": on_mesh_of(pos.expand(len(kvs), batch, seq)
+                                       .clone(), k)}}
 
 
 def lm_prefill(params: dict, batch: dict, cfg: ModelConfig,
@@ -308,7 +314,7 @@ def lm_decode(params: dict, tokens: torch.Tensor, cache: dict, pos,
     place into ``cache["attn"]``, which is returned with the logits
     (B, 1, V)."""
     h = L.embed_tokens(params["embed"], tokens, cfg)
-    pos = L.decode_position(pos, h.device)
+    pos = L.decode_position(pos, h)
     attn = cache["attn"]
     if cfg.family == "vlm":
         # as the reference: the self layers decode without a window

@@ -22,11 +22,15 @@ Caveats, all by design:
 - on the host (``device="cpu"`` work, or a torch without CUDA) there is
   no kernel track, so both functions return ``None`` — callers degrade
   to host timing;
-- the profiler loses the kernel records of a window's first launches
-  (see :data:`PRIMER`), so each window on the card opens with throwaway
-  kernels and runs the sample inside a ``record_function`` range whose
-  kernels are picked out by their launches' correlation ids; the primer
-  records lost are counted in the ``device_timing.lost_kernel_records``
+- the tracer drops kernel records while it starts up (torch 2.11 on
+  an H100: a window's first launches, more the older the process) and,
+  in a long window, some early records of a recorded step, so each
+  window is a ``torch.profiler`` schedule of one warm-up step, in which
+  the tracer starts, and one recorded step; each opens with
+  :data:`PRIMER` throwaway kernels, and the sample then runs inside a
+  ``record_function`` range whose kernels are picked out by their
+  launches' correlation ids; launches of the range left without a kernel
+  record are counted in the ``device_timing.lost_kernel_records``
   metric;
 - **no fallback on the card**: when any launch of the sample has no
   kernel record, :class:`DeviceTimingError` is raised — ``None`` is
@@ -275,45 +279,64 @@ def parse_trace(doc: dict, source: str = "", mark: Optional[str] = None,
 
 
 def _lost_records(doc: dict) -> int:
-    """Kernel records a window lost: its :data:`PRIMER` kernels and every
-    launch in the :data:`MARK` range (a card clock's holds and earlier
-    tries too), less the kernel events it holds."""
+    """Kernel records a window lost: the launches in its :data:`MARK`
+    range (a card clock's holds and earlier tries too) whose correlation
+    id has no kernel event."""
     complete = [ev for ev in doc["traceEvents"]
                 if isinstance(ev, dict) and ev.get("ph") == "X"]
     ranges = _ranges(complete, MARK)
-    launched = sum(_is_launch(ev) and _inside(ev, ranges)
-                   for ev in complete)
-    seen = sum(str(ev.get("cat", "")).lower() == "kernel"
-               for ev in complete)
-    return max(PRIMER + launched - seen, 0)
+    ids = {(ev.get("args") or {}).get("correlation") for ev in complete
+           if _is_launch(ev) and _inside(ev, ranges)}
+    seen = {(ev.get("args") or {}).get("correlation") for ev in complete
+            if str(ev.get("cat", "")).lower() == "kernel"}
+    return len(ids - seen)
 
 
 def _collect_trace(sample_fn: Callable[[], object], log_dir: Path,
                    ) -> tuple[dict, float, str]:
     """Run ``sample_fn`` once in a profiler window, inside a :data:`MARK`
-    range, after :data:`PRIMER` throwaway kernels on the card; returns the
-    exported trace, the host bracket of the call (sample + synchronize)
-    and the trace file's path."""
+    range, after a warm-up step (not in the exported trace) and
+    :data:`PRIMER` throwaway kernels on the card; returns the exported
+    trace, the host bracket of the call (sample + synchronize) and the
+    trace file's path."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
+
+    from torch.profiler import schedule
 
     cuda = device_timing_available()
     activities = [ProfilerActivity.CPU]
     if cuda:
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        if cuda and torch.cuda.is_initialized():
-            pad = torch.zeros(1, device=torch.cuda.current_device())
-            for _ in range(PRIMER):     # records the window may lose
+    # one warm-up step before the recorded one: the tracer (CUPTI on the
+    # card) starts there; and each step opens with PRIMER throwaway
+    # kernels, whose records the tracer may drop as a step starts, so
+    # the sample runs only after them
+    live = cuda and torch.cuda.is_initialized()
+    pad = torch.zeros(1, device=torch.cuda.current_device()) if live \
+        else None
+
+    def primer():
+        if pad is not None:
+            for _ in range(PRIMER):
                 pad.add_(1.0)
+            torch.cuda.synchronize()
+
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        primer()
+        prof.step()
+        primer()
         with record_function(MARK):
             t0 = time.perf_counter()
             sample_fn()
-            if cuda and torch.cuda.is_initialized():
+            if live:
                 # drain the queue so the bracket closes after the device
                 # work it is compared against (skew_s)
                 torch.cuda.synchronize()
             host_s = time.perf_counter() - t0
+        prof.step()
     path = log_dir / TRACE_FILE
     prof.export_chrome_trace(str(path))
     with open(path, "r", encoding="utf-8") as fh:

@@ -220,3 +220,49 @@ def test_chip_smoke_refuses_without_a_card_or_a_checkout(tmp_path):
     proc = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_distribution_modules_with_jax_and_reference_blocked(tmp_path):
+    """The distribution and launch-topology modules import with jax and
+    the JAX package blocked; the host mesh defaults to the card and
+    refuses without one, and runs ``gloo`` when asked for the CPU; the
+    dry run traces a cell on a fake world in its own process; the report
+    and the finalize CLI read its records; the CLIs' ``--help`` run."""
+    out = tmp_path / "dry.jsonl"
+    doc = tmp_path / "EXP.md"
+    doc.write_text("# x\n<!-- DRYRUN_TABLE -->\n<!-- ROOFLINE_TABLE -->\n")
+    proc = _run_blocked(f"""
+import runpy
+import repro_torch.distributed, repro_torch.distributed.tuner
+import repro_torch.analysis.terms, repro_torch.analysis.trace
+import repro_torch.launch.perf, repro_torch.launch.report
+import repro_torch.bench.distributed_tuner, repro_torch.models.remat
+from repro_torch.launch import dryrun, mesh
+from repro_torch import finalize_experiments
+try:
+    mesh.make_host_mesh()
+except RuntimeError as e:
+    print("refused:", e)
+m = mesh.make_host_mesh(device="cpu")
+import torch.distributed as dist
+print("host mesh", tuple(m.shape), dist.get_backend())
+mesh.release_world()
+dryrun.main(["--arch", "mamba2_130m", "--shape", "decode_32k", "--mesh",
+             "single", "--no-analysis", "--out", {str(out)!r}])
+assert finalize_experiments.main([{str(out)!r}, "--file", {str(doc)!r},
+                                  "--in-place"]) == 0
+assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
+for mod in ("repro_torch.launch.dryrun", "repro_torch.launch.perf",
+            "repro_torch.launch.report"):
+    sys.argv = [mod, "--help"]
+    try:
+        runpy.run_module(mod, run_name="__main__")
+    except SystemExit:
+        pass
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert "refused: device 'cuda' requested" in proc.stdout
+    assert "host mesh (1, 1) gloo" in proc.stdout
+    assert "dry-run complete: 1 ok, 0 skipped, 0 failed" in proc.stdout
+    assert "| mamba2-130m | decode_32k | single | ok |" in doc.read_text()
+    assert "--no-analysis" in proc.stdout and "--remat-policy" in proc.stdout

@@ -269,9 +269,9 @@ def test_bench_run_keys_and_unported_entries(tmp_path, monkeypatch,
                                              capsys):
     import benchmarks.run as ref_run
     assert list(bench_run.BENCHES) == list(ref_run.BENCHES)
-    with pytest.raises(NotImplementedError,
-                       match="Distribution and launch topology"):
-        bench_run.main(["--only", "distributed_tuner", "--device", "cpu"])
+    # every bench is ported now, distributed_tuner included
+    from repro_torch.bench import distributed_tuner
+    assert bench_run.BENCHES["distributed_tuner"] is distributed_tuner.run
     with pytest.raises(RuntimeError, match="is_available"):
         bench_run.main(["--only", "triad"])
     # --html now writes the dashboard from the --resume cache dir

@@ -113,8 +113,8 @@ def test_train_step_matches_the_reference(arch, knobs):
     params = from_numpy(init, device="cpu")
     opt = adamw_init(api.param_defs(cfg), "cpu")
     bundle = steps.build_train_step(cfg, WorkloadShape("t", S, B, "train"),
-                                    StepConfig(**knobs), peak_lr=PEAK_LR,
-                                    total_steps=TOTAL)
+                                    step_cfg=StepConfig(**knobs),
+                                    peak_lr=PEAK_LR, total_steps=TOTAL)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     lrs = []
     for i in range(N_STEPS):
