@@ -3286,7 +3286,10 @@ def sharded_steps(tile: tuple[int, int]) -> dict:
     ``meta``) within PEAK_ESTIMATE of the measured peak; then one step
     under each of DIST_POLICIES from the same weights: loss, global norm
     and updated parameters equal to nothing_saveable's, its peak memory,
-    and nothing_saveable's peak below everything_saveable's."""
+    and nothing_saveable's peak below everything_saveable's. Returns,
+    beside these, every wrapper's launches and flash attention's launches
+    per route, summed over the sharded runs (each counted from 0 just
+    before its steps and read just after)."""
     import dataclasses
     import gc
     import torch
@@ -3394,10 +3397,11 @@ def sharded_steps(tile: tuple[int, int]) -> dict:
           f"({ratio:.3f}x the measured)")
     print(f"  flash launches {flash} ({per_step} a step), routes "
           f"{sharded['routes']}")
-    policies = {}
+    policies, runs_by_policy = {}, {}
     first = None                 # the parameters after nothing_saveable's step
     for policy in DIST_POLICIES:
         r = run(mesh, policy, 1)
+        runs_by_policy[policy] = r
         updated = r.pop("params")
         for key in ("loss", "grad_norm"):
             if not torch.equal(r["metrics"][0][key],
@@ -3427,12 +3431,15 @@ def sharded_steps(tile: tuple[int, int]) -> dict:
             policies["everything_saveable"]["peak_bytes"]:
         fail(f"remat: nothing_saveable's peak is not below "
              f"everything_saveable's ({policies})")
-    launches = flash + sum(p["flash"] for p in policies.values())
+    runs = [sharded] + list(runs_by_policy.values())
     return {"sharded": {k: v for k, v in sharded.items() if k != "metrics"},
             "plain": {k: v for k, v in plain.items() if k != "metrics"},
             "losses": [float(m["loss"]) for m in sharded["metrics"]],
             "policies": policies, "estimate_ratio": ratio,
-            "flash_launches": launches}
+            "launches": {k: sum(r["launches"][k] for r in runs)
+                         for k in sharded["launches"]},
+            "routes": {k: sum(r["routes"][k] for r in runs)
+                       for k in sharded["routes"]}}
 
 
 def distributed_tuner_bench() -> dict:
@@ -3448,6 +3455,7 @@ def distributed_tuner_bench() -> dict:
     kernels.reset_launch_counts()
     rows = bench_run.run_benches(["distributed_tuner"])["distributed_tuner"]
     launches = kernels.launch_counts()
+    routes = dict(kernels.flash_attention.route_launches)
     backends = [r for r in rows if "backend" in r]
     strategies = [r for r in rows if "strategy" in r]
     if [r["backend"] for r in backends] != list(BACKENDS) or \
@@ -3461,19 +3469,34 @@ def distributed_tuner_bench() -> dict:
     print(f"  distributed_tuner: {len(backends)} backend rows, "
           f"{len(strategies)} strategy rows; GEMM kernel launches "
           f"{launches['matmul']}")
-    return {"rows": rows, "launches": launches}
+    return {"rows": rows, "launches": launches, "routes": routes}
 
 
 def distribution_path(tile: tuple[int, int]) -> dict:
     """Phase 16: the dry runs and the perf driver in processes of their
     own (host CPU only), beside the sharded steps on the card (c, d) and
     the distributed tuner bench (e), which times on the card's clock;
-    then the dry runs' checks."""
+    then the dry runs' checks. The phase's launches (the sharded steps'
+    and the bench's) are summed per wrapper and per flash route: the f32
+    flash routes and the SSD scan, which no part of it runs, must stay
+    at 0."""
     running = start_dry_runs()
     steps = sharded_steps(tile)
     bench = distributed_tuner_bench()
     dry = dry_run_checks(running)
-    return {"dry": dry, "steps": steps, "bench": bench}
+    launches = {k: steps["launches"][k] + bench["launches"][k]
+                for k in steps["launches"]}
+    routes = {k: steps["routes"][k] + bench["routes"][k]
+              for k in steps["routes"]}
+    stray = {k: n for k, n in (("tf32x3", routes["tf32x3"]),
+                               ("cuda_cores", routes["cuda_cores"]),
+                               ("ssd_chunk_scan",
+                                launches["ssd_chunk_scan"])) if n}
+    if stray:
+        fail(f"distribution: launches where the phase runs none: {stray}")
+    print(f"  distribution launches: {launches}, flash routes {routes}")
+    return {"dry": dry, "steps": steps, "bench": bench,
+            "launches": launches, "routes": routes}
 
 
 def main() -> int:
@@ -4155,7 +4178,7 @@ def main() -> int:
          "launches_history_search": search["launches"],
          "launches_observability": (
              observe["tune_launches"]["gemm_tiled"]["matmul"]),
-         "launches_distribution": dist["bench"]["launches"]["matmul"],
+         "launches_distribution": dist["launches"]["matmul"],
          "max_abs_err": errs["matmul"],
          "ms": gemm_ms, "plain_ms": gemm_plain_ms,
          "bound_ms": gemm_bound_ms, "bound_by": "operations",
@@ -4170,7 +4193,7 @@ def main() -> int:
          "launches_paper_tables": tables["launches"]["triad"],
          "launches_observability": (
              observe["tune_launches"]["triad"]["triad"]),
-         "launches_distribution": dist["bench"]["launches"]["triad"],
+         "launches_distribution": dist["launches"]["triad"],
          "host_us_per_call": observe["ops"]["host_us"],
          "profiled_ms": {label: run["timings"][0][1]["device_time_s"] * 1e3
                          for label, run in timing.items()
@@ -4191,7 +4214,7 @@ def main() -> int:
          "launches_zamba2_step": hyb["routes"]["tensor_cores"],
          "launches_model_stack": stack_flash,
          "launches_training": dense_train["launches"]["flash_attention"],
-         "launches_distribution": dist["steps"]["flash_launches"],
+         "launches_distribution": dist["routes"]["tensor_cores"],
          "launches_observability": (
              observe["launches"]["granite"]["flash_attention"]
              + observe["launches"]["zamba2"]["flash_attention"]),
@@ -4257,7 +4280,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention_tf32x3.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:33",
          "launches": step["f32_launches"],
-         "launches_distribution": 0,
+         "launches_distribution": dist["routes"]["tf32x3"],
          "launches_granite_f32_step": step["f32_launches"],
          "max_abs_err": errs["flash_f32_main"],
          "max_abs_err_f32_cases": errs["flash_f32_cases"],
@@ -4277,7 +4300,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:33",
          "launches": (step["routes"]["cuda_cores"]
                       + hyb["routes"]["cuda_cores"]),
-         "launches_distribution": 0,
+         "launches_distribution": dist["routes"]["cuda_cores"],
          "max_abs_err": errs["flash_f32_d256"],
          "ms": flash256["kernel"], "plain_ms": flash256["plain"],
          "bound_ms": flash256["bound"], "bound_by": flash256["bound_by"],
@@ -4295,7 +4318,7 @@ def main() -> int:
          "launches_serving_zamba2": zamba2_serve_ssd,
          "launches_zamba2_step": hyb["launches"]["ssd_chunk_scan"],
          "launches_training": training["launcher"]["ssd_launches"],
-         "launches_distribution": 0,
+         "launches_distribution": dist["launches"]["ssd_chunk_scan"],
          "launches_observability": (
              observe["launches"]["mamba2"]["ssd_chunk_scan"]
              + observe["launches"]["zamba2"]["ssd_chunk_scan"]),

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "sm_clock_mhz", "synchronizer", "warm_card"]
+__all__ = ["resolve_device", "synchronizer"]
 
 
 def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
@@ -37,42 +37,3 @@ def synchronizer(device: torch.device):
     card's ``torch.cuda.synchronize``, or nothing on the host (CPU ops
     are done when they return)."""
     return _cuda_sync if device.type == "cuda" else _no_sync
-
-
-def sm_clock_mhz() -> "int | None":
-    """Card 0's SM clock in MHz as ``nvidia-smi`` reads it, or None where
-    there is no ``nvidia-smi``."""
-    import shutil
-    import subprocess
-    exe = shutil.which("nvidia-smi")
-    if exe is None:
-        return None
-    out = subprocess.run([exe, "--query-gpu=clocks.sm",
-                          "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, timeout=30)
-    first = out.stdout.strip().splitlines()[:1]
-    return int(first[0]) if first and first[0].strip().isdigit() else None
-
-
-def warm_card(seconds: float, n: int = 4096) -> int:
-    """Keep the card busy with back-to-back f32 ``n``³ products for
-    ``seconds`` (TF32 off), so that a measurement started right after
-    runs at the clocks the card holds under load, not at those it ramps
-    through from idle. Returns the number of products."""
-    import time
-    dev = resolve_device("cuda")
-    allow = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device=dev).manual_seed(0)
-    a = torch.randn(n, n, device=dev, generator=gen)
-    count = 0
-    t0 = time.perf_counter()
-    try:
-        while time.perf_counter() - t0 < seconds:
-            for _ in range(8):
-                torch.matmul(a, a)
-            count += 8
-            torch.cuda.synchronize()
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = allow
-    return count

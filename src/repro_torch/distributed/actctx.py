@@ -219,14 +219,17 @@ def global_stride(local: torch.Tensor,
 
 def _local_along(fn, x: torch.Tensor, dim: int):
     """``fn`` on ``x``'s local shard, for an op along ``dim`` that no
-    rank's shard crosses (``dim`` is replicated first where it is split):
-    autograd runs on the local tensors (``to_local``/``from_local``), so
-    neither direction needs a DTensor rule for the op, which torch 2.11
-    lacks for some (``cumsum``'s backward flips, ``topk``'s scatters into
-    a plain tensor). Returns DTensors with ``x``'s placements."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    rank's shard crosses (``dim`` is replicated first where it is split,
+    and a ``Partial`` input is reduced first, since a local op on partial
+    sums is not the op on their sum): autograd runs on the local tensors
+    (``to_local``/``from_local``), so neither direction needs a DTensor
+    rule for the op, which torch 2.11 lacks for some (``cumsum``'s
+    backward flips, ``topk``'s scatters into a plain tensor). Returns
+    DTensors with ``x``'s placements, those two replicated."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     dim = dim % x.ndim
-    target = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim
+    target = tuple(Replicate() if isinstance(p, Partial)
+                   or (isinstance(p, Shard) and p.dim == dim)
                    else p for p in x.placements)
     if target != tuple(x.placements):
         x = x.redistribute(x.device_mesh, target)

@@ -26,12 +26,13 @@ Caveats, all by design:
   an H100: a window's first launches, more the older the process) and,
   in a long window, some early records of a recorded step, so each
   window is a ``torch.profiler`` schedule of one warm-up step, in which
-  the tracer starts, and one recorded step; each opens with
-  :data:`PRIMER` throwaway kernels, and the sample then runs inside a
-  ``record_function`` range whose kernels are picked out by their
-  launches' correlation ids; launches of the range left without a kernel
-  record are counted in the ``device_timing.lost_kernel_records``
-  metric;
+  the tracer starts, and one recorded step; each opens with a
+  :data:`GUARD_S` hold of the card and :data:`PRIMER` throwaway kernels,
+  and the sample then runs inside a ``record_function`` range whose
+  kernels are picked out by their launches' correlation ids, the window
+  closing :data:`GUARD_S` after it; launches of the range left without
+  a kernel record are counted in the ``device_timing.lost_kernel_records``
+  metric, and an error names their order and time in the range;
 - **no fallback on the card**: when any launch of the sample has no
   kernel record, :class:`DeviceTimingError` is raised — ``None`` is
   never returned for work that ran on the card, and a partial sum never
@@ -94,6 +95,19 @@ MARK = "repro_torch.device_timing.sample"
 #: minutes of GPU work (``python -m repro_torch.bench.sampler_probe``).
 #: The sample's own launches come after these.
 PRIMER = 256
+#: Seconds of guard on each side of the sample inside the recorded step:
+#: the step opens with a spin kernel (``torch.cuda._sleep``) holding the
+#: card at least this long before the primer, and closes this long after
+#: the sample's synchronize, so that the sample's kernels lie well inside
+#: the tracer's capture window at both ends. The cause of the losses is
+#: not established; their growth with the process's age fits device
+#: timestamps drifting against the host's clock, which a time guard
+#: covers and a count of kernels may not (a 16582-launch window lost one
+#: record after ten minutes of GPU work with the primer alone).
+GUARD_S = 0.05
+#: ``torch.cuda._sleep`` cycles for :data:`GUARD_S` at an SM clock of up
+#: to 2 GHz (the H100's maximum is 1.98 GHz; slower clocks hold longer)
+_GUARD_CYCLES = int(GUARD_S * 2.0e9)
 _PROFILE_LOCK = threading.Lock()
 
 
@@ -255,10 +269,19 @@ def parse_trace(doc: dict, source: str = "", mark: Optional[str] = None,
         found = {(ev.get("args") or {}).get("correlation") for ev in kernels}
         missing = [i for i in ids if i is None or i not in found]
         if kernels and missing:
+            lost = set(missing)
+            start = min(lo for lo, _ in ranges)
+            order = sorted(launches, key=lambda ev: float(ev["ts"]))
+            where = [f"#{k} at {(float(ev['ts']) - start) * 1e-3:.3f} ms"
+                     for k, ev in enumerate(order)
+                     if (ev.get("args") or {}).get("correlation") in lost]
+            span = sum(hi - lo for lo, hi in ranges) * 1e-3
             raise DeviceTimingError(
                 f"{len(missing)} of the {len(ids)} launches in the {mark!r} "
                 f"range have no kernel event ({source or 'trace'}; "
-                f"correlation ids {missing}): the device time would be short")
+                f"correlation ids {missing}; launch order and time into the "
+                f"range {where[:10]} of {span:.3f} ms): the device time "
+                f"would be short")
     if not kernels:
         if launches:
             raise DeviceTimingError(
@@ -295,8 +318,9 @@ def _lost_records(doc: dict) -> int:
 def _collect_trace(sample_fn: Callable[[], object], log_dir: Path,
                    ) -> tuple[dict, float, str]:
     """Run ``sample_fn`` once in a profiler window, inside a :data:`MARK`
-    range, after a warm-up step (not in the exported trace) and
-    :data:`PRIMER` throwaway kernels on the card; returns the exported
+    range, after a warm-up step (not in the exported trace), a
+    :data:`GUARD_S` hold and :data:`PRIMER` throwaway kernels on the
+    card, and :data:`GUARD_S` before the window closes; returns the exported
     trace, the host bracket of the call (sample + synchronize) and the
     trace file's path."""
     import torch
@@ -318,6 +342,7 @@ def _collect_trace(sample_fn: Callable[[], object], log_dir: Path,
 
     def primer():
         if pad is not None:
+            torch.cuda._sleep(_GUARD_CYCLES)
             for _ in range(PRIMER):
                 pad.add_(1.0)
             torch.cuda.synchronize()
@@ -336,6 +361,8 @@ def _collect_trace(sample_fn: Callable[[], object], log_dir: Path,
                 # work it is compared against (skew_s)
                 torch.cuda.synchronize()
             host_s = time.perf_counter() - t0
+        if live:
+            time.sleep(GUARD_S)
         prof.step()
     path = log_dir / TRACE_FILE
     prof.export_chrome_trace(str(path))

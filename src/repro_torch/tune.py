@@ -188,10 +188,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where every benchmark runs (default: cuda; "
                          "raises when no card is visible)")
-    ap.add_argument("--warmup", type=float, default=0.0, metavar="SECONDS",
-                    help="on the card, keep it busy with f32 products for "
-                         "SECONDS before the session, so its trials run "
-                         "at the clocks the card holds under load")
     return ap
 
 
@@ -278,13 +274,6 @@ def main(argv=None) -> int:
     print(f"space      : {space!r}  ({space.cardinality} configs)")
     print(f"cached     : {len(session.cache)} trials "
           f"({session.cache.n_stale} stale skipped)")
-
-    if args.warmup > 0 and device == "cuda":
-        from .device import sm_clock_mhz, warm_card
-        before = sm_clock_mhz()
-        n = warm_card(args.warmup)
-        print(f"warmup     : {args.warmup:g} s, {n} f32 products; SM clock "
-              f"{before} -> {sm_clock_mhz()} MHz", flush=True)
 
     done = 0
     if args.live:

@@ -300,6 +300,29 @@ def test_train_launcher_runs_through_the_host_mesh(world):
     assert got["losses"] == want
 
 
+def test_local_top_k_and_cumsum_reduce_a_partial_input(world):
+    """At a ``gloo`` world of 1 a ``Partial`` DTensor (one rank's share
+    of a sum, as a router's logits would be after a contraction over a
+    split dim) goes through the local top-k and cumsum reduced first: the
+    values and indices equal torch's on the summed tensor (exactly, one
+    rank) and carry no ``Partial`` placement."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from repro_torch.distributed.actctx import cumsum, topk
+    mesh = make_host_mesh(device="cpu")
+    full = torch.randn(4, 8, generator=torch.Generator().manual_seed(2))
+    part = DTensor.from_local(full, mesh, [Partial(), Replicate()],
+                              run_check=False)
+    values, index = topk(part, 3)
+    summed = cumsum(part, 1)
+    ref = torch.topk(full, 3)
+    assert torch.equal(values.to_local(), ref.values)
+    assert torch.equal(index.to_local(), ref.indices)
+    assert torch.equal(summed.to_local(), torch.cumsum(full, 1))
+    for t in (values, index, summed):
+        assert all(isinstance(p, Replicate) for p in t.placements), \
+            t.placements
+
+
 def test_sharded_batch_rows_follow_the_rule(world):
     """On a fake (16, 16) world each rank makes its rows of the batch
     (its block of 256 / 16 rows, all columns), from draws seeded by
@@ -329,7 +352,9 @@ def test_sharded_batch_rows_follow_the_rule(world):
                           np.asarray(ref._tokens(key, 16)))
 
 
-WORLD2 = r"""
+WORLD2_ARCHS = ("granite_3_2b", "mamba2_130m", "granite_moe_1b_a400m",
+                "zamba2_2_7b", "whisper_base", "llama_3_2_vision_11b")
+WORLD2 = f"ARCHS = {WORLD2_ARCHS!r}" + r"""
 import json, sys
 import torch
 import torch.distributed as dist
@@ -341,27 +366,31 @@ from repro_torch import configs
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.actctx import activation_sharding
 from repro_torch.models import api
-from repro_torch.models.config import WorkloadShape
+from repro_torch.models.config import WorkloadShape, input_specs
 from repro_torch.models.params import flatten, materialize
 from repro_torch.models.transformer import StepConfig
 from repro_torch.train import steps
 torch.manual_seed(0)
 mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
 rel = {}
-for arch in ("granite_3_2b", "mamba2_130m"):
+for arch in ARCHS:
     cfg = configs.get_smoke(arch)
     cfg = type(cfg)(**{**cfg.__dict__, "dtype": "float32"})
     defs = api.param_defs(cfg)
     params = materialize(torch.Generator().manual_seed(0), defs)
-    tokens = torch.randint(0, cfg.vocab_size, (4, 16),
-                           generator=torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(1)
+    wshape = WorkloadShape("t", 16, 4, "train")
+    batch = {name: torch.randint(0, cfg.vocab_size, tuple(sds.shape),
+                                 generator=gen)
+             if not sds.dtype.is_floating_point
+             else torch.randn(tuple(sds.shape), generator=gen)
+             for name, sds in input_specs(cfg, wshape).items()}
     step = StepConfig(remat=True, loss_chunk=8)
-    want_loss, want = api.loss_and_grads(params, {"tokens": tokens}, cfg,
-                                         step)
+    want_loss, want = api.loss_and_grads(params, batch, cfg, step)
     rules = sh.TRAIN_RULES
     sp = steps.place(params, sh.sharding_tree(defs, rules, mesh))
-    sb = steps.place({"tokens": tokens}, steps._batch_shardings(
-        cfg, WorkloadShape("t", 16, 4, "train"), mesh, rules))
+    sb = steps.place(batch, steps._batch_shardings(cfg, wshape, mesh,
+                                                   rules))
     with activation_sharding(steps._resolver(mesh, rules)):
         loss, grads = api.loss_and_grads(sp, sb, cfg, step)
     got = {k: v.full_tensor() for k, v in flatten(grads).items()}
@@ -370,8 +399,24 @@ for arch in ("granite_3_2b", "mamba2_130m"):
                              - 1.0),
                  "grad": max(float((got[k] - v).abs().max())
                              for k, v in flatten(want).items()) / scale}
+# the router's top-k of a partial sum (each rank holding a share of the
+# logits) is the top-k of the sum, not of one rank's share
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from repro_torch.distributed.actctx import cumsum, topk
+full = torch.randn(4, 8, generator=torch.Generator().manual_seed(2))
+part = DTensor.from_local(full * (rank + 1) / 3, mesh,
+                          [Partial() if n > 1 else Replicate()
+                           for n in mesh.shape], run_check=False)
+values, index = topk(part, 3)
+ref = torch.topk(full, 3)
+local_ops = {
+    "topk": torch.allclose(values.full_tensor(), ref.values, rtol=1e-6)
+    and torch.equal(index.full_tensor(), ref.indices)
+    and all(isinstance(p, Replicate) for p in index.placements),
+    "cumsum": torch.allclose(cumsum(part, 1).full_tensor(),
+                             torch.cumsum(full, 1), rtol=1e-6)}
 if rank == 0:
-    print(json.dumps(rel))
+    print(json.dumps({"rel": rel, "local_ops": local_ops}))
 dist.destroy_process_group()
 """
 
@@ -380,11 +425,14 @@ dist.destroy_process_group()
                          ids=["data2", "model2"])
 def test_sharded_loss_and_grads_match_at_world_two(shape):
     """Two ``gloo`` ranks on the CPU, the batch split over ``data`` or the
-    heads, MLP, vocab and SSM inner dims over ``model`` (the planned
-    einsums, the partial-sum gradients, the vocab-split loss): the float32
-    SMOKE granite-3-2b and mamba2-130m losses and gradients equal the
-    meshless ones to 1e-5 relative (another summation order across the
-    two ranks; gradients relative to the largest gradient element)."""
+    heads, MLP, expert, vocab and SSM inner dims over ``model`` (the
+    planned einsums, the partial-sum gradients, the MoE router's top-k,
+    the vocab-split loss): the float32 SMOKE losses and gradients of one
+    config of each family (dense, SSM, MoE, hybrid, enc-dec, VLM) equal
+    the meshless ones to 1e-5 relative (another summation order across
+    the two ranks; gradients relative to the largest gradient element).
+    The local top-k and cumsum of a ``Partial`` input equal the ops on its
+    sum to 1e-6 relative (the indices exactly)."""
     import socket
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -396,6 +444,9 @@ def test_sharded_loss_and_grads_match_at_world_two(shape):
                               text=True) for r in range(2)]
     outs = [p.communicate(timeout=240) for p in procs]
     assert all(p.returncode == 0 for p in procs), outs[0][1][-3000:]
-    rel = json.loads(outs[0][0].strip().splitlines()[-1])
+    out = json.loads(outs[0][0].strip().splitlines()[-1])
+    assert out["local_ops"] == {"topk": True, "cumsum": True}
+    rel = out["rel"]
+    assert tuple(rel) == WORLD2_ARCHS
     for arch, err in rel.items():
         assert err["loss"] <= 1e-5 and err["grad"] <= 1e-5, (arch, err)
