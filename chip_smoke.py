@@ -16,10 +16,10 @@ run when it fails:
                that spill, the dynamic shared memory of the GEMM and
                flash blocks (the CUDA-core kernel at each head dim, the
                bf16 and 3xTF32 tensor-core kernels at every tile, the
-               latter with its registers and spills), and each of the
-               four SSD kernels' threads, dynamic shared memory and
-               blocks per SM; the library's bf16 and tf32x3 flash tile
-               tables must be the wrapper's.
+               latter, D = 256's too, with its registers and spills), and
+               each of the four SSD kernels' threads, dynamic shared
+               memory and blocks per SM; the library's bf16, tf32x3 and
+               tf32x3_d256 flash tile tables must be the wrapper's.
 3. checks    — each kernel against its plain PyTorch version on the card:
                GEMM at every tile of the table at 4096x2048x6144 f32 and
                at 300x450x200 and 1024x256x128 in f32 and bf16; TRIAD at
@@ -29,10 +29,10 @@ run when it fails:
                attention on the cases of ``tests/test_kernels.py`` and
                at every head dim the configs use, each at every (bq, bk)
                of the full model-step space, each on its route (bf16 on
-               the tensor-core kernel and f32 at D <= 128 on the 3xTF32
-               one, each of which must run every compiled physical tile;
-               f32 at D = 256 on the CUDA cores), then at the model step's
-               shape (B=1, H=32, Hkv=8, S=4096, D=64, causal) at each
+               the tensor-core kernel, f32 at D <= 128 on the 3xTF32 one
+               and f32 at D = 256 on its D = 256 kernel, each of which
+               must run every compiled physical tile), then at the model
+               step's shape (B=1, H=32, Hkv=8, S=4096, D=64, causal) at each
                tile of the quick space, in bf16 and in f32 within
                FLASH_MAIN_TOL, and its
                autograd gradients against the plain version's (exact:
@@ -55,11 +55,14 @@ run when it fails:
                kernel it replaced, checked first, its bounds at 165 and
                67 TFLOP/s and scaled_dot_product_attention),
                zamba2-2.7b's D = 80 at each quick tile (checked first),
-               and gemma-2b's widths in f32 (FLASH_D256: B=1, H=8,
-               Hkv=1, S=4096, D=256, causal) on the CUDA-core kernel at
-               each quick tile (checked first) beside its bounds at 165
-               and 67 TFLOP/s, its plain version and
-               scaled_dot_product_attention;
+               and gemma-2b's widths (FLASH_D256: B=1, H=8, Hkv=1,
+               S=4096, D=256, causal): in f32 the D = 256 3xTF32 kernel
+               at each quick tile (checked first) beside the CUDA-core
+               kernel it replaced (checked too), its bounds at 165 and 67
+               TFLOP/s, its plain version and
+               scaled_dot_product_attention, and in bf16 the tensor-core
+               kernel at each quick tile (checked first) beside its bound
+               and scaled_dot_product_attention;
                attention forward + backward at
                the model step's shape on the flash and plain paths; the
                SSD kernel at SSD_MAIN (mamba2-130m serving, zamba2-2.7b
@@ -94,6 +97,13 @@ run when it fails:
                3xTF32 flash kernel, one launch a layer) within
                MODEL_STEP["f32_loss_rtol"], and that f32 step's time on
                the flash and plain paths.
+6b. gemma f32 — gemma-2b's train step in float32 (GEMMA_F32_STEP: full
+               width, d_model 2048, 8 heads, 1 kv head, head dim 256,
+               vocab 256000; depth cut from 18 to 2 layers, B=1, S=4096)
+               at phase 6's tile: the ``use_flash=1`` loss within
+               F32_LOSS_RTOL of ``use_flash=0``, exactly 2 launches of the
+               D = 256 3xTF32 flash kernel and none on another route; the
+               step's time on the flash and plain paths.
 7. full depth — one granite-3-2b train step at all 40 layers, B=1,
                S=4096, ``use_flash=1`` at the tuner's best flash tiles:
                loss and gradients finite; step time and peak memory.
@@ -256,10 +266,12 @@ The last three lines are the card line, one ``{"kernels": [...]}`` JSON
 object (flash attention split by dtype: ``flash_attention`` the bf16
 tensor-core kernel, ``flash_attention_f32`` the 3xTF32 one, with the
 CUDA-core kernel it replaced as ``was_ms``, and
-``flash_attention_f32_d256`` that CUDA-core kernel at D = 256, its one
-route; ``launches`` counts the main path's launches, phase 5's for
-matmul and triad, phases 6, 9 and 14's for flash (phase 14's:
-``launches_model_stack``), phases 8 and 9's for the SSD chunk scan
+``flash_attention_f32_d256`` the 3xTF32 kernel at D = 256, the same
+CUDA-core kernel its ``was_ms``; ``launches`` counts the main path's
+launches, phase 5's for matmul and triad, phases 6, 9 and 14's for bf16
+flash (phase 14's: ``launches_model_stack``), phase 6's granite f32 step
+for ``flash_attention_f32`` and phase 6b's gemma f32 step for
+``flash_attention_f32_d256``, phases 8 and 9's for the SSD chunk scan
 (serving: ``launches_serving``), with phase 15's for both as
 ``launches_training`` and phases 10, 11,
 12 and 13's beside it as ``launches_device_timing``,
@@ -412,10 +424,17 @@ LONG_DECODE = {"batch": 4, "context": 32768, "steps": 16}
 #: CONTINUE_TOL
 SERVE_CONTINUE = {"layers": {"granite_3_2b": 4, "zamba2_2_7b": 6},
                   "prefill": 512, "decode": 64}
-#: gemma-2b's attention widths (B, H, Hkv, S, D) in f32: D = 256, the one
-#: head dim the CUDA-core flash kernel (csrc/flash_attention.cu) still
-#: takes; timed in phase 4, launched on no path
+#: gemma-2b's attention widths (B, H, Hkv, S, D): D = 256, in f32 the
+#: 3xTF32 kernel of csrc/flash_attention_tf32x3_d256.cu (launched by phase
+#: 6b's step), timed in phase 4 beside the CUDA-core kernel it replaced,
+#: and in bf16 the tensor-core kernel
 FLASH_D256 = (1, 8, 1, 4096, 256)
+#: phase 6b: gemma-2b's train step in float32, the path that launches the
+#: f32 flash kernel at D = 256. Full width (d_model 2048, 8 heads, 1 kv
+#: head, head dim 256, d_ff 16384, vocab 256000); depth cut from 18 to 2
+#: layers, B=1 (batch 256 -> 1), S=4096 (the train_4k sequence); flash at
+#: phase 6's tile; the loss within F32_LOSS_RTOL of the plain step's
+GEMMA_F32_STEP = {"arch": "gemma_2b", "layers": 2, "batch": 1, "seq": 4096}
 #: (B, H, C, Q, P, N, with h0): the cases of tests/test_kernel_ssd.py (its
 #: four shapes and the state-carry case), an odd chunk (S = 300, Q = 100),
 #: mamba2-130m's widths at S = 4096 with Q in {128, 256, 512} (the config's
@@ -743,23 +762,21 @@ def flash_case_checks(randn) -> tuple[int, float]:
     """The flash kernels against ``attention_ref`` on every case of
     FLASH_CASES, each at every (bq, bk) of the full model-step space, each
     on the route its dtype and head dim take (``route``): the bf16 cases
-    on the tensor-core kernel and the f32 cases at D <= 128 on the 3xTF32
-    one, which must each have run every compiled physical tile of every
-    head dim, the f32 cases at D = 256 on the CUDA cores. Returns (checks,
-    max abs err over the f32 cases)."""
+    on the tensor-core kernel, the f32 cases at D <= 128 on the 3xTF32 one
+    and at D = 256 on its D = 256 kernel, which must each have run every
+    compiled physical tile of every head dim. Returns (checks, max abs err
+    over the f32 cases)."""
     import torch
     from repro_torch.bench.common import model_step_space
-    from repro_torch.kernels.flash_attention import (SM90_TILES,
-                                                     TF32X3_TILES,
+    from repro_torch.kernels.flash_attention import (ROUTE_TILES,
                                                      attention_ref,
                                                      flash_attention,
                                                      padded_blocks,
                                                      physical_tile, route)
     tiles = sorted({(c["flash_block_q"], c["flash_block_k"])
                     for c in model_step_space(False).configs()})
-    tables = {"tensor_cores": SM90_TILES, "tf32x3": TF32X3_TILES}
     # physical tiles run, per tensor-core route and head dim
-    ran = {r: {d: set() for d in t} for r, t in tables.items()}
+    ran = {r: {d: set() for d in t} for r, t in ROUTE_TILES.items()}
     checks, worst_f32 = 0, 0.0
     for b, hq, hkv, s, d, causal, window, dt in FLASH_CASES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
@@ -778,13 +795,12 @@ def flash_case_checks(randn) -> tuple[int, float]:
             worst = max(worst, check_close(f"{label} tile ({bq}, {bk})", got,
                                            want, FLASH_TOL[dt]))
             checks += 1
-            if path in tables:
-                bq_, bk_, _ = padded_blocks(s, bq, bk)
-                ran[path][d].add(physical_tile(bq_, bk_, tables[path][d]))
+            bq_, bk_, _ = padded_blocks(s, bq, bk)
+            ran[path][d].add(physical_tile(bq_, bk_, ROUTE_TILES[path][d]))
         if dt == "f32":
             worst_f32 = max(worst_f32, worst)
         print(f"{label}: {len(tiles)} tiles ok, max abs err {worst:.3e}")
-    for path, table in tables.items():
+    for path, table in ROUTE_TILES.items():
         for d, compiled in table.items():
             if ran[path][d] != set(compiled):
                 fail(f"flash {path} d={d}: the cases ran physical tiles "
@@ -942,8 +958,8 @@ def model_step_path(work: pathlib.Path, spec: dict) -> dict:
     print(f"model step: best {result.best_config} score "
           f"{result.best_score:.1f} GFLOP/s; session wall {wall:.1f}s; "
           f"launches {launches}; flash per route {routes}")
-    if routes != {"tensor_cores": launches["flash_attention"], "tf32x3": 0,
-                  "cuda_cores": 0}:
+    if routes != {**dict.fromkeys(routes, 0),
+                  "tensor_cores": launches["flash_attention"]}:
         fail(f"model step ({cfg.dtype}): flash launches {routes} did not all "
              f"go through the tensor-core kernel")
     flash = [t for t in result.trials if t.config["use_flash"]]
@@ -980,20 +996,23 @@ def model_step_path(work: pathlib.Path, spec: dict) -> dict:
 def f32_loss(cfg, b: int, s: int, tile: tuple[int, int], rtol: float
              ) -> dict:
     """The same step in float32 (weights, activations, attention): the
-    loss with ``use_flash=1``, which runs the f32 flash kernel on the
-    tensor cores (3xTF32, the ``tf32x3`` route), against ``use_flash=0``
-    within ``rtol``; then each step's median milliseconds over
-    F32_STEP_REPEATS runs (host clock, synchronized). Returns the relative
-    difference, the f32 kernel's launches in the two loss steps and the
-    step times."""
+    loss with ``use_flash=1``, which runs the f32 flash kernel of the
+    head dim's route on the tensor cores (3xTF32: ``tf32x3``, or
+    ``tf32x3_d256`` at D = 256), one launch a layer and none on another
+    route, against ``use_flash=0`` within ``rtol``; then each step's
+    median milliseconds over F32_STEP_REPEATS runs (host clock,
+    synchronized). Returns the relative difference, the route, the f32
+    kernel's launches in the two loss steps and the step times."""
     import dataclasses
     import gc
     import statistics
     import torch
     from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import route
     from repro_torch.models.transformer import StepConfig
     from repro_torch.models.workloads import build_workload
     cfg = dataclasses.replace(cfg, dtype="float32")
+    path = route(torch.float32, cfg.head_dim_)
     w = build_workload("train_step", cfg, batch_size=b, seq_len=s)
     before = dict(kernels.flash_attention.route_launches)
     steps = {"plain": w.with_step(StepConfig(remat=False)),
@@ -1005,19 +1024,19 @@ def f32_loss(cfg, b: int, s: int, tile: tuple[int, int], rtol: float
               for label, step in steps.items()}
     torch.cuda.synchronize()
     after = dict(kernels.flash_attention.route_launches)
-    f32_launches = after["tf32x3"] - before["tf32x3"]
+    f32_launches = after[path] - before[path]
     rel = abs(losses["flash"] / losses["plain"] - 1.0)
-    print(f"{cfg.n_layers}-layer loss in float32: use_flash=1 "
+    print(f"{cfg.name} {cfg.n_layers}-layer loss in float32: use_flash=1 "
           f"{losses['flash']:.7f} vs use_flash=0 {losses['plain']:.7f} "
-          f"(relative {rel:.3e}, tol {rtol}); f32 flash kernel launches "
-          f"{f32_launches}")
+          f"(relative {rel:.3e}, tol {rtol}); f32 flash kernel ({path}) "
+          f"launches {f32_launches}")
     if not (math.isfinite(rel) and rel <= rtol):
-        fail(f"model step f32: flash loss {losses['flash']} vs plain "
-             f"{losses['plain']}")
+        fail(f"model step f32 ({cfg.name}): flash loss {losses['flash']} "
+             f"vs plain {losses['plain']}")
     if f32_launches != cfg.n_layers or any(
-            after[r] != before[r] for r in ("tensor_cores", "cuda_cores")):
-        fail(f"model step f32: flash launches per route went from {before} "
-             f"to {after}, want {cfg.n_layers} on the tf32x3 kernel")
+            after[r] != before[r] for r in after if r != path):
+        fail(f"model step f32 ({cfg.name}): flash launches per route went "
+             f"from {before} to {after}, want {cfg.n_layers} on {path}")
     step_ms = {}
     for label, step in steps.items():
         times = []
@@ -1027,14 +1046,35 @@ def f32_loss(cfg, b: int, s: int, tile: tuple[int, int], rtol: float
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         step_ms[label] = statistics.median(times)
-    print(f"{cfg.n_layers}-layer train step in float32, median of "
-          f"{F32_STEP_REPEATS}: use_flash=1 {step_ms['flash']:.2f} ms, "
+    print(f"{cfg.name} {cfg.n_layers}-layer train step in float32, median "
+          f"of {F32_STEP_REPEATS}: use_flash=1 {step_ms['flash']:.2f} ms, "
           f"use_flash=0 {step_ms['plain']:.2f} ms")
     del w, steps
     gc.collect()
     torch.cuda.empty_cache()
-    return {"f32_loss_rel": rel, "f32_launches": f32_launches,
-            "f32_step_ms": step_ms}
+    return {"f32_loss_rel": rel, "f32_route": path,
+            "f32_launches": f32_launches, "f32_step_ms": step_ms}
+
+
+def gemma_f32_step(tile: tuple[int, int]) -> dict:
+    """Phase 6b: gemma-2b's train step in float32 at GEMMA_F32_STEP (full
+    width, 2 of 18 layers), the path that launches the f32 flash kernel at
+    D = 256: ``f32_loss`` at ``tile`` (phase 6's), which holds the
+    ``use_flash=1`` loss to the plain step's within F32_LOSS_RTOL and
+    requires one ``tf32x3_d256`` launch a layer and none on another
+    route."""
+    import dataclasses
+    from repro_torch.configs import get
+    full = get(GEMMA_F32_STEP["arch"])
+    cfg = dataclasses.replace(full, n_layers=GEMMA_F32_STEP["layers"])
+    b, s = GEMMA_F32_STEP["batch"], GEMMA_F32_STEP["seq"]
+    print(f"{full.name} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, {cfg.n_kv_heads} kv head, head_dim "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) in "
+          f"float32; depth cut from {full.n_layers} to {cfg.n_layers} "
+          f"layers ({cfg.n_params() / 1e6:.1f}M params); B={b}, S={s}; "
+          f"flash tile {tile}")
+    return f32_loss(cfg, b, s, tile, F32_LOSS_RTOL)
 
 
 def full_depth_step(tile: tuple[int, int]) -> dict:
@@ -1213,9 +1253,9 @@ def cuda_core_flash(d: int):
     """The f32 CUDA-core flash kernel's launcher at head dim ``d`` as a
     function of causal (B, H, S, D) q and (B, Hkv, S, D) k/v on the card
     (S a multiple of the logical block) and the logical (bq, bk): the
-    design the 3xTF32 kernel replaced at D <= 128, timed beside it
-    (``was_ms``) and never a path of the port there. Bypasses the
-    wrapper, so it counts no launch."""
+    design the 3xTF32 kernels replaced, timed beside them (``was_ms``, at
+    D = 64 and 256) and on no path of the port. Bypasses the wrapper, so
+    it counts no launch."""
     import torch
     from repro_torch.kernels import build
     fn = build.kernel_fn(f"rt_flash_attention_f32_d{d}", (
@@ -2654,8 +2694,8 @@ def flash_stack_checks(tiles) -> dict:
                 ms[tile] = cuda_ms(lambda t=tile: flash_attention(
                     q, k, v, causal=True, bq=t[0], bk=t[1]), iters=10)
         after = dict(flash_attention.route_launches)
-        if any(after[r] != before[r] for r in ("tf32x3", "cuda_cores")) or \
-                after["tensor_cores"] == before["tensor_cores"]:
+        if any(after[r] != before[r] for r in after if r != "tensor_cores") \
+                or after["tensor_cores"] == before["tensor_cores"]:
             fail(f"flash {shape} bf16 ({cfg.name}): launches per route "
                  f"went from {before} to {after}, want the tensor-core "
                  f"kernel only")
@@ -2706,6 +2746,111 @@ def flash_d128_times(q, k, v, ms: dict, err: float) -> dict:
           f"{out['library']:.4f} ms (kernel / library "
           f"{out['kernel'] / out['library']:.3f}) | max abs err {err:.3e}")
     return out
+
+
+def flash_d256_times(randn, tiles) -> dict:
+    """gemma-2b's attention widths (FLASH_D256): in f32 the 3xTF32 D = 256
+    kernel at each of ``tiles`` (checked against the plain version first,
+    within FLASH_MAIN_TOL), beside the CUDA-core kernel it replaced
+    (checked too, on the same operands, and timed: ``was``), its plain
+    version, scaled_dot_product_attention and its bounds at 165 and 67
+    TFLOP/s; then in bf16 the tensor-core kernel at each tile (checked
+    first) beside scaled_dot_product_attention and its bound at 989
+    TFLOP/s. Every f32 launch must take the ``tf32x3_d256`` route. Returns
+    {"f32": ..., "bf16": ...}, each with its times, tile and max abs
+    err."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     bytes_moved,
+                                                     flash_attention)
+    from repro_torch.kernels.flash_attention import flops as flash_flops
+    gb, gh, ghkv, gs, gd = FLASH_D256
+    d256 = [randn(gb, heads, gs, gd) for heads in (gh, ghkv, ghkv)]
+    want = attention_ref(*d256, causal=True)
+    before = flash_attention.route_launches["tf32x3_d256"]
+    d256_ms = {}
+    err = 0.0
+    for tile in tiles:
+        err = max(err, check_close(
+            f"flash {FLASH_D256} f32 causal tile {tile}", flash_attention(
+                *d256, causal=True, bq=tile[0], bk=tile[1]), want,
+            FLASH_MAIN_TOL["f32"]))
+        d256_ms[tile] = cuda_ms(lambda t=tile: flash_attention(
+            *d256, causal=True, bq=t[0], bk=t[1]), iters=10, warmup=2)
+    if flash_attention.route_launches["tf32x3_d256"] == before:
+        fail(f"flash {FLASH_D256} f32 did not take the tf32x3_d256 kernel")
+    d256_tile = min(d256_ms, key=d256_ms.get)
+    was256 = cuda_core_flash(gd)
+    err_was = check_close(
+        f"flash {FLASH_D256} f32 CUDA-core kernel", was256(*d256, *d256_tile),
+        want, FLASH_MAIN_TOL["f32"])
+    del want
+    d256_flops = flash_flops(gb, gh, gs, gd, True)
+    d256_bytes = bytes_moved(d256[0], d256[1])
+    flash256 = {
+        "kernel": d256_ms[d256_tile], "tile": d256_tile, "tile_ms": d256_ms,
+        "max_abs_err": err, "max_abs_err_was": err_was,
+        "was": cuda_ms(lambda: was256(*d256, *d256_tile), iters=3,
+                       warmup=1),
+        "plain": cuda_ms(lambda: attention_ref(*d256, causal=True), iters=2,
+                         warmup=1),
+        "library": cuda_ms(lambda: torch.nn.functional
+                           .scaled_dot_product_attention(
+                               *d256, is_causal=True, enable_gqa=True),
+                           iters=3, warmup=1),
+        "bound": max(d256_flops / TF32X3_PEAK, d256_bytes / HBM_PEAK) * 1e3,
+        "bound_by": ("operations" if d256_flops / TF32X3_PEAK
+                     >= d256_bytes / HBM_PEAK else "bytes"),
+        "bound_cuda_cores": max(d256_flops / F32_PEAK,
+                                d256_bytes / HBM_PEAK) * 1e3}
+    print(f"flash {FLASH_D256} f32 causal (3xTF32 on the tensor cores, Q "
+          f"from registers): " + " | ".join(
+              f"tile {t} {ms:.4f} ms" for t, ms in d256_ms.items())
+          + f" | kernel {flash256['kernel']:.4f} ms (tile {d256_tile}, "
+          f"{d256_flops / flash256['kernel'] / 1e9:.2f} TFLOP/s, "
+          f"{flash256['bound'] / flash256['kernel']:.1%} of its bound) | was "
+          f"{flash256['was']:.4f} ms (CUDA-core kernel, same run; "
+          f"{flash256['was'] / flash256['kernel']:.2f}x) | "
+          f"bound {flash256['bound']:.4f} ms (FLOPs / 165 TFLOP/s, 3xTF32; "
+          f"{flash256['bound_by']}), {flash256['bound_cuda_cores']:.4f} ms "
+          f"(FLOPs / 67 TFLOP/s, CUDA cores) | plain "
+          f"{flash256['plain']:.4f} ms | scaled_dot_product_attention "
+          f"{flash256['library']:.4f} ms (kernel / library "
+          f"{flash256['kernel'] / flash256['library']:.3f}) | max abs err "
+          f"{err:.3e} (CUDA-core kernel {err_was:.3e})")
+    d256 = [x.bfloat16() for x in d256]
+    want = attention_ref(*d256, causal=True)
+    bf16_256_ms, err_bf16 = {}, 0.0
+    for tile in tiles:
+        err_bf16 = max(err_bf16, check_close(
+            f"flash {FLASH_D256} bf16 causal tile {tile}", flash_attention(
+                *d256, causal=True, bq=tile[0], bk=tile[1]), want,
+            FLASH_MAIN_TOL["bf16"]))
+        bf16_256_ms[tile] = cuda_ms(lambda t=tile: flash_attention(
+            *d256, causal=True, bq=t[0], bk=t[1]), iters=10)
+    del want
+    bf16_256_bytes = bytes_moved(d256[0], d256[1])
+    bf16_256 = {
+        "tile_ms": bf16_256_ms, "max_abs_err": err_bf16,
+        "tile": min(bf16_256_ms, key=bf16_256_ms.get),
+        "library": cuda_ms(lambda: torch.nn.functional
+                           .scaled_dot_product_attention(
+                               *d256, is_causal=True, enable_gqa=True),
+                           iters=10),
+        "bound": max(d256_flops / BF16_PEAK,
+                     bf16_256_bytes / HBM_PEAK) * 1e3,
+        "bound_by": ("operations" if d256_flops / BF16_PEAK
+                     >= bf16_256_bytes / HBM_PEAK else "bytes")}
+    bf16_256["kernel"] = bf16_256_ms[bf16_256["tile"]]
+    print(f"flash {FLASH_D256} bf16 causal (tensor cores): " + " | ".join(
+        f"tile {t} {ms:.4f} ms" for t, ms in bf16_256_ms.items())
+        + f" | bound {bf16_256['bound']:.4f} ms (FLOPs / 989 TFLOP/s; "
+        f"{bf16_256['bound_by']}) | scaled_dot_product_attention "
+        f"{bf16_256['library']:.4f} ms (kernel / library "
+        f"{bf16_256['kernel'] / bf16_256['library']:.3f})")
+    del d256
+    torch.cuda.empty_cache()
+    return {"f32": flash256, "bf16": bf16_256}
 
 
 def stack_train_step(spec: dict, tile: tuple[int, int]) -> dict:
@@ -3489,7 +3634,7 @@ def distribution_path(tile: tuple[int, int]) -> dict:
     routes = {k: steps["routes"][k] + bench["routes"][k]
               for k in steps["routes"]}
     stray = {k: n for k, n in (("tf32x3", routes["tf32x3"]),
-                               ("cuda_cores", routes["cuda_cores"]),
+                               ("tf32x3_d256", routes["tf32x3_d256"]),
                                ("ssd_chunk_scan",
                                 launches["ssd_chunk_scan"])) if n}
     if stray:
@@ -3530,6 +3675,7 @@ def main() -> int:
     from repro_torch.kernels.matmul import TILES, matmul, matmul_ref
     from repro_torch.kernels.matmul import smem_bytes as gemm_smem_bytes
     from repro_torch.kernels.flash_attention import (SM90_TILES,
+                                                     TF32X3_D256_TILES,
                                                      TF32X3_TILES,
                                                      attention_ref,
                                                      bytes_moved,
@@ -3581,12 +3727,15 @@ def main() -> int:
               if not re.search(r", 0 bytes spill stores", row)]
     print(f"  kernels that spill: {spills or 'none'}")
     for d in sorted({case[4] for case in FLASH_CASES}):
-        print(f"  flash f32 CUDA-core kernel d={d}: {flash_smem_bytes(d)} "
-              f"bytes dynamic shared memory per block (opt-in limit {limit})")
+        print(f"  flash f32 CUDA-core kernel d={d} (replaced, on no route): "
+              f"{flash_smem_bytes(d)} bytes dynamic shared memory per block "
+              f"(opt-in limit {limit})")
     lib = build.library()
     for kind, query, wrapper_tiles in (
             ("bf16", "rt_flash_attention_sm90_tiles", SM90_TILES),
-            ("tf32x3", "rt_flash_attention_tf32x3_tiles", TF32X3_TILES)):
+            ("tf32x3", "rt_flash_attention_tf32x3_tiles", TF32X3_TILES),
+            ("tf32x3_d256", "rt_flash_attention_tf32x3_d256_tiles",
+             TF32X3_D256_TILES)):
         table = (ctypes.c_int * 300)()
         n_tiles = getattr(lib, query)(table, 100)
         compiled = {tuple(table[3 * i:3 * i + 3]) for i in range(n_tiles)}
@@ -3594,10 +3743,12 @@ def main() -> int:
                         for qt, kt in tiles}:
             fail(f"the library's {kind} flash tiles {sorted(compiled)} are "
                  f"not the wrapper's")
-    for d, tiles in TF32X3_TILES.items():
+    for d, tiles in {**TF32X3_TILES, **TF32X3_D256_TILES}.items():
         for qt, kt in tiles:
             # the label may follow digits of the mangled namespace
-            label = f"flash_attention_tf32x3_kernel<f32,{d},{qt},{kt}>: "
+            label = (f"flash_attention_tf32x3_d256_kernel<f32,{qt},{kt}>: "
+                     if d in TF32X3_D256_TILES else
+                     f"flash_attention_tf32x3_kernel<f32,{d},{qt},{kt}>: ")
             rows = [row.split(label, 1)[1] for row in ptxas_rows
                     if label in row]
             print(f"  flash f32 tf32x3 d={d} tile {qt}x{kt}: "
@@ -3837,8 +3988,8 @@ def main() -> int:
         f"flash {FLASH_MAIN} f32 tile {f32_tile}", flash_attention(
             *f32_ops, causal=True, bq=f32_tile[0], bk=f32_tile[1]),
         want, FLASH_MAIN_TOL["f32"]))
-    # the CUDA-core kernel this one replaced at D <= 128, still compiled
-    # for D = 256: checked, then timed on the same operands
+    # the CUDA-core kernel this one replaced, still compiled (on no
+    # route): checked, then timed on the same operands
     was = cuda_core_flash(fd)
     errs["flash_f32_was"] = check_close(
         f"flash {FLASH_MAIN} f32 CUDA-core kernel", was(*f32_ops, *f32_tile),
@@ -3892,51 +4043,15 @@ def main() -> int:
         f"tile {t} {ms:.4f} ms" for t, ms in flash_d80.items())
         + f" | scaled_dot_product_attention {d80_lib:.4f} ms")
     del d80
-    # gemma-2b's widths in f32: D = 256 takes the CUDA-core kernel
-    # (flash_attention.cu), checked at each quick tile, then timed
-    gb, gh, ghkv, gs, gd = FLASH_D256
-    d256 = [randn(gb, heads, gs, gd) for heads in (gh, ghkv, ghkv)]
-    want = attention_ref(*d256, causal=True)
-    before = flash_attention.route_launches["cuda_cores"]
-    d256_ms = {}
-    errs["flash_f32_d256"] = 0.0
-    for tile in quick_tiles:
-        errs["flash_f32_d256"] = max(errs["flash_f32_d256"], check_close(
-            f"flash {FLASH_D256} f32 causal tile {tile}", flash_attention(
-                *d256, causal=True, bq=tile[0], bk=tile[1]), want,
-            FLASH_MAIN_TOL["f32"]))
-        d256_ms[tile] = cuda_ms(lambda t=tile: flash_attention(
-            *d256, causal=True, bq=t[0], bk=t[1]), iters=3, warmup=1)
-    if flash_attention.route_launches["cuda_cores"] == before:
-        fail(f"flash {FLASH_D256} f32 did not take the CUDA-core kernel")
-    del want
-    d256_tile = min(d256_ms, key=d256_ms.get)
-    d256_flops = flash_flops(gb, gh, gs, gd, True)
-    d256_bytes = bytes_moved(d256[0], d256[1])
-    flash256 = {
-        "kernel": d256_ms[d256_tile], "tile": d256_tile,
-        "plain": cuda_ms(lambda: attention_ref(*d256, causal=True), iters=2,
-                         warmup=1),
-        "library": cuda_ms(lambda: torch.nn.functional
-                           .scaled_dot_product_attention(
-                               *d256, is_causal=True, enable_gqa=True),
-                           iters=3, warmup=1),
-        "bound": max(d256_flops / TF32X3_PEAK, d256_bytes / HBM_PEAK) * 1e3,
-        "bound_by": ("operations" if d256_flops / TF32X3_PEAK
-                     >= d256_bytes / HBM_PEAK else "bytes"),
-        "bound_cuda_cores": max(d256_flops / F32_PEAK,
-                                d256_bytes / HBM_PEAK) * 1e3}
-    print(f"flash {FLASH_D256} f32 causal (CUDA-core kernel, D = 256): "
-          + " | ".join(f"tile {t} {ms:.4f} ms" for t, ms in d256_ms.items())
-          + f" | kernel {flash256['kernel']:.4f} ms (tile {d256_tile}, "
-          f"{d256_flops / flash256['kernel'] / 1e9:.2f} TFLOP/s, "
-          f"{flash256['bound'] / flash256['kernel']:.1%} of its bound) | "
-          f"bound {flash256['bound']:.4f} ms (FLOPs / 165 TFLOP/s, 3xTF32; "
-          f"{flash256['bound_by']}), {flash256['bound_cuda_cores']:.4f} ms "
-          f"(FLOPs / 67 TFLOP/s, CUDA cores) | plain "
-          f"{flash256['plain']:.4f} ms | scaled_dot_product_attention "
-          f"{flash256['library']:.4f} ms "
-          f"| max abs err {errs['flash_f32_d256']:.3e}")
+    # gemma-2b's widths: the f32 D = 256 kernel beside the CUDA-core kernel
+    # it replaced, then bf16 on the tensor-core kernel
+    d256 = flash_d256_times(randn, quick_tiles)
+    flash256, bf16_256 = d256["f32"], d256["bf16"]
+    errs["flash_f32_d256"] = flash256["max_abs_err"]
+    errs["flash_f32_d256_was"] = flash256["max_abs_err_was"]
+    errs["flash_attention"] = max(errs["flash_attention"],
+                                  bf16_256["max_abs_err"])
+    n_checks["flash_attention"] += len(quick_tiles)
     del d256
     torch.cuda.empty_cache()
     leaves = [t.detach().requires_grad_() for t in (fq, fk, fv)]
@@ -4095,6 +4210,11 @@ def main() -> int:
                  f"{layers * flash['kernel'] / fastest:.1%} of it"
                  if flash_on else ""))
 
+    # -- 6b. gemma-2b's f32 step ----------------------------------------------
+    phase("model step in float32 at D = 256 (gemma-2b, 2 of 18 layers, B=1, "
+          "S=4096)")
+    gemma = gemma_f32_step(step["tile"])
+
     # -- 7. full depth -------------------------------------------------------
     phase("full-depth step (granite-3-2b, 40 layers, B=1, S=4096)")
     deep = full_depth_step(step["tile"])
@@ -4231,6 +4351,13 @@ def main() -> int:
          "d80_tile_ms": {f"{t[0]}x{t[1]}": ms
                          for t, ms in flash_d80.items()},
          "d80_library_ms": d80_lib,
+         "d256": {"shape": list(FLASH_D256), "tile": list(bf16_256["tile"]),
+                  "ms": bf16_256["kernel"],
+                  "tile_ms": {f"{t[0]}x{t[1]}": ms for t, ms in
+                              bf16_256["tile_ms"].items()},
+                  "bound_ms": bf16_256["bound"],
+                  "bound_by": bf16_256["bound_by"],
+                  "library_ms": bf16_256["library"]},
          "d128": {"shape": list(d128["shape"]), "tile": list(d128["tile"]),
                   "ms": d128["kernel"],
                   "tile_ms": {f"{t[0]}x{t[1]}": ms for t, ms in
@@ -4296,18 +4423,25 @@ def main() -> int:
          "f32_loss_rel": step["f32_loss_rel"],
          "f32_step_ms": step["f32_step_ms"]},
         {"name": "flash_attention_f32_d256", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "source": "src/repro_torch/csrc/flash_attention_tf32x3_d256.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:33",
-         "launches": (step["routes"]["cuda_cores"]
-                      + hyb["routes"]["cuda_cores"]),
-         "launches_distribution": dist["routes"]["cuda_cores"],
+         "launches": gemma["f32_launches"],
+         "launches_gemma_f32_step": gemma["f32_launches"],
+         "launches_distribution": dist["routes"]["tf32x3_d256"],
          "max_abs_err": errs["flash_f32_d256"],
-         "ms": flash256["kernel"], "plain_ms": flash256["plain"],
+         "max_abs_err_was": errs["flash_f32_d256_was"],
+         "ms": flash256["kernel"], "was_ms": flash256["was"],
+         "was_source": "src/repro_torch/csrc/flash_attention.cu",
+         "plain_ms": flash256["plain"],
          "bound_ms": flash256["bound"], "bound_by": flash256["bound_by"],
          "bound_ms_cuda_cores": flash256["bound_cuda_cores"],
          "library_ms": flash256["library"], "shape": list(FLASH_D256),
-         "tile": list(flash256["tile"]), "dtype": "float32", "causal": True,
-         "tensor_cores": False},
+         "tile": list(flash256["tile"]),
+         "tile_ms": {f"{t[0]}x{t[1]}": ms
+                     for t, ms in flash256["tile_ms"].items()},
+         "dtype": "float32", "causal": True, "tensor_cores": True,
+         "products": "3xTF32", "f32_loss_rel": gemma["f32_loss_rel"],
+         "f32_step_ms": gemma["f32_step_ms"]},
         {"name": "ssd_chunk_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd.cu",
          "replaces": "src/repro/kernels/ssd/ssd.py:36",

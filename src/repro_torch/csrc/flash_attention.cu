@@ -1,14 +1,14 @@
 // Flash attention forward (online softmax) on CUDA cores, float32.
 //
-// Replaces: src/repro/kernels/flash_attention/flash_attention.py:33,
-// _attn_kernel / flash_attention_pallas, for float32 operands at head dim
-// 256 (with the padding of ops.flash_attention, which the Python wrapper
-// keeps). f32 at head dims up to 128 takes the tensor-core kernel of
-// flash_attention_tf32x3.cu, whose 3xTF32 products keep f32 accuracy (a
-// block's shared memory holds its hi/lo copies up to D = 128 only); bf16
-// takes flash_attention_sm90.cu. This kernel stays compiled for every head
-// dim of its table: chip_smoke.py times it at D = 64 beside the kernel
-// that replaced it there.
+// Replaced, on no route: it was the port of
+// src/repro/kernels/flash_attention/flash_attention.py:33, _attn_kernel /
+// flash_attention_pallas, for float32 operands. f32 now takes the
+// tensor-core kernels, whose 3xTF32 products keep f32 accuracy:
+// flash_attention_tf32x3.cu at head dims up to 128 and
+// flash_attention_tf32x3_d256.cu at 256 (Q fed from registers); bf16 takes
+// flash_attention_sm90.cu. This kernel stays compiled for every head dim of
+// its table: chip_smoke.py and bench/flash_probe.py time it at D = 64 and
+// D = 256 beside the kernels that replaced it (was_ms).
 //
 // Computes, per (batch, query head), o = softmax(q k^T * sm_scale + mask) v
 // over (S, D) tiles: GQA (query head h reads kv head h / (H / Hkv)), a

@@ -3,9 +3,10 @@
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py:33,
 // _attn_kernel / flash_attention_pallas, for bfloat16 operands (with the
 // padding of ops.flash_attention, which the Python wrapper keeps). The
-// float32 forward has its own tensor-core kernel, flash_attention_tf32x3.cu
-// (3xTF32 products, f32-accurate), and D = 256 in f32 the CUDA-core kernel
-// of flash_attention.cu. The Hopper building blocks live in hopper.cuh.
+// float32 forward has its own tensor-core kernels (3xTF32 products,
+// f32-accurate), flash_attention_tf32x3.cu and, at D = 256,
+// flash_attention_tf32x3_d256.cu. The Hopper building blocks live in
+// hopper.cuh.
 //
 // Computes, per (batch, query head), o = softmax(q k^T * sm_scale + mask) v
 // over (S, D) tiles: GQA (query head h reads kv head h / (H / Hkv)), a

@@ -5,8 +5,8 @@
 // _attn_kernel / flash_attention_pallas, for float32 operands at head dims
 // 16, 32, 64, 80 and 128 (with the padding of ops.flash_attention, which
 // the Python wrapper keeps). bf16 operands take flash_attention_sm90.cu;
-// f32 at D = 256 stays on the CUDA-core kernel of flash_attention.cu (its
-// hi/lo copies would not fit the shared memory of a block).
+// f32 at D = 256 takes flash_attention_tf32x3_d256.cu, which feeds Q from
+// registers (Q's hi/lo copies would not fit a block's shared memory).
 //
 // Computes, per (batch, query head), o = softmax(q k^T * sm_scale + mask) v
 // over (S, D) tiles: GQA (query head h reads kv head h / (H / Hkv)), a
@@ -87,7 +87,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "tf32x3.cuh"
 
 
 namespace {
@@ -152,57 +152,16 @@ struct Shape {
   static_assert(kKVBytes % 1024 == 0, "tiles on the swizzle's 1024 bytes");
 };
 
-// Byte offset of byte b of row r in a tile of kRowBytes-byte rows (128 or
-// 64) laid out as TMA's and wgmma's swizzle of that width lays it (the tile
-// starts on a 1024-byte boundary): 16-byte units XORed with the row bits.
-template <int kRowBytes>
-__device__ __forceinline__ uint32_t swizzled(int r, int b) {
-  static_assert(kRowBytes == 128 || kRowBytes == 64, "swizzle width");
-  constexpr uint32_t mask = kRowBytes == 128 ? 0x380u : 0x180u;
-  const uint32_t off = static_cast<uint32_t>(r * kRowBytes + b);
-  return off ^ ((off & mask) >> 3);
-}
-
 // A shared-memory tile's wgmma descriptor, its rows kRowBytes wide (32
 // floats: 128, the 16-float tail: 64).
 template <int D>
 __device__ __forceinline__ uint64_t chunk_desc(int c, uint32_t addr) {
   return chunk_width(D, c) == 32 ? smem_desc<128>(addr) : smem_desc<64>(addr);
 }
-// The descriptor `bytes` further on: the address field counts 16 bytes and
-// shared memory stays below its 256 KiB range, so nothing carries out.
-__device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
-  return desc + (bytes >> 4);
-}
-
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// x = hi + lo: hi rounded to TF32 (to nearest, ties away from zero),
-// lo = x - hi exact, returned with 0x1000 added to its bits so that the
-// tensor cores, which read the top 19 bits of an operand and drop the
-// rest, see it rounded to nearest too (as ssd.cu's split). The operands
-// here are finite. (A truncated hi, what the tensor cores would read from
-// the raw tile, measured in bench/flash_probe.py: within the limits too.)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
-}
-__device__ __forceinline__ void split_tf32(float4 x, uint4& hi, uint4& lo) {
-  split_tf32(x.x, hi.x, lo.x);
-  split_tf32(x.y, hi.y, lo.y);
-  split_tf32(x.z, hi.z, lo.z);
-  split_tf32(x.w, hi.w, lo.w);
-}
 
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
                                          int scale_d);
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4],
-                                         uint64_t db, int scale_d);
 
 // D(64 x 32, f32) (+)= A(64 x 8) B(8 x 32), TF32, A and B from shared
 // memory (K-major); scale_d = 0 overwrites D.
@@ -244,128 +203,6 @@ __device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D(64 x 16, f32) (+)= A(64 x 8, TF32 registers) B(8 x 16), B from
-// shared memory (K-major); scale_d = 0 overwrites D.
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float* d,
-                                           const uint32_t (&a)[4],
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-// D(64 x 32, f32) (+)= A(64 x 8, TF32 registers) B(8 x 32), B from
-// shared memory (K-major); scale_d = 0 overwrites D.
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float* d,
-                                           const uint32_t (&a)[4],
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-// D(64 x 64, f32) (+)= A(64 x 8, TF32 registers) B(8 x 64), B from
-// shared memory (K-major); scale_d = 0 overwrites D.
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d,
-                                           const uint32_t (&a)[4],
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-// D(64 x 128, f32) (+)= A(64 x 8, TF32 registers) B(8 x 128), B from
-// shared memory (K-major); scale_d = 0 overwrites D.
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float* d,
-                                           const uint32_t (&a)[4],
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-// The producer warpgroup's own barrier (id 1; 0 is __syncthreads').
-template <int kProducerThreads>
-__device__ __forceinline__ void producer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kProducerThreads) : "memory");
-}
-// The two consumer warpgroups' turns at the tensor cores: barrier 2 + w is
-// warpgroup w's (w = 0, 1), which it waits on and the other passes.
-__device__ __forceinline__ void turn_wait(int w) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(2 + w) : "memory");
-}
-__device__ __forceinline__ void turn_pass(int w) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(3 - w) : "memory");
-}
-template <int N>
-__device__ __forceinline__ void set_max_regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void set_max_regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // O(64 x D) (+)= A(64 x 8, TF32 registers) B, V^T's k step at descriptor
@@ -697,7 +534,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // The compiled (head dim, physical q rows, physical kv rows) table: the one
 // list the launchers and the queries below are made from. The Python
 // wrapper's TF32X3_TILES must list exactly these. D = 128 takes kv 32 only
-// (its shared memory); D = 256 is not here (flash_attention.cu).
+// (its shared memory); D = 256 is flash_attention_tf32x3_d256.cu's.
 #define RT_FLASH_TF32X3_TILES(X)                                   \
   X(16, 64, 64) X(16, 128, 64) X(32, 64, 64) X(32, 128, 64)        \
   X(64, 64, 64) X(64, 128, 64) X(80, 64, 64) X(80, 128, 64)        \

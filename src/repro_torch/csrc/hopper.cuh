@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the tensor-core flash-attention kernels
-// (flash_attention_sm90.cu, bf16; flash_attention_tf32x3.cu, f32): shared
+// (flash_attention_sm90.cu, bf16; flash_attention_tf32x3.cu and
+// flash_attention_tf32x3_d256.cu, f32): shared
 // memory addresses and wgmma descriptors, mbarriers, TMA loads and their
 // tensor maps, wgmma fences, the quad reductions of the accumulator
 // fragment's rows, and what the two kernels share of flash attention: the

@@ -15,23 +15,25 @@ key of ``flash_attention.route_launches``:
   64, 80, 128), on the TF32 tensor cores with every product split into
   three TF32 products, which keeps f32 accuracy
   (``csrc/flash_attention_tf32x3.cu``);
-- ``"cuda_cores"``: float32 at any other head dim the CUDA-core kernel is
-  compiled for (D = 256, whose hi/lo copies would not fit a block's
-  shared memory; ``csrc/flash_attention.cu``).
+- ``"tf32x3_d256"``: float32 at D = 256 (:data:`TF32X3_D256_TILES`), on
+  the same 3xTF32 products with Q fed to ``wgmma`` from registers, since
+  Q's hi/lo copies would not fit a block's shared memory there
+  (``csrc/flash_attention_tf32x3_d256.cu``).
 
 A head dim no kernel of its dtype is compiled for raises; no route falls
-back to another. The JAX package has no backward kernel: its custom VJP
-recomputes through the dense reference, and so does
+back to another. The CUDA-core f32 kernel (``csrc/flash_attention.cu``),
+the design the 3xTF32 kernels replaced, stays compiled to be timed beside
+them and is on no route. The JAX package has no backward kernel: its
+custom VJP recomputes through the dense reference, and so does
 :class:`_FlashAttention` here.
 
 ``(bq, bk)`` is the tunable, as on the TPU, and keeps the TPU kernel's
 meaning: the granularity at which a kv block wholly outside the causal or
 window mask is skipped. Any positive pair is taken (every pair of
 ``model_step_space(quick=False)``, 64..512, and the block equal to S that
-the padding rule gives below S = 128); a non-positive one raises. On the
-tensor-core kernels it also selects the physical tile (:func:`physical_tile`
-over :data:`SM90_TILES` or :data:`TF32X3_TILES`); the CUDA-core kernel's
-tiles are fixed per head dim.
+the padding rule gives below S = 128); a non-positive one raises. It also
+selects the kernel's physical tile (:func:`physical_tile` over the route's
+table in :data:`ROUTE_TILES`).
 
 On CPU tensors :func:`flash_attention` runs the kernels' plain version
 (:func:`attention_ref` on the padded operands, padded keys masked) and
@@ -55,10 +57,10 @@ import torch.nn.functional as F
 from ...distributed.local import local_vjp, to_layout
 from .. import build, registry
 
-__all__ = ["OP", "SM90_TILES", "TF32X3_TILES", "attention_ref",
-           "bytes_moved", "flash_attention", "flops", "padded_blocks",
-           "physical_tile", "route", "sm90_smem_bytes", "smem_bytes",
-           "tf32x3_smem_bytes"]
+__all__ = ["OP", "ROUTE_TILES", "SM90_TILES", "TF32X3_D256_TILES",
+           "TF32X3_TILES", "attention_ref", "bytes_moved", "flash_attention",
+           "flops", "padded_blocks", "physical_tile", "route",
+           "sm90_smem_bytes", "smem_bytes", "tf32x3_smem_bytes"]
 
 NEG_INF = -1e30
 #: the tensor-core (bf16) kernel's compiled physical tiles, (q rows, kv
@@ -70,9 +72,17 @@ SM90_TILES = {**{d: ((64, 64), (64, 128), (128, 64), (128, 128))
 #: the f32 tensor-core (3xTF32) kernel's compiled physical tiles, (q rows,
 #: kv rows) per head dim: csrc/flash_attention_tf32x3.cu's
 #: RT_FLASH_TF32X3_TILES lists exactly these (D = 128 takes kv 32 only: its
-#: shared memory; D = 256 stays on the CUDA cores)
+#: shared memory)
 TF32X3_TILES = {**{d: ((64, 64), (128, 64)) for d in (16, 32, 64, 80)},
                 128: ((64, 32), (128, 32))}
+#: the f32 tensor-core kernel at head dim 256 (3xTF32, Q from registers):
+#: csrc/flash_attention_tf32x3_d256.cu's RT_FLASH_TF32X3_D256_TILES lists
+#: exactly these (one consumer warpgroup; the two-consumer (128, 16) tile
+#: measured slower and is built by bench/flash_probe.py alone)
+TF32X3_D256_TILES = {256: ((64, 32),)}
+#: each route's compiled physical tiles per head dim
+ROUTE_TILES = {"tensor_cores": SM90_TILES, "tf32x3": TF32X3_TILES,
+               "tf32x3_d256": TF32X3_D256_TILES}
 #: the physical tile's largest side
 _MAX_TILE = 128
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 7
@@ -98,10 +108,11 @@ def bytes_moved(q: torch.Tensor, k: torch.Tensor) -> float:
 
 
 def smem_bytes(head_dim: int) -> int:
-    """Dynamic shared memory one block of the f32 (CUDA-core) kernel takes
-    at this head dim, as the compiled library reports it (builds the
-    library). Raises for a head dim the kernel is not compiled for: the
-    library's tile list is the only list of its head dims."""
+    """Dynamic shared memory one block of the f32 CUDA-core kernel (the
+    replaced design, on no route) takes at this head dim, as the compiled
+    library reports it (builds the library). Raises for a head dim the
+    kernel is not compiled for: the library's tile list is the only list
+    of its head dims."""
     lib = build.library()
     lib.rt_flash_attention_smem_bytes.argtypes = [ctypes.c_int]
     lib.rt_flash_attention_smem_bytes.restype = ctypes.c_int64
@@ -128,11 +139,13 @@ def sm90_smem_bytes(head_dim: int, qt: int, kt: int) -> int:
 
 def tf32x3_smem_bytes(head_dim: int, qt: int, kt: int) -> int:
     """Dynamic shared memory one block of the f32 tensor-core (3xTF32)
-    kernel takes at this head dim and physical tile, as the compiled
-    library reports it (builds the library); raises outside the compiled
-    table."""
+    kernel of this head dim (D = 256: the ``tf32x3_d256`` one) takes at
+    this physical tile, as the compiled library reports it (builds the
+    library); raises outside the compiled tables."""
     lib = build.library()
-    fn = lib.rt_flash_attention_tf32x3_smem_bytes
+    fn = (lib.rt_flash_attention_tf32x3_d256_smem_bytes
+          if head_dim in TF32X3_D256_TILES
+          else lib.rt_flash_attention_tf32x3_smem_bytes)
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_int64
     n = fn(head_dim, qt, kt)
@@ -144,13 +157,13 @@ def tf32x3_smem_bytes(head_dim: int, qt: int, kt: int) -> int:
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that takes ``dtype`` at ``head_dim``: ``"tensor_cores"``
-    for bfloat16, ``"tf32x3"`` for float32 at a head dim of
-    :data:`TF32X3_TILES`, ``"cuda_cores"`` for float32 at any other (the
-    launch raises there if that kernel is not compiled for it either)."""
+    for bfloat16, ``"tf32x3_d256"`` for float32 at a head dim of
+    :data:`TF32X3_D256_TILES`, ``"tf32x3"`` for float32 at any other (the
+    launch raises where the route's table lacks the head dim)."""
     if dtype == torch.bfloat16:
         return "tensor_cores"
     if dtype == torch.float32:
-        return "tf32x3" if head_dim in TF32X3_TILES else "cuda_cores"
+        return "tf32x3_d256" if head_dim in TF32X3_D256_TILES else "tf32x3"
     raise TypeError(f"the flash kernels take float32 or bfloat16, not "
                     f"{dtype}")
 
@@ -242,21 +255,18 @@ def _launcher(dtype: torch.dtype, d: int, bq: int, bk: int):
     ``d`` for the logical block (bq, bk), and its route (:func:`route`);
     raises for a dtype or head dim no kernel is compiled for."""
     path = route(dtype, d)
-    if path == "tensor_cores":
-        if d not in SM90_TILES:
-            raise ValueError(f"no bf16 flash kernel for head dim {d}: "
-                             f"compiled for {sorted(SM90_TILES)}")
-        qt, kt = physical_tile(bq, bk, SM90_TILES[d])
-        name = f"rt_flash_attention_bf16_d{d}_q{qt}_k{kt}"
-    elif path == "tf32x3":
-        qt, kt = physical_tile(bq, bk, TF32X3_TILES[d])
-        name = f"rt_flash_attention_tf32x3_d{d}_q{qt}_k{kt}"
-    else:
-        name = f"rt_flash_attention_f32_d{d}"
+    bf16 = path == "tensor_cores"
+    tiles = ROUTE_TILES[path].get(d)
+    if tiles is None:
+        dims = sorted(SM90_TILES if bf16 else
+                      {**TF32X3_TILES, **TF32X3_D256_TILES})
+        raise ValueError(f"no {'bf16' if bf16 else 'f32'} flash kernel for "
+                         f"head dim {d}: compiled for {dims}")
+    qt, kt = physical_tile(bq, bk, tiles)
+    name = (f"rt_flash_attention_{'bf16' if bf16 else 'tf32x3'}_d{d}_q{qt}"
+            f"_k{kt}")
     fn = _LAUNCHERS.get(name)
     if fn is None:
-        if path == "cuda_cores":
-            smem_bytes(d)                  # raises for an uncompiled dim
         fn = _LAUNCHERS[name] = build.kernel_fn(name, _ARGTYPES)
     return fn, path
 
@@ -476,7 +486,6 @@ def _resolve(args: Sequence[Any], bq: int = 512, bk: int = 512, **static):
 
 flash_attention.launches = 0
 #: launches per kernel: "tensor_cores" (bf16), "tf32x3" (f32, D <= 128) and
-#: "cuda_cores" (f32, D = 256)
-flash_attention.route_launches = {"tensor_cores": 0, "tf32x3": 0,
-                                  "cuda_cores": 0}
+#: "tf32x3_d256" (f32, D = 256)
+flash_attention.route_launches = {route: 0 for route in ROUTE_TILES}
 flash_attention.resolve = _resolve

@@ -15,8 +15,9 @@ import torch
 from repro.kernels.flash_attention import attention_ref as jax_attention_ref
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.flash_attention import (SM90_TILES, TF32X3_TILES,
-                                                 attention_ref,
+from repro_torch.kernels.flash_attention import (ROUTE_TILES, SM90_TILES,
+                                                 TF32X3_D256_TILES,
+                                                 TF32X3_TILES, attention_ref,
                                                  flash_attention, flops,
                                                  padded_blocks, physical_tile,
                                                  route)
@@ -84,6 +85,20 @@ def test_non_causal_padding_masks_the_padded_keys(s):
     _close(got, attention_ref(tq, tk, tv, causal=False), F32_TOL)
     # from S = 128 up the case pads; below it the block is S itself
     assert (padded_blocks(s, 64, 64)[2] > s) == (s >= 128)
+
+
+@pytest.mark.parametrize("window", [None, 64])
+def test_head_dim_256_mqa_matches_reference(window):
+    """gemma-2b's attention shape cut to size: head dim 256, one kv head
+    for four query heads (the f32 D = 256 route's operands), causal, with
+    and without a window, padded from S = 160."""
+    (tq, tk, tv), (jq, jk, jv) = _both(_qkv(256 + (window or 0), 1, 4, 1,
+                                            160, 256))
+    got = flash_attention(tq, tk, tv, causal=True, window=window, bq=64,
+                          bk=64)
+    want = jax_flash(jq, jk, jv, causal=True, window=window, bq=64, bk=64,
+                     interpret=True)
+    _close(got, want, F32_TOL)
 
 
 def test_bf16_matches_reference():
@@ -170,6 +185,10 @@ QUAD = ((64, 64), (64, 128), (128, 64), (128, 128))
     (128, 128, ((64, 64), (128, 64)), (128, 64)),   # D = 256: kv 64 only
     (512, 512, ((64, 64), (128, 64)), (128, 64)),
     (64, 512, ((64, 64), (128, 64)), (64, 64)),
+    (64, 64, ((64, 32), (128, 16)), (64, 32)),
+    (128, 64, ((64, 32), (128, 16)), (128, 16)),    # equal areas: more q
+    (128, 128, ((64, 32),), (64, 32)),              # f32 D = 256
+    (32, 16, ((64, 32),), (64, 32)),
 ])
 def test_physical_tile_rule(bq, bk, tiles, want):
     assert physical_tile(bq, bk, tiles) == want
@@ -223,6 +242,17 @@ def test_sm90_tile_table_matches_the_cuda_source():
                              for qt, kt in tiles}
     assert "RT_FLASH_TF32X3_TILES(RT_FLASH_TF32X3)" in tf32x3
     assert "rt_flash_attention_tf32x3_d##D##_q##QT##_k##KT" in tf32x3
+    # and the D = 256 3xTF32 kernel's, under the same launcher names
+    d256 = (build.CSRC / "flash_attention_tf32x3_d256.cu").read_text()
+    compiled = _compiled_tiles("flash_attention_tf32x3_d256.cu",
+                               "RT_FLASH_TF32X3_D256_TILES")
+    assert len(compiled) == len(set(compiled))
+    assert set(compiled) == {(d, qt, kt)
+                             for d, tiles in TF32X3_D256_TILES.items()
+                             for qt, kt in tiles}
+    assert "RT_FLASH_TF32X3_D256_TILES(RT_FLASH_TF32X3_D256)" in d256
+    assert "rt_flash_attention_tf32x3_d##D##_q##QT##_k##KT" in d256
+    assert not set(TF32X3_TILES) & set(TF32X3_D256_TILES)
     # every head dim of the f32 CUDA-core kernel has a bf16 kernel too, and
     # every 3xTF32 head dim a CUDA-core one (its replaced design, timed)
     f32 = (build.CSRC / "flash_attention.cu").read_text()
@@ -230,35 +260,40 @@ def test_sm90_tile_table_matches_the_cuda_source():
     f32_table = f32_table[:f32_table.index("\n\n")]
     f32_dims = {int(d) for d in re.findall(r"X\((\d+),", f32_table)}
     assert f32_dims == set(SM90_TILES)
-    assert set(TF32X3_TILES) < f32_dims
+    assert set(TF32X3_TILES) | set(TF32X3_D256_TILES) == f32_dims
     assert "RT_FLASH_TILES(RT_FLASH_F32)" in f32 and "BF16" not in f32
 
 
-@pytest.mark.parametrize("d", sorted(TF32X3_TILES))
+@pytest.mark.parametrize("d", sorted(TF32X3_TILES)
+                         + sorted(TF32X3_D256_TILES))
 def test_quick_space_runs_every_tf32x3_tile(d):
     """The model-step space's blocks reach every compiled 3xTF32 tile of
-    the head dim, as chip_smoke.py requires of the card run."""
+    the head dim (D = 256: of its own kernel), as chip_smoke.py requires
+    of the card run."""
     from repro_torch.bench.common import model_step_space
     pairs = {(c["flash_block_q"], c["flash_block_k"])
              for c in model_step_space(True).configs()}
-    assert {physical_tile(bq, bk, TF32X3_TILES[d]) for bq, bk in pairs} == \
-        set(TF32X3_TILES[d])
+    tiles = ROUTE_TILES[route(torch.float32, d)][d]
+    assert {physical_tile(bq, bk, tiles) for bq, bk in pairs} == set(tiles)
 
 
 def test_route_rule_by_dtype_and_head_dim():
     """bf16 takes the tensor-core kernel at every head dim; f32 the 3xTF32
-    one up to D = 128 and the CUDA-core one beyond; no other dtype has a
-    kernel. Decided without a card."""
+    one up to D = 128 and its D = 256 kernel at 256; no other dtype has a
+    kernel, and no route is left to the CUDA cores. Decided without a
+    card."""
     assert sorted(TF32X3_TILES) == [16, 32, 64, 80, 128]
+    assert sorted(TF32X3_D256_TILES) == [256]
     for d in (16, 32, 64, 80, 128, 256):
         assert route(torch.bfloat16, d) == "tensor_cores"
         assert route(torch.float32, d) == \
-            ("cuda_cores" if d == 256 else "tf32x3")
-    assert route(torch.float32, 48) == "cuda_cores"  # raises at launch
+            ("tf32x3_d256" if d == 256 else "tf32x3")
+    assert route(torch.float32, 48) == "tf32x3"  # raises at launch
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         route(torch.float16, 64)
     assert set(flash_attention.route_launches) == {"tensor_cores", "tf32x3",
-                                                   "cuda_cores"}
+                                                   "tf32x3_d256"}
+    assert set(ROUTE_TILES) == set(flash_attention.route_launches)
 
 
 def test_cpu_calls_count_no_route():
@@ -267,7 +302,7 @@ def test_cpu_calls_count_no_route():
     flash_attention(tq, tk, tv, bq=64, bk=64)
     flash_attention(tq.float(), tk.float(), tv.float(), bq=64, bk=64)
     assert flash_attention.route_launches == {"tensor_cores": 0,
-                                              "tf32x3": 0, "cuda_cores": 0}
+                                              "tf32x3": 0, "tf32x3_d256": 0}
 
 
 def _probe_variants():
@@ -288,4 +323,27 @@ def test_flash_probe_edits_still_match_the_kernel_source(variant):
     assert "X(16, 64, 64)" not in edited
     assert (edited != shipped) == (variant != "shipped")
     for old, new in EDITS[variant]:
+        assert old not in edited and (not new or new in edited)
+
+
+def _probe_d256_variants():
+    from repro_torch.bench.flash_probe import EDITS_D256
+    return sorted(EDITS_D256)
+
+
+@pytest.mark.parametrize("variant", _probe_d256_variants())
+def test_flash_probe_d256_edits_still_match_the_kernel_source(variant):
+    """Each ``--head-dim 256`` variant of ``bench/flash_probe.py`` is an
+    edit of ``csrc/flash_attention_tf32x3_d256.cu`` that must still find
+    its text; every variant builds both designs' tiles, the shipped one
+    among them."""
+    from repro_torch.bench.flash_probe import (EDITS_D256, TILES_D256,
+                                               variant_source)
+    shipped = variant_source("shipped", 256)
+    edited = variant_source(variant, 256)
+    assert ("X(256, 64, 32) X(256, 128, 16)\n\n" in edited
+            and set(TILES_D256) == {(64, 32), (128, 16)})
+    assert set(TF32X3_D256_TILES[256]) <= set(TILES_D256)
+    assert (edited != shipped) == (variant != "shipped")
+    for old, new in EDITS_D256[variant]:
         assert old not in edited and (not new or new in edited)

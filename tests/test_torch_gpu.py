@@ -112,10 +112,11 @@ def test_flash_kernel_matches_plain_on_card(card, case, dtype):
     tol = dict(rtol=3e-2, atol=3e-2) if dtype == torch.bfloat16 else \
         dict(rtol=2e-5, atol=2e-5)
     # bf16 on the tensor cores; f32 on the 3xTF32 kernel up to D = 128
-    # (both of its tiles are among these blocks), on the CUDA cores at 256
+    # and on its D = 256 kernel (Q from registers) at 256 (every tile of
+    # both is among these blocks)
     path = route(dtype, d)
     assert path == ("tensor_cores" if dtype == torch.bfloat16 else
-                    "cuda_cores" if d == 256 else "tf32x3")
+                    "tf32x3_d256" if d == 256 else "tf32x3")
     for bq in (64, 128, 256, 512):
         for bk in (64, 128, 256, 512):
             before = flash_attention.launches
@@ -137,19 +138,21 @@ def test_flash_kernel_matches_plain_on_card(card, case, dtype):
 def test_flash_tensor_core_kernel_every_tile_on_card(card, case, dtype):
     """The tensor-core kernels at every compiled (head dim, physical tile),
     forced by (bq, bk) = the tile, on padded, windowed and GQA cases: bf16
-    (SM90_TILES) and f32 with 3xTF32 products (TF32X3_TILES)."""
-    from repro_torch.kernels.flash_attention import (SM90_TILES,
-                                                     TF32X3_TILES,
+    (SM90_TILES) and f32 with 3xTF32 products (TF32X3_TILES, and
+    TF32X3_D256_TILES on its own route)."""
+    from repro_torch.kernels.flash_attention import (ROUTE_TILES,
                                                      attention_ref,
                                                      flash_attention,
-                                                     physical_tile)
+                                                     physical_tile, route)
     b, hq, hkv, s, causal, window = case
     gen = torch.Generator().manual_seed(s)
-    table, path, tol = (
-        (SM90_TILES, "tensor_cores", dict(rtol=3e-2, atol=3e-2))
-        if dtype == torch.bfloat16 else
-        (TF32X3_TILES, "tf32x3", dict(rtol=2e-5, atol=2e-5)))
-    for d, tiles in table.items():
+    tol = (dict(rtol=3e-2, atol=3e-2) if dtype == torch.bfloat16 else
+           dict(rtol=2e-5, atol=2e-5))
+    routes = (("tensor_cores",) if dtype == torch.bfloat16 else
+              ("tf32x3", "tf32x3_d256"))
+    for d, tiles, path in [(d, tiles, r) for r in routes
+                           for d, tiles in ROUTE_TILES[r].items()]:
+        assert route(dtype, d) == path
         q = _randn(gen, b, hq, s, d, dtype=dtype, device=card)
         k = _randn(gen, b, hkv, s, d, dtype=dtype, device=card)
         v = _randn(gen, b, hkv, s, d, dtype=dtype, device=card)
