@@ -16,13 +16,20 @@ run when it fails:
                that spill, the dynamic shared memory of the GEMM and
                flash blocks (the CUDA-core kernel at each head dim, the
                bf16 and 3xTF32 tensor-core kernels at every tile, the
-               latter, D = 256's too, with its registers and spills), and
-               each of the four SSD kernels' threads, dynamic shared
-               memory and blocks per SM; the library's bf16, tf32x3 and
-               tf32x3_d256 flash tile tables must be the wrapper's.
+               latter, D = 256's too, with its registers and spills; the
+               bf16 tensor-core GEMM at every tile with its registers and
+               spills, which must not spill or serialise its wgmma, ptxas
+               C7520), and each of the four SSD kernels' threads, dynamic
+               shared memory and blocks per SM; the library's bf16, tf32x3
+               and tf32x3_d256 flash tile tables and its bf16 GEMM table
+               (and each tile's shared memory) must be the wrapper's.
 3. checks    — each kernel against its plain PyTorch version on the card:
                GEMM at every tile of the table at 4096x2048x6144 f32 and
-               at 300x450x200 and 1024x256x128 in f32 and bf16; TRIAD at
+               at 300x450x200 and 1024x256x128 in f32; the bf16
+               tensor-core GEMM at every tile of its table at those three
+               shapes, at a ragged 1000x1000x1000 and at 333x250x77
+               (unaligned rows), every launch on the tensor-core route;
+               TRIAD at
                n in {1024, 2**20 + 17, 2**26} in f32 and bf16 (plus an
                unaligned view that takes the scalar path), and at every
                length of the ``triad --full`` ladder in f32; flash
@@ -45,7 +52,11 @@ run when it fails:
 4. timing    — CUDA-event times of each kernel at the main path's shapes
                (each checked against its plain version on the same
                tensors first) beside its bound, its plain version and one
-               PyTorch call that computes the same function; TRIAD also
+               PyTorch call that computes the same function; the bf16
+               GEMM at 4096x2048x6144 at every tensor-core tile, beside
+               its bound at 989 TFLOP/s, torch.matmul and the CUDA-core
+               bf16 instantiation it replaced at its best tile (checked
+               too); TRIAD also
                replayed from a CUDA graph (device time without the host's
                dispatch); the host cost of one tuner sample at
                n = 1024, split into the wrapper's dispatch and the
@@ -163,7 +174,10 @@ run when it fails:
                tile search): every table non-empty and finite, every
                technique row of ``optimizations`` present, C+I+O taking
                fewer samples than Default, the tile search's winner
-               matching ``matmul_ref``; the harness self-benchmark, whose
+               matching ``matmul_ref``, and the bf16 tile search's (the
+               tensor-core GEMM over its table at 4096x2048x6144: some
+               launches, all on the tensor-core route) matching it within
+               3e-2; the harness self-benchmark, whose
                timed-vs-steady agreement at 2048^3 must lie within its 2%
                (its non-measured ratios are printed, not checked); then
                ``python -m repro_torch.tune --benchmark dgemm`` over the
@@ -263,12 +277,16 @@ run when it fails:
 Each phase prints its seconds.
 
 The last three lines are the card line, one ``{"kernels": [...]}`` JSON
-object (flash attention split by dtype: ``flash_attention`` the bf16
+object (the GEMM split by dtype: ``matmul`` the f32 CUDA-core kernel,
+``matmul_bf16`` the tensor-core kernel, with the CUDA-core bf16
+instantiation it replaced as ``was_ms`` and phase 11's bf16 tile search
+as its launches; flash attention split by dtype: ``flash_attention`` the bf16
 tensor-core kernel, ``flash_attention_f32`` the 3xTF32 one, with the
 CUDA-core kernel it replaced as ``was_ms``, and
 ``flash_attention_f32_d256`` the 3xTF32 kernel at D = 256, the same
 CUDA-core kernel its ``was_ms``; ``launches`` counts the main path's
-launches, phase 5's for matmul and triad, phases 6, 9 and 14's for bf16
+launches, phase 5's for matmul (f32) and triad, phase 11's for
+matmul_bf16, phases 6, 9 and 14's for bf16
 flash (phase 14's: ``launches_model_stack``), phase 6's granite f32 step
 for ``flash_attention_f32`` and phase 6b's gemma f32 step for
 ``flash_attention_f32_d256``, phases 8 and 9's for the SSD chunk scan
@@ -300,6 +318,11 @@ WORK = REPO / "build" / "chip_smoke"
 
 GEMM_MAIN = (4096, 2048, 6144)              # (m, n, k) of the tile search
 GEMM_SMALL = ((300, 450, 200), (1024, 256, 128))
+#: the bf16 tensor-core GEMM's edge cases, each at every tile of its table:
+#: m, n and k multiples of no tile (rows still 16-byte multiples), and rows
+#: that are not (A's and B's rows copied into rounded-up strides)
+GEMM_BF16_EDGES = {"ragged": (1000, 1000, 1000),
+                   "unaligned stride": (333, 250, 77)}
 TRIAD_CHECK_N = (1024, 2 ** 20 + 17, 2 ** 26)
 TRIAD_SIZES = {"cache": 1 << 22, "dram": 1 << 28}  # roofline-model bytes
 F32_PEAK = 67e12                           # H100 SXM data sheet, 700 W
@@ -1276,6 +1299,129 @@ def cuda_core_flash(d: int):
     return run
 
 
+def cuda_core_gemm_bf16(tile: tuple[int, int, int]):
+    """The CUDA-core GEMM's bf16 launcher at ``tile`` (a tile of
+    ``TILES``) as a function of (m, k) and (k, n) bf16 operands on the
+    card: the design the tensor-core kernel replaced, timed beside it
+    (``was_ms``) and on no path of the port. Bypasses the wrapper, so it
+    counts no launch."""
+    import torch
+    from repro_torch.kernels import build
+    fn = build.kernel_fn(f"rt_matmul_bf16_{tile[0]}x{tile[1]}x{tile[2]}", (
+        (ctypes.c_void_p,) * 3 + (ctypes.c_int64,) * 3
+        + (ctypes.c_int, ctypes.c_void_p)))
+
+    def run(a, b):
+        m, k = a.shape
+        n = b.shape[1]
+        c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+        rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
+                a.device.index, build.current_stream_ptr(a.device.index))
+        if rc != 0:
+            fail(f"the CUDA-core bf16 GEMM failed to launch: CUDA error {rc}")
+        return c
+    return run
+
+
+def bf16_gemm(a, b, tile):
+    """The GEMM wrapper's launch on bf16 operands at ``tile``, which must
+    count one launch, on the tensor-core route and none on the CUDA-core
+    one."""
+    import torch
+    from repro_torch.kernels.matmul import matmul
+    before, routes = matmul.launches, dict(matmul.route_launches)
+    got = matmul(a, b, bm=tile[0], bn=tile[1], bk=tile[2])
+    torch.cuda.synchronize()
+    if matmul.launches != before + 1 or \
+            matmul.route_launches["tensor_cores"] != \
+            routes["tensor_cores"] + 1:
+        fail(f"matmul bf16 {tile}: no launch on the tensor-core route")
+    if matmul.route_launches["cuda_cores"] != routes["cuda_cores"]:
+        fail(f"matmul bf16 {tile}: a launch on the CUDA-core route")
+    return got
+
+
+def bf16_gemm_checks(randn) -> tuple[int, float]:
+    """Phase 3's bf16 GEMM checks: the tensor-core kernel against
+    ``matmul_ref`` at every tile of ``BF16_TILES`` at GEMM_MAIN, at
+    GEMM_SMALL and at GEMM_BF16_EDGES, every launch on the tensor-core
+    route. Returns the checks made and the largest error."""
+    import torch
+    from repro_torch.kernels.matmul import BF16_TILES, matmul_ref
+    shapes = [("main", GEMM_MAIN)] + [("small", s) for s in GEMM_SMALL] \
+        + list(GEMM_BF16_EDGES.items())
+    n_checks, err = 0, 0.0
+    for label, (m, n, k) in shapes:
+        a = randn(m, k, dtype=torch.bfloat16)
+        b = randn(k, n, dtype=torch.bfloat16)
+        want = matmul_ref(a, b)
+        worst = 0.0
+        for tile in BF16_TILES:
+            worst = max(worst, check_close(
+                f"matmul {m}x{n}x{k} bf16 tile {tile}", bf16_gemm(a, b, tile),
+                want, gemm_tol(torch.bfloat16, k)))
+            n_checks += 1
+        err = max(err, worst)
+        print(f"matmul {m}x{n}x{k} bf16 ({label}): {len(BF16_TILES)} "
+              f"tensor-core tiles ok, max abs err {worst:.3e} (tol "
+              f"{gemm_tol(torch.bfloat16, k)})")
+    return n_checks, err
+
+
+def bf16_gemm_times(randn) -> dict:
+    """Phase 4's bf16 GEMM at GEMM_MAIN: the tensor-core kernel at every
+    tile of ``BF16_TILES`` (each checked against ``matmul_ref`` first),
+    beside its bound, its plain version, ``torch.matmul`` on the same
+    operands and the CUDA-core bf16 instantiation it replaced at every
+    tile of ``TILES`` (its best checked too)."""
+    import torch
+    from repro_torch.kernels.matmul import (BF16_TILES, TILES, matmul,
+                                            matmul_ref)
+    m, n, k = GEMM_MAIN
+    a = randn(m, k, dtype=torch.bfloat16)
+    b = randn(k, n, dtype=torch.bfloat16)
+    tol = gemm_tol(torch.bfloat16, k)
+    want = matmul_ref(a, b)
+    flops = 2.0 * m * n * k
+    bound_ops = flops / BF16_PEAK * 1e3
+    bound_bytes = 2.0 * (m * k + k * n + m * n) / HBM_PEAK * 1e3
+    tile_ms, err = {}, 0.0
+    cuda_cores = matmul.route_launches["cuda_cores"]
+    for tile in BF16_TILES:
+        err = max(err, check_close(f"matmul bf16 timed tile {tile}",
+                                   bf16_gemm(a, b, tile), want, tol))
+        tile_ms[tile] = cuda_ms(
+            lambda t=tile: matmul(a, b, bm=t[0], bn=t[1], bk=t[2]), iters=20)
+        print(f"matmul bf16 tile {tile}: {tile_ms[tile]:.4f} ms  "
+              f"{flops / tile_ms[tile] / 1e9:.2f} TFLOP/s")
+    if matmul.route_launches["cuda_cores"] != cuda_cores:
+        fail("the bf16 GEMM timing launched on the CUDA-core route")
+    best = min(tile_ms, key=tile_ms.get)
+    was_ms = {}
+    for tile in TILES:
+        run = cuda_core_gemm_bf16(tile)
+        was_ms[tile] = cuda_ms(lambda r=run: r(a, b), iters=5, warmup=1)
+    was_tile = min(was_ms, key=was_ms.get)
+    was_err = check_close(f"matmul bf16 CUDA-core tile {was_tile}",
+                          cuda_core_gemm_bf16(was_tile)(a, b), want, tol)
+    plain = cuda_ms(lambda: matmul_ref(a, b), iters=10)
+    library = cuda_ms(lambda: torch.matmul(a, b), iters=20)
+    ms = tile_ms[best]
+    print(f"matmul {m}x{n}x{k} bf16: tensor-core kernel {ms:.4f} ms (tile "
+          f"{best}, {flops / ms / 1e9:.2f} TFLOP/s, {bound_ops / ms:.1%} of "
+          f"its bound) | bound {max(bound_ops, bound_bytes):.4f} ms (2mnk / "
+          f"989 TFLOP/s; bytes {bound_bytes:.4f}) | plain {plain:.4f} ms | "
+          f"torch.matmul {library:.4f} ms (kernel {ms / library:.3f}x) | was "
+          f"{was_ms[was_tile]:.4f} ms (CUDA cores, tile {was_tile}, max abs "
+          f"err {was_err:.3e}; {was_ms[was_tile] / ms:.2f}x)")
+    return {"ms": ms, "tile": best, "tile_ms": tile_ms, "err": err,
+            "plain": plain, "library": library,
+            "bound": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+            "was": was_ms[was_tile], "was_tile": was_tile,
+            "was_err": was_err}
+
+
 def serving_path() -> dict:
     """mamba2-130m at full width and depth: one prefill of a batch of
     SERVING["batch"] prompts of SERVING["seq"] tokens through
@@ -2127,6 +2273,7 @@ def paper_tables_path() -> dict:
     kernels.reset_launch_counts()
     res = bench_run.run_benches(PAPER_BENCHES, quick=True, device="cuda")
     launches = kernels.launch_counts()
+    routes = dict(kernels.matmul.route_launches)
 
     peak = res["matmul_peak"]
     finite_rows("matmul_peak", peak["rows"], ("gflops",))
@@ -2154,6 +2301,14 @@ def paper_tables_path() -> dict:
     tile = res["kernel_autotune"]
     if not math.isfinite(tile["err"]) or tile["trials"] < 1:
         fail(f"kernel_autotune: {tile}")
+    tile16 = tile["bf16"]
+    if not math.isfinite(tile16["err"]) or tile16["trials"] < 1:
+        fail(f"kernel_autotune bf16: {tile16}")
+    if tile16["launches"]["tensor_cores"] == 0 or \
+            tile16["launches"]["cuda_cores"] != 0:
+        fail(f"the bf16 tile search's GEMM launches by route "
+             f"{tile16['launches']}: want some on the tensor cores and none "
+             f"on the CUDA cores")
     for key in ("triad", "matmul"):
         if launches[key] == 0:
             fail(f"the paper benches never launched the {key} kernel")
@@ -2175,6 +2330,10 @@ def paper_tables_path() -> dict:
     print(f"  kernel_autotune: {tile['best']} at {tile['score']:.1f} GFLOP/s "
           f"over {tile['trials']} tiles, max err vs matmul_ref "
           f"{tile['err']:.2e}")
+    print(f"  kernel_autotune bf16: {tile16['best']} at "
+          f"{tile16['score']:.1f} GFLOP/s over {tile16['trials']} tiles, max "
+          f"err vs matmul_ref {tile16['err']:.2e} (rtol/atol 3e-2); GEMM "
+          f"launches by route {tile16['launches']}")
 
     print("$ repro_torch.bench.harness", flush=True)
     out = WORK / "harness" / "harness.json"
@@ -2221,8 +2380,8 @@ def paper_tables_path() -> dict:
                           f"session's {best['serial']:.1f}")
     if misses:
         fail("; ".join(misses))
-    return {"benches": res, "launches": launches, "harness": doc,
-            "backends": best}
+    return {"benches": res, "launches": launches, "routes": routes,
+            "harness": doc, "backends": best}
 
 
 def progress_lines(out: str) -> list[tuple[str, str]]:
@@ -3672,7 +3831,8 @@ def main() -> int:
     from repro_torch.bench import roofline_model
     from repro_torch.bench.common import triad_length, triad_sizes
     from repro_torch.kernels import build
-    from repro_torch.kernels.matmul import TILES, matmul, matmul_ref
+    from repro_torch.kernels.matmul import (BF16_TILES, TILES, matmul,
+                                            matmul_ref)
     from repro_torch.kernels.matmul import smem_bytes as gemm_smem_bytes
     from repro_torch.kernels.flash_attention import (SM90_TILES,
                                                      TF32X3_D256_TILES,
@@ -3760,6 +3920,32 @@ def main() -> int:
             f"{qt}x{kt} {sm90_smem_bytes(d, qt, kt)}" for qt, kt in tiles))
     print("  matmul f32: dynamic shared memory per block " + ", ".join(
         f"{'x'.join(map(str, t))} {gemm_smem_bytes(*t)}" for t in TILES))
+    table = (ctypes.c_int * 300)()
+    n_tiles = lib.rt_matmul_sm90_tiles(table, 100)
+    if [tuple(table[3 * i:3 * i + 3]) for i in range(n_tiles)] != \
+            list(BF16_TILES):
+        fail("the library's bf16 GEMM tiles are not the wrapper's BF16_TILES")
+    lib.rt_matmul_sm90_smem_bytes.restype = ctypes.c_int64
+    sm90_bad = [line.strip() for line in text.splitlines()
+                if "C7520" in line and "matmul_sm90" in line] \
+        if log.exists() else ["no build log"]
+    for t in BF16_TILES:
+        smem = lib.rt_matmul_sm90_smem_bytes(*t)
+        if smem != gemm_smem_bytes(*t, torch.bfloat16):
+            fail(f"matmul bf16 {t}: the library asks {smem} bytes of shared "
+                 f"memory, the wrapper's formula "
+                 f"{gemm_smem_bytes(*t, torch.bfloat16)}")
+        label = f"matmul_sm90_kernel<bf16,{t[0]},{t[1]},{t[2]}>: "
+        rows = [row.split(label, 1)[1] for row in ptxas_rows if label in row]
+        sm90_bad += [f"{label}{row}" for row in rows
+                     if ", 0 bytes spill stores" not in row]
+        if not rows:
+            sm90_bad.append(f"{label}not in the build log")
+        print(f"  matmul bf16 tensor cores {'x'.join(map(str, t))}: {smem} "
+              f"bytes dynamic shared memory per block; " + "; ".join(rows))
+    if sm90_bad:
+        fail(f"the bf16 tensor-core GEMM spills or has serialised wgmma "
+             f"(C7520): {sm90_bad}")
     for name, info in ssd_kernel_info().items():
         rows = [row for row in ptxas_rows if row.startswith(name + "<")]
         print(f"  {name}: {info['threads']} threads, {info['smem_bytes']} "
@@ -3778,7 +3964,7 @@ def main() -> int:
 
     errs = {"matmul": 0.0, "triad": 0.0}
     n_checks = {"matmul": 0, "triad": 0, "flash_attention": 0,
-                "ssd_chunk_scan": 0}
+                "ssd_chunk_scan": 0}  # and "matmul_bf16" below
     m, n, k = GEMM_MAIN
     a, b = randn(m, k), randn(k, n)
     want = matmul_ref(a, b)
@@ -3796,24 +3982,23 @@ def main() -> int:
           f"{errs['matmul']:.3e} (tol {gemm_tol(torch.float32, k)})")
     del a, b, want, got
     for (m_, n_, k_) in GEMM_SMALL:
-        for dtype in (torch.float32, torch.bfloat16):
-            a, b = randn(m_, k_, dtype=dtype), randn(k_, n_, dtype=dtype)
-            want = matmul_ref(a, b)
-            worst = 0.0
-            for tile in TILES:
-                before = matmul.launches
-                got = matmul(a, b, bm=tile[0], bn=tile[1], bk=tile[2])
-                torch.cuda.synchronize()
-                if matmul.launches != before + 1:
-                    fail(f"matmul {tile}: launch counter did not move")
-                worst = max(worst, check_close(
-                    f"matmul {m_}x{n_}x{k_} {dtype} tile {tile}", got, want,
-                    gemm_tol(dtype, k_)))
-                n_checks["matmul"] += 1
-            if dtype == torch.float32:
-                errs["matmul"] = max(errs["matmul"], worst)
-            print(f"matmul {m_}x{n_}x{k_} {dtype}: {len(TILES)} tiles ok, "
-                  f"max abs err {worst:.3e}")
+        a, b = randn(m_, k_), randn(k_, n_)
+        want = matmul_ref(a, b)
+        worst = 0.0
+        for tile in TILES:
+            before = matmul.launches
+            got = matmul(a, b, bm=tile[0], bn=tile[1], bk=tile[2])
+            torch.cuda.synchronize()
+            if matmul.launches != before + 1:
+                fail(f"matmul {tile}: launch counter did not move")
+            worst = max(worst, check_close(
+                f"matmul {m_}x{n_}x{k_} f32 tile {tile}", got, want,
+                gemm_tol(torch.float32, k_)))
+            n_checks["matmul"] += 1
+        errs["matmul"] = max(errs["matmul"], worst)
+        print(f"matmul {m_}x{n_}x{k_} f32: {len(TILES)} tiles ok, max abs "
+              f"err {worst:.3e}")
+    n_checks["matmul_bf16"], errs["matmul_bf16"] = bf16_gemm_checks(randn)
     for n_ in TRIAD_CHECK_N:
         for dtype in (torch.float32, torch.bfloat16):
             a, b = randn(n_ + 1, dtype=dtype), randn(n_ + 1, dtype=dtype)
@@ -3896,6 +4081,8 @@ def main() -> int:
           f"{gemm_plain_ms:.4f} ms | torch.matmul (TF32 off) "
           f"{gemm_lib_ms:.4f} ms")
     del a, b
+    gemm16 = bf16_gemm_times(randn)
+    torch.cuda.empty_cache()
 
     triad_ms = {}
     for label, n_bytes in TRIAD_SIZES.items():
@@ -4294,7 +4481,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul/matmul.py:27",
          "launches": launches["matmul"],
-         "launches_paper_tables": tables["launches"]["matmul"],
+         "launches_paper_tables": tables["routes"]["cuda_cores"],
          "launches_history_search": search["launches"],
          "launches_observability": (
              observe["tune_launches"]["gemm_tiled"]["matmul"]),
@@ -4305,6 +4492,27 @@ def main() -> int:
          "library_ms": gemm_lib_ms, "checks_passed": n_checks["matmul"],
          "shape": list(GEMM_MAIN), "tile": list(best_tile),
          "dtype": "float32"},
+        {"name": "matmul_bf16", "route": "cuda",
+         "source": "src/repro_torch/csrc/matmul_sm90.cu",
+         "replaces": "src/repro/kernels/matmul/matmul.py:27",
+         "launches": tables["benches"]["kernel_autotune"]["bf16"][
+             "launches"]["tensor_cores"],
+         "launches_paper_tables": tables["routes"]["tensor_cores"],
+         "launches_cuda_cores": tables["benches"]["kernel_autotune"][
+             "bf16"]["launches"]["cuda_cores"],
+         "max_abs_err": max(errs["matmul_bf16"], gemm16["err"]),
+         "max_abs_err_was": gemm16["was_err"],
+         "ms": gemm16["ms"], "was_ms": gemm16["was"],
+         "was_source": "src/repro_torch/csrc/matmul.cu",
+         "was_tile": list(gemm16["was_tile"]),
+         "plain_ms": gemm16["plain"], "bound_ms": gemm16["bound"],
+         "bound_by": gemm16["bound_by"], "library_ms": gemm16["library"],
+         "checks_passed": n_checks["matmul_bf16"],
+         "shape": list(GEMM_MAIN), "tile": list(gemm16["tile"]),
+         "tile_ms": {"x".join(map(str, t)): ms
+                     for t, ms in gemm16["tile_ms"].items()},
+         "search_best": tables["benches"]["kernel_autotune"]["bf16"]["best"],
+         "dtype": "bfloat16", "tensor_cores": True},
         {"name": "triad", "route": "cuda",
          "source": "src/repro_torch/csrc/triad.cu",
          "replaces": "src/repro/kernels/triad/triad.py:26",

@@ -13,9 +13,10 @@ the two packages measure the same configurations on the same data.
   * ``dgemm`` — the paper's vendor DGEMM: ``torch.matmul`` in full f32
     (TF32 off), as the JAX package leaves it to XLA's ``jnp.dot``.
   * ``triad`` — STREAM TRIAD through the hand-written TRIAD kernel.
-  * ``gemm_tiled`` — the hand-written GEMM at one target shape; the
-    (bm, bn, bk) tile is the tunable and the score is measured GFLOP/s
-    (the JAX package tunes the same tiles against a cost model).
+  * ``gemm_tiled`` — the hand-written GEMM at one target shape, in
+    float32 (the CUDA-core kernel) or bfloat16 (the tensor-core kernel);
+    the (bm, bn, bk) tile is the tunable and the score is measured
+    GFLOP/s (the JAX package tunes the same tiles against a cost model).
   * ``synthetic`` — an instant quadratic objective for session mechanics.
   * the shape-sweep families (:mod:`repro_torch.sweep`):
     ``synthetic_gemm_family``, an instant shape-conditioned objective,
@@ -69,7 +70,7 @@ from ..core.searchspace import doubling_from, powers_of_two
 from ..device import resolve_device, synchronizer
 from ..kernels import build
 from ..kernels.matmul import matmul, smem_bytes
-from ..kernels.matmul import TILES as GEMM_TILES
+from ..kernels.matmul import tiles as gemm_tiles
 from ..kernels.triad import triad
 from ..lint.workload import WorkloadSpec
 from ..models.config import ModelConfig
@@ -382,7 +383,8 @@ def paper_settings(quick: bool = True) -> EvaluationSettings:
 
 
 #: the tile search's target GEMM (the JAX package's ``bench_kernel_autotune``
-#: shape: one tensor-parallel shard of a Mixtral expert GEMM), in float32
+#: shape: one tensor-parallel shard of a Mixtral expert GEMM), in float32 or
+#: bfloat16
 GEMM_TILED_SHAPE = {"m": 4096, "n": 2048, "k": 6144}
 #: shared memory one block may take on an H100 with the opt-in attribute
 #: that every launch of the GEMM kernel sets (the card the kernels target)
@@ -401,17 +403,19 @@ def block_smem_limit(device: "str | torch.device" = "cuda") -> int:
                        props.shared_memory_per_block))
 
 
-def gemm_tiled_space(
-        smem_limit: int = SM90_SMEM_OPTIN_BYTES) -> SearchSpace:
-    """(bm, bn, bk) over the kernel's tile table, constrained to tiles
-    whose shared memory fits one block (the kernel masks ragged edges,
-    so no tile has to divide the problem)."""
-    table = set(GEMM_TILES)
+def gemm_tiled_space(smem_limit: int = SM90_SMEM_OPTIN_BYTES,
+                     dtype: torch.dtype = torch.float32) -> SearchSpace:
+    """(bm, bn, bk) over the tile table of ``dtype``'s GEMM kernel
+    (float32: the CUDA-core kernel's, bfloat16: the tensor-core
+    kernel's), constrained to tiles whose shared memory fits one block
+    (the kernels mask ragged edges, so no tile has to divide the
+    problem)."""
+    table = set(gemm_tiles(dtype))
     return grid(bm=sorted({t[0] for t in table}),
                 bn=sorted({t[1] for t in table}),
                 bk=sorted({t[2] for t in table})).constrain(
         lambda c: (c["bm"], c["bn"], c["bk"]) in table,
-        lambda c: smem_bytes(c["bm"], c["bn"], c["bk"]) <= smem_limit)
+        lambda c: smem_bytes(c["bm"], c["bn"], c["bk"], dtype) <= smem_limit)
 
 
 # ---------------------------------------------------------------------------
@@ -450,16 +454,21 @@ def triad_audit_spec(cfg: dict) -> WorkloadSpec:
         name=f"triad[{n_bytes}B]")
 
 
-def gemm_tiled_audit_spec(cfg: dict) -> WorkloadSpec:
+def gemm_tiled_audit_spec(cfg: dict,
+                          dtype: torch.dtype = torch.float32) -> WorkloadSpec:
     """The tile search's declaration: ``repro_torch::matmul`` at the
-    config's tile over :data:`GEMM_TILED_SHAPE` and :func:`dgemm_flops`."""
+    config's tile over :data:`GEMM_TILED_SHAPE` in ``dtype`` and
+    :func:`dgemm_flops`."""
     m, n, k = (GEMM_TILED_SHAPE[d] for d in "mnk")
+    tag = "" if dtype == torch.float32 else f"/{str(dtype).split('.')[-1]}"
     return WorkloadSpec(
         fn=functools.partial(matmul, bm=cfg["bm"], bn=cfg["bn"],
                              bk=cfg["bk"]),
-        args=(_meta((m, k)), _meta((k, n))),
-        work=dgemm_flops(m, n, k), unit="flops", dtype="float32",
-        name=f"gemm_tiled[{m}x{n}x{k}/{cfg['bm']}x{cfg['bn']}x{cfg['bk']}]")
+        args=(_meta((m, k), dtype), _meta((k, n), dtype)),
+        work=dgemm_flops(m, n, k), unit="flops",
+        dtype=str(dtype).split(".")[-1],
+        name=(f"gemm_tiled[{m}x{n}x{k}/{cfg['bm']}x{cfg['bn']}x{cfg['bk']}"
+              f"{tag}]"))
 
 
 def dgemm_precompile(cfg: dict, device: "str | torch.device" = "cuda",
@@ -523,27 +532,32 @@ class TriadBenchmark:
 
 class GemmTiledBenchmark:
     """``gemm_tiled`` on one device: config (bm, bn, bk) -> the
-    hand-written GEMM's GFLOP/s at :data:`GEMM_TILED_SHAPE` in float32.
-    The operands are drawn once, at the first invocation, and shared by
-    every tile (GEMM is data-oblivious), so a tile search pays the large
-    draw once; a pickled copy draws its own."""
+    hand-written GEMM's GFLOP/s at :data:`GEMM_TILED_SHAPE` in ``dtype``
+    (float32: the CUDA-core kernel; bfloat16: the tensor-core kernel, on
+    the same numpy draws cast to bfloat16). The operands are drawn once,
+    at the first invocation, and shared by every tile (GEMM is
+    data-oblivious), so a tile search pays the large draw once; a pickled
+    copy draws its own."""
 
-    def __init__(self, device: str = "cuda"):
+    def __init__(self, device: str = "cuda",
+                 dtype: torch.dtype = torch.float32):
         self.device = device
+        self.dtype = dtype
         self._operands = None
         self._lock = threading.Lock()
 
     def __getstate__(self) -> dict:
-        return {"device": self.device}
+        return {"device": self.device, "dtype": self.dtype}
 
     def __setstate__(self, state: dict) -> None:
-        self.__init__(state["device"])
+        self.__init__(state["device"], state["dtype"])
 
     def operands(self) -> tuple[torch.Tensor, torch.Tensor]:
         with self._lock:
             if self._operands is None:
                 m, n, k = (GEMM_TILED_SHAPE[d] for d in "mnk")
                 self._operands = dgemm_data(m, n, k, dgemm_seed(m, n, k, 0),
+                                            dtype=self.dtype,
                                             device=self.device)
             return self._operands
 
@@ -555,11 +569,12 @@ class GemmTiledBenchmark:
     def precompile(self, cfg: dict) -> None:
         m, n, k = (GEMM_TILED_SHAPE[d] for d in "mnk")
         default_cache().compile(
-            matmul, (TensorSpec((m, k), torch.float32, self.device),
-                     TensorSpec((k, n), torch.float32, self.device)),
+            matmul, (TensorSpec((m, k), self.dtype, self.device),
+                     TensorSpec((k, n), self.dtype, self.device)),
             static={"bm": cfg["bm"], "bn": cfg["bn"], "bk": cfg["bk"]})
 
-    audit_spec = staticmethod(gemm_tiled_audit_spec)
+    def audit_spec(self, cfg: dict) -> WorkloadSpec:
+        return gemm_tiled_audit_spec(cfg, self.dtype)
 
 
 def dgemm_benchmark(device: str = "cuda", **kwargs) -> DgemmBenchmark:
@@ -573,9 +588,12 @@ def triad_benchmark(device: str = "cuda") -> TriadBenchmark:
     return TriadBenchmark(device)
 
 
-def gemm_tiled_benchmark(device: str = "cuda") -> GemmTiledBenchmark:
-    """``gemm_tiled`` on ``device`` (see :class:`GemmTiledBenchmark`)."""
-    return GemmTiledBenchmark(device)
+def gemm_tiled_benchmark(device: str = "cuda",
+                         dtype: torch.dtype = torch.float32,
+                         ) -> GemmTiledBenchmark:
+    """``gemm_tiled`` on ``device`` in ``dtype`` (see
+    :class:`GemmTiledBenchmark`)."""
+    return GemmTiledBenchmark(device, dtype)
 
 
 # ---------------------------------------------------------------------------

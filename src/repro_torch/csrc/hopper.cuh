@@ -1,12 +1,14 @@
-// Hopper building blocks shared by the tensor-core flash-attention kernels
-// (flash_attention_sm90.cu, bf16; flash_attention_tf32x3.cu and
-// flash_attention_tf32x3_d256.cu, f32): shared
-// memory addresses and wgmma descriptors, mbarriers, TMA loads and their
-// tensor maps, wgmma fences, the quad reductions of the accumulator
-// fragment's rows, and what the two kernels share of flash attention: the
-// visited kv tiles, the masked online softmax on the S fragment, and the
-// launchers' checks and tensor maps. Everything here has internal linkage: each source that
-// includes it gets its own copy, and the library exports none of it.
+// Hopper building blocks shared by the tensor-core kernels (the
+// flash-attention kernels flash_attention_sm90.cu, bf16, and
+// flash_attention_tf32x3.cu and flash_attention_tf32x3_d256.cu, f32; the
+// bf16 GEMM matmul_sm90.cu): shared memory addresses and wgmma
+// descriptors, mbarriers, TMA loads and their tensor maps, wgmma fences
+// and waits, register moves between warpgroups, the quad reductions of the
+// accumulator fragment's rows, and what the flash kernels share of flash
+// attention: the visited kv tiles, the masked online softmax on the S
+// fragment, and the launchers' checks and tensor maps. Everything here has
+// internal linkage: each source that includes it gets its own copy, and
+// the library exports none of it.
 
 #pragma once
 
@@ -66,6 +68,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "memory");
   }
 }
+// TMA: the box at (c0, c1) of a 2-D tensor map into shared memory,
+// completing its bytes on the mbarrier.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
 // TMA: the box at (c0, c1, c2) of a 3-D tensor map into shared memory,
 // completing `bytes` on the mbarrier.
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
@@ -87,6 +99,21 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// A warpgroup's registers a thread: a producer gives some up, consumers
+// take them (all four warps of the warpgroup execute it).
+template <int N>
+__device__ __forceinline__ void set_max_regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void set_max_regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 // Keep the compiler from touching registers that a wgmma still reads or
 // writes until the wait before this fence.

@@ -2,9 +2,10 @@
 // (flash_attention_tf32x3.cu, head dims up to 128;
 // flash_attention_tf32x3_d256.cu, head dim 256): the 128- and 64-byte
 // swizzles of a shared-memory tile, descriptor arithmetic, the TF32 split,
-// wgmma with A from registers, and the barriers and register moves of a
-// producer warpgroup and two consumers taking turns. Internal linkage,
-// as hopper.cuh, which this includes.
+// wgmma with A from registers, and the barriers of a producer warpgroup
+// and two consumers taking turns (their register moves and wgmma waits are
+// in hopper.cuh).
+// Internal linkage, as hopper.cuh, which this includes.
 
 #pragma once
 
@@ -52,11 +53,6 @@ __device__ __forceinline__ void split_tf32(float4 x, uint4& hi, uint4& lo) {
   split_tf32(x.y, hi.y, lo.y);
   split_tf32(x.z, hi.z, lo.z);
   split_tf32(x.w, hi.w, lo.w);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 template <int N>
@@ -175,14 +171,6 @@ __device__ __forceinline__ void turn_wait(int w) {
 }
 __device__ __forceinline__ void turn_pass(int w) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(3 - w) : "memory");
-}
-template <int N>
-__device__ __forceinline__ void set_max_regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void set_max_regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 }  // namespace

@@ -19,12 +19,13 @@ WRAPPERS = {"matmul": matmul, "triad": triad,
 
 
 def reset_launch_counts() -> None:
-    """Set every wrapper's launch count, and flash attention's count per
-    route, to 0."""
+    """Set every wrapper's launch count, and the GEMM's and flash
+    attention's counts per route, to 0."""
     for fn in WRAPPERS.values():
         fn.launches = 0
-    for route in flash_attention.route_launches:
-        flash_attention.route_launches[route] = 0
+    for fn in (matmul, flash_attention):
+        for route in fn.route_launches:
+            fn.route_launches[route] = 0
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,3 +1,6 @@
-from .ops import TILES, flops, matmul, matmul_ref, smem_bytes
+from .ops import (BF16_TILES, DEFAULT_TILES, ROUTE_TILES, TILES, flops,
+                  matmul, matmul_ref, route, smem_bytes, tiles, tma_operand)
 
-__all__ = ["TILES", "flops", "matmul", "matmul_ref", "smem_bytes"]
+__all__ = ["BF16_TILES", "DEFAULT_TILES", "ROUTE_TILES", "TILES", "flops",
+           "matmul", "matmul_ref", "route", "smem_bytes", "tiles",
+           "tma_operand"]

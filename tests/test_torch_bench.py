@@ -110,6 +110,66 @@ def test_gemm_tiled_benchmark_tunes_on_the_host(monkeypatch):
                                "flash_attention": 0, "ssd_chunk_scan": 0}
 
 
+def test_gemm_tiled_space_of_bf16_is_the_tensor_core_table():
+    from repro_torch.kernels.matmul import BF16_TILES, TILES, smem_bytes
+    space = common.gemm_tiled_space(dtype=torch.bfloat16)
+    assert sorted((c["bm"], c["bn"], c["bk"]) for c in space.configs()) == \
+        sorted(BF16_TILES)
+    assert sorted((c["bm"], c["bn"], c["bk"]) for c in
+                  common.gemm_tiled_space().configs()) == sorted(TILES)
+    # each table's own shared-memory formula bounds it
+    limit = 210 * 1024
+    tight = common.gemm_tiled_space(limit, torch.bfloat16)
+    assert 0 < tight.cardinality < len(BF16_TILES)
+    assert all(smem_bytes(c["bm"], c["bn"], c["bk"], torch.bfloat16)
+               <= limit for c in tight.configs())
+
+
+def test_gemm_tiled_bf16_operands_are_the_f32_draws_cast(monkeypatch):
+    import pickle
+    monkeypatch.setattr(common, "GEMM_TILED_SHAPE",
+                        {"m": 24, "n": 16, "k": 40})
+    f32 = common.gemm_tiled_benchmark("cpu")
+    bf16 = common.gemm_tiled_benchmark("cpu", torch.bfloat16)
+    (a, b), (a16, b16) = f32.operands(), bf16.operands()
+    assert a16.dtype == b16.dtype == torch.bfloat16
+    assert torch.equal(a16, a.bfloat16()) and torch.equal(b16, b.bfloat16())
+    copy = pickle.loads(pickle.dumps(bf16))
+    assert copy.dtype == torch.bfloat16 and copy._operands is None
+    spec = bf16.audit_spec({"bm": 128, "bn": 128, "bk": 64})
+    assert spec.dtype == "bfloat16" and spec.name.endswith("/bfloat16]")
+    assert all(x.dtype == torch.bfloat16 for x in spec.args)
+    assert spec.work == common.dgemm_flops(24, 16, 40)
+    f32_spec = f32.audit_spec({"bm": 128, "bn": 128, "bk": 16})
+    assert f32_spec.dtype == "float32"
+    assert f32_spec.name == "gemm_tiled[24x16x40/128x128x16]"
+
+
+def test_kernel_autotune_runs_f32_then_bf16_on_the_host(monkeypatch):
+    from repro_torch.bench import kernel_autotune
+    from repro_torch.kernels.matmul import BF16_TILES, TILES
+    monkeypatch.setattr(common, "GEMM_TILED_SHAPE",
+                        {"m": 64, "n": 48, "k": 40})
+    tables = []
+    monkeypatch.setattr(kernel_autotune, "print_table",
+                        lambda title, rows: tables.append((title, rows)))
+    reset_launch_counts()
+    out = kernel_autotune.run(device="cpu")
+    (title, rows), = tables
+    assert "f32 and bf16" in title
+    names = [r["quantity"] for r in rows]
+    assert names[:5] == ["search space", "best tile", "smem bytes",
+                         "measured GFLOP/s", "max err vs matmul_ref"]
+    assert names[5:] == ["bf16 " + n for n in names[:5]]
+    assert rows[0]["value"] == len(TILES)
+    assert rows[5]["value"] == len(BF16_TILES)
+    assert out["trials"] == len(TILES)
+    assert out["bf16"]["trials"] == len(BF16_TILES)
+    assert out["err"] == out["bf16"]["err"] == 0.0     # host: matmul_ref
+    assert out["bf16"]["score"] > 0
+    assert launch_counts()["matmul"] == 0
+
+
 def test_exec_cache_resolves_each_tile_once():
     cache = ExecutableCache(fingerprint="fp")
     specs = (TensorSpec((64, 32), torch.float32, "cpu"),

@@ -1,6 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version on the card (the bf16 and the f32 3xTF32 flash kernels at every
-compiled head dim and physical tile, the GEMM at every tile), the flash
+compiled head dim and physical tile, the GEMM at every tile of each
+dtype's kernel: f32 on the CUDA cores, bf16 on the tensor cores), the flash
 and SSD kernels' gradients, a mamba2 prefill through the SSD kernel,
 tuning sessions through the kernels (the GEMM tile search keeping all 12
 tiles, and a surrogate search over them recording its run in the
@@ -40,18 +41,22 @@ def _randn(gen, *shape, dtype, device):
                                    (129, 65, 33), (257, 128, 66)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_matmul_kernel_matches_plain_on_card(card, m, n, k, dtype):
-    from repro_torch.kernels.matmul import TILES, matmul, matmul_ref
+    from repro_torch.kernels.matmul import matmul, matmul_ref, route, tiles
     gen = torch.Generator().manual_seed(m + n + k)
     a = _randn(gen, m, k, dtype=dtype, device=card)
     b = _randn(gen, k, n, dtype=dtype, device=card)
     want = matmul_ref(a, b)
     tol = dict(rtol=3e-2, atol=3e-2) if dtype == torch.bfloat16 else \
         dict(rtol=1e-4, atol=1e-4)
-    for bm, bn, bk in TILES:
+    path = route(dtype)   # bf16: the tensor cores, f32: the CUDA cores
+    for bm, bn, bk in tiles(dtype):
         before = matmul.launches
+        routes = dict(matmul.route_launches)
         got = matmul(a, b, bm=bm, bn=bn, bk=bk)
         torch.cuda.synchronize()
         assert matmul.launches == before + 1
+        assert matmul.route_launches == {
+            p: routes[p] + (p == path) for p in routes}
         torch.testing.assert_close(got.float(), want.float(), **tol)
         got.fill_(float("nan"))   # a stale buffer must not pass next time
 

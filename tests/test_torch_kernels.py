@@ -14,8 +14,9 @@ import torch
 from repro.kernels.matmul import matmul as jax_matmul
 from repro.kernels.triad import triad as jax_triad
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.matmul import (TILES, flops, matmul, matmul_ref,
-                                        smem_bytes)
+from repro_torch.kernels.matmul import (BF16_TILES, ROUTE_TILES, TILES,
+                                        flops, matmul, matmul_ref, route,
+                                        smem_bytes, tiles, tma_operand)
 from repro_torch.kernels.triad import bytes_moved, triad, triad_ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -49,7 +50,10 @@ def test_matmul_matches_pallas_interpret(m, n, k, dtype):
     ja, ta = _pair(a_np, dtype)
     jb, tb = _pair(b_np, dtype)
     want = jax_matmul(ja, jb, bm=128, bn=128, bk=64, interpret=True)
-    got = matmul(ta, tb, bm=128, bn=128, bk=16)
+    # bf16 takes the tensor-core route at the reference's own tile; f32
+    # the CUDA-core route, whose table has no bk = 64
+    bk = 64 if dtype == "bfloat16" else 16
+    got = matmul(ta, tb, bm=128, bn=128, bk=bk)
     assert got.dtype == DTYPES[dtype][1] and got.shape == (m, n)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
@@ -64,6 +68,51 @@ def test_matmul_every_tile_takes_the_plain_path(tile):
     bm, bn, bk = tile
     torch.testing.assert_close(matmul(a, b, bm=bm, bn=bn, bk=bk),
                                matmul_ref(a, b), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("tile", BF16_TILES)
+def test_matmul_every_bf16_tile_takes_the_plain_path(tile):
+    rng = np.random.default_rng(2)
+    a = torch.from_numpy(rng.standard_normal((96, 40), dtype=np.float32))
+    b = torch.from_numpy(rng.standard_normal((40, 72), dtype=np.float32))
+    a, b = a.bfloat16(), b.bfloat16()
+    bm, bn, bk = tile
+    got = matmul(a, b, bm=bm, bn=bn, bk=bk)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, matmul_ref(a, b), rtol=0, atol=0)
+
+
+def test_routes_by_dtype():
+    assert route(torch.float32) == "cuda_cores"
+    assert route(torch.bfloat16) == "tensor_cores"
+    assert tiles(torch.float32) == TILES == ROUTE_TILES["cuda_cores"]
+    assert tiles(torch.bfloat16) == BF16_TILES == \
+        ROUTE_TILES["tensor_cores"]
+    assert matmul.route_launches.keys() == ROUTE_TILES.keys()
+    with pytest.raises(TypeError):
+        route(torch.float16)
+    # a tile not given is the route's default: f32 (128, 128, 16) is not
+    # in the bf16 table, the reference's (128, 128, 64) is
+    a = torch.ones(8, 8, dtype=torch.bfloat16)
+    assert matmul(a, a).dtype == torch.bfloat16
+    assert (128, 128, 64) in BF16_TILES and (128, 128, 16) in TILES
+
+
+@pytest.mark.parametrize("shape,offset", [((5, 13), 0), ((7, 16), 0),
+                                          ((7, 16), 1), ((3, 0), 0)])
+def test_tma_operand_rounds_the_row_stride(shape, offset):
+    # the tensor-core kernel's TMA loads want rows a multiple of 16 bytes
+    # apart from a 16-byte aligned start: an operand that is not so is
+    # copied into a buffer whose row stride is rounded up to 8 elements
+    rows, cols = shape
+    x = torch.empty(rows * cols + offset, dtype=torch.bfloat16)[offset:]
+    x = x.view(rows, cols).copy_(
+        torch.arange(rows * cols).reshape(rows, cols))
+    got, ld = tma_operand(x)
+    assert ld == -(-cols // 8) * 8 and ld % 8 == 0
+    assert got.shape == (rows, ld) and got.data_ptr() % 16 == 0
+    assert torch.equal(got[:, :cols], x)
+    assert (got is x) == (ld == cols and x.data_ptr() % 16 == 0)
 
 
 @pytest.mark.parametrize("n", [1024, 4096, 100_000, 1_048_576 + 17])
@@ -95,6 +144,34 @@ def test_work_terms_match_the_reference():
     from repro.kernels.triad import bytes_moved as jax_bytes
     assert flops(300, 450, 200) == jax_flops(300, 450, 200)
     assert bytes_moved(1000, 2) == jax_bytes(1000, 2)
+
+
+def test_bf16_smem_bytes_formula_and_table_fits_the_opt_in_limit():
+    # 1024 bytes of alignment, then the deepest ring of (bm bk + bk bn)
+    # bf16 stages and two 8-byte mbarriers each that fits 232,448 bytes
+    stage = (128 * 64 + 64 * 256) * 2 + 16
+    assert smem_bytes(128, 256, 64, torch.bfloat16) == \
+        1024 + 4 * stage == 197696
+    assert len(BF16_TILES) == len(set(BF16_TILES)) >= 6
+    for t in BF16_TILES:
+        st = (t[0] * t[2] + t[2] * t[1]) * 2 + 16
+        got = smem_bytes(*t, torch.bfloat16)
+        assert got <= 232448 < got + st      # no deeper ring fits
+        assert (got - 1024) // st >= 2
+    assert smem_bytes(128, 128, 32) == smem_bytes(128, 128, 32,
+                                                  torch.float32)
+
+
+@pytest.mark.parametrize("dtype,tile", [
+    (torch.float32, (128, 128, 64)), (torch.float32, (256, 128, 16)),
+    (torch.bfloat16, (128, 128, 16)), (torch.bfloat16, (256, 256, 64))])
+def test_tile_outside_its_dtype_table_raises(dtype, tile):
+    a = torch.zeros(8, 8, dtype=dtype)
+    bm, bn, bk = tile
+    with pytest.raises(ValueError, match="not in the compiled table"):
+        matmul(a, a, bm=bm, bn=bn, bk=bk)
+    with pytest.raises(ValueError, match="not in the compiled table"):
+        matmul.resolve((a, a), bm=bm, bn=bn, bk=bk)
 
 
 def test_tile_outside_the_table_raises():
@@ -147,6 +224,13 @@ def test_tile_table_matches_the_cuda_instantiations():
     assert compiled == set(TILES)
     assert "RT_MATMUL_TILES(f32, float)" in src
     assert "RT_MATMUL_TILES(bf16, __nv_bfloat16)" in src
+    sm90 = (build.CSRC / "matmul_sm90.cu").read_text()
+    table = sm90.split("#define RT_MATMUL_SM90_TILES(X)", 1)[1]
+    table = table.split("\n\n", 1)[0]
+    compiled = [tuple(map(int, t)) for t in re.findall(
+        r"X\((\d+), (\d+), (\d+)\)", table)]
+    assert compiled == list(BF16_TILES)
+    assert "RT_MATMUL_SM90_TILES(RT_MATMUL_SM90)" in sm90
     triad_src = (build.CSRC / "triad.cu").read_text()
     assert "int rt_triad_f32(" in triad_src
     assert "int rt_triad_bf16(" in triad_src

@@ -30,6 +30,7 @@ from repro_torch.bench import (common, harness, iteration_counts,
                                kernel_autotune, matmul_peak, optimizations,
                                size_sweep, triad)
 from repro_torch.bench import run as bench_run
+from repro_torch.kernels.matmul import BF16_TILES
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 TWO = {"n": (32, 48), "m": (40,), "k": (16,)}
@@ -174,7 +175,17 @@ def test_kernel_autotune_matches_the_reference(monkeypatch):
                         {"m": 64, "n": 48, "k": 40})
     ours, theirs, out, _ = _run_pair(monkeypatch, bench_kernel_autotune,
                                      kernel_autotune)
-    assert _columns(ours["tables"]) == _columns(theirs["tables"])
+    # the f32 session's rows are the reference's; the bf16 session's
+    # follow under their own names, with the same columns
+    n_ref = len(theirs["tables"][0])
+    assert _columns([t[:n_ref] for t in ours["tables"]]) == \
+        _columns(theirs["tables"])
+    table = ours["tables"][0]
+    assert len(ours["tables"]) == 1 and len(table) == 2 * n_ref
+    assert [list(r) for r in table[n_ref:]] == \
+        [list(r) for r in table[:n_ref]]
+    assert [r["quantity"] for r in table[n_ref:]] == \
+        ["bf16 " + r["quantity"] for r in table[:n_ref]]
     assert _labels(ours["tables"], "quantity")[0][:2] == \
         _labels(theirs["tables"], "quantity")[0][:2]
     assert ours["csv"] == theirs["csv"] == ["kernel_autotune/best_tile"]
@@ -182,9 +193,14 @@ def test_kernel_autotune_matches_the_reference(monkeypatch):
             for d in ours["derived"]]
     assert keys == [[kv.split("=")[0] for kv in d.split(";")]
                     for d in theirs["derived"]] == [["bm", "bn", "bk", "err"]]
-    assert ours["settings"] == theirs["settings"]
+    # two sessions (f32, then bf16), each under the reference's settings
+    assert ours["settings"] == theirs["settings"] * 2
     assert out["trials"] == 12 and out["err"] == 0.0   # host: matmul_ref
     assert out["shape"] == {"m": 64, "n": 48, "k": 40}
+    bf16 = out["bf16"]
+    assert bf16["trials"] == len(BF16_TILES) and bf16["err"] == 0.0
+    assert tuple(bf16["best"][d] for d in ("bm", "bn", "bk")) in BF16_TILES
+    assert bf16["launches"] == {"cuda_cores": 0, "tensor_cores": 0}
 
 
 def test_card_space_and_host_space():
