@@ -101,10 +101,13 @@ run when it fails:
                vocab 49155, bf16), depth cut from 40 to 4 layers, B=1,
                S=4096 (the ``train_4k`` sequence). All 8 trials, a finite
                best score and flash launches, all on the tensor-core
-               kernel, are required, and the
+               kernel, are required (each config's samples replay a
+               CUDA graph of its step, captured at its pre-heat), and the
                4-layer loss with ``use_flash=1`` must match
                ``use_flash=0`` on the same weights within
-               MODEL_STEP["loss_rtol"]; then the same in float32 (the
+               MODEL_STEP["loss_rtol"]; the plain and the best flash
+               step eager against captured, in turns (ms, GFLOP/s and
+               peak memory of each); then the same in float32 (the
                3xTF32 flash kernel, one launch a layer) within
                MODEL_STEP["f32_loss_rtol"], and that f32 step's time on
                the flash and plain paths.
@@ -134,12 +137,15 @@ run when it fails:
                tokens in the vocabulary, the KV cache's shape and dtype,
                no flash launch (the reference's prefill is plain), and
                for zamba2 exactly one SSD launch per layer (54) in the
-               timed serve; prefill ms and tokens/s, decode ms per step,
-               peak memory. From the cache each serve left, GRAPH_STEPS
-               decode steps eagerly and replayed from one captured CUDA
-               graph of a ``decode_fn`` step: the same tokens required,
-               ms per step of each, and the host's time to enqueue the
-               eager steps. granite's decode at decode_32k's
+               timed serve (its decode captured from the second step);
+               prefill ms and tokens/s, decode ms per step, peak memory.
+               From the cache each serve left (and mamba2's decode),
+               GRAPH_STEPS decode steps through
+               ``launch.serve.greedy_decode`` eagerly and as ``generate``
+               runs it on the card (captured), and the replays of the
+               same captured step alone: the eager tokens required of
+               both, ms per step and peak memory of each, and the host's
+               time to enqueue the eager steps. granite's decode at decode_32k's
                context (LONG_DECODE: 10.7 GB of seeded random K/V, 16
                steps from position 32768): finite logits, tokens in the
                vocabulary, ms per step, peak memory. In f32 at full
@@ -249,8 +255,8 @@ run when it fails:
                1 x 4096 + 16 through ``generate``; whisper with its
                frames) as phase 8's, the VLM's cache holding its 32 self
                layers and whisper's the cross K/V of its 1500 frames, and
-               granite-moe's decode replayed from a CUDA graph (the same
-               tokens); and decode continuing prefill in f32 at
+               each one's decode eager against captured as phase 8's (the
+               same tokens); and decode continuing prefill in f32 at
                STACK_CONTINUE's depths within CONTINUE_TOL, with the
                smallest top-k router gap of each MoE model. Each run
                prints its widths, depth and cuts, time, peak memory and
@@ -261,18 +267,34 @@ run when it fails:
                mamba2-130m at its published config (24 layers,
                d_model 768, vocab 50280, bf16) trained through
                ``repro_torch.launch.train.train`` at B=8, S=2048
-               (TRAIN_LAUNCH): 10 steps straight, whose loss must fall by
-               more than 0.05; then 5 steps with a checkpoint and a run
-               that resumes from it to step 10, whose last loss must equal
-               the straight run's within rtol 1e-4; every run launches the
-               SSD kernel, 48 times a step, on the host mesh. Then granite-3-2b at all 40 layers (TRAIN_DENSE:
-               B=1, S=4096, batch 256 -> 1) through
+               (TRAIN_LAUNCH): 40 steps straight, replayed from a CUDA
+               graph from the third, whose loss must fall by more than
+               0.05; then 20 steps with a checkpoint and a run that
+               resumes from it to step 40, whose last loss must equal the
+               straight run's within rtol 1e-4; before and after them two
+               eager runs of 6 steps, whose spread bounds the captured
+               losses' difference from the eager ones; every run
+               launches the SSD kernel, 48 times a step, on the host mesh.
+               Then granite-3-2b at all 40 layers (TRAIN_DENSE: B=1,
+               S=4096, batch 256 -> 1) through
                ``train.steps.build_train_step`` with the bf16 flash kernel
-               at phase 6's tile, remat and AdamW, 3 steps, every flash
-               launch on the tensor cores. Each run prints its widths,
+               at phase 6's tile, remat and AdamW, 7 steps in turns eager
+               and captured, every flash launch on the tensor cores, 80 a
+               step; the eager and the replayed step's ms and each one's
+               peak memory. Each run prints its widths,
                depth and cuts, step ms, the AdamW update's ms alone (CUDA
                events around it), the global norm, peak memory, the first
                and last loss and its launches per step by kernel and route.
+16. distribution — the dry runs of DRY_RUN and ``launch.perf``'s
+               variant in processes that see no card; granite-3-2b's
+               sharded train step (DIST_STEP: 4 of 40 layers, B=1, S=4096)
+               on ``make_host_mesh()`` through ``bundle.jitted()``,
+               captured from its second step, bitwise against the captured
+               meshless step and within two eager meshless runs' spread of
+               them, the dry run's peak estimate within PEAK_ESTIMATE of
+               the measured peak, one step per remat policy; then the
+               ``distributed_tuner`` bench. Step ms eager, captured
+               meshless and captured sharded, and peak memory.
 
 Each phase prints its seconds.
 
@@ -436,6 +458,9 @@ SERVE_WARMUP = {"prompt": 512, "gen": 2}
 #: decode steps replayed from one captured CUDA graph of a decode step,
 #: beside the same steps in the eager loop
 GRAPH_STEPS = 32
+#: calls a turn when a model step is timed eager against captured (four
+#: turns: eager, captured, captured, eager)
+STEP_REPS = 2
 #: granite-3-2b decode at decode_32k's context (batch cut as in SERVE): a
 #: cache of 4 x (32768 + 16) slots whose first 32768 hold seeded random
 #: K/V tagged 0..32767, then 16 greedy steps from position 32768
@@ -540,14 +565,19 @@ STACK_CONTINUE = {"granite_moe_1b_a400m": 4, "mixtral_8x22b": 2,
 #: steps with a checkpoint and a resumed run to ``steps`` (the loss must
 #: fall by more than ``loss_drop``, the reference's criterion of
 #: tests/test_system.py; the resumed last loss equal the straight one
-#: within ``resume_rtol``, the reference's test_train_resume_equivalence);
-#: (b) granite-3-2b at all 40 layers through ``build_train_step`` with
-#: flash, remat and AdamW, B=1, S=4096 (batch 256 -> 1, as phase 7), its
-#: first step a warm-up; no checkpoint (its state is 25 GB on disk)
+#: within ``resume_rtol``, the reference's test_train_resume_equivalence),
+#: captured from the second step of a run, between two eager runs of
+#: ``eager_steps``; (b) granite-3-2b at all 40 layers through
+#: ``build_train_step`` with flash, remat and AdamW, B=1, S=4096 (batch
+#: 256 -> 1, as phase 7), one run whose steps go eagerly or through the
+#: bundle's captured step as ``modes`` lists them; no checkpoint (its
+#: state is 25 GB on disk)
 TRAIN_LAUNCH = {"arch": "mamba2_130m", "batch": 8, "seq": 2048,
-                "steps": 10, "split": 5, "loss_drop": 0.05,
-                "resume_rtol": 1e-4}
-TRAIN_DENSE = {"arch": "granite_3_2b", "batch": 1, "seq": 4096, "steps": 3}
+                "steps": 40, "split": 20, "loss_drop": 0.05,
+                "resume_rtol": 1e-4, "eager_steps": 6}
+TRAIN_DENSE = {"arch": "granite_3_2b", "batch": 1, "seq": 4096,
+               "modes": ("eager", "eager", "captured", "captured",
+                         "captured", "captured", "eager")}
 #: phase 15's check of ``adamw_update`` on the card against the same call
 #: on the host: granite-3-2b's widest leaf (one layer of its (40, 2048,
 #: 8192) stack) in bf16 and in f32, its embedding and a norm in bf16,
@@ -575,7 +605,7 @@ PERF_VARIANT = ["--arch", "granite_3_2b", "--shape", "train_4k",
                 "--remat-policy", "dots_saveable"]
 #: phase 16 (c, d): granite-3-2b's sharded train step on the host mesh
 DIST_STEP = {"arch": "granite_3_2b", "layers": 4, "batch": 1, "seq": 4096,
-             "steps": 3}
+             "steps": 5}
 #: phase 16 (c): the dry run's peak-bytes estimate of the step against
 #: torch.cuda.max_memory_allocated
 PEAK_ESTIMATE = (0.5, 2.0)
@@ -902,13 +932,57 @@ def counting(bench, per_config: dict):
     return wrapped
 
 
+def eager_vs_captured(fn, args: tuple, reps: int = STEP_REPS) -> dict:
+    """``fn(*args)`` (a step whose arguments are the same tensors at every
+    call, as the tuner's model steps are) eagerly and replayed from a
+    CUDA graph (``graphs.captured``: an eager warm-up, then the capture),
+    in turns eager, captured, captured, eager, ``reps`` calls a turn,
+    each call timed on the host's clock between two synchronizes: each
+    mode's median ms and peak memory (the captured one's over its warm-up
+    and capture)."""
+    import gc
+    import statistics
+    import torch
+    from repro_torch import graphs
+    step = graphs.captured(fn)
+    gc.collect()
+    torch.cuda.empty_cache()
+    peaks = {}
+    for mode, call, n in (("eager", fn, 1), ("captured", step, 2)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(n):
+            call(*args)
+        torch.cuda.synchronize()
+        peaks[mode] = torch.cuda.max_memory_allocated() / 2 ** 30
+    times: dict = {"eager": [], "captured": []}
+    for mode in ("eager", "captured", "captured", "eager"):
+        call = fn if mode == "eager" else step
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(*args)
+            torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t0) * 1e3)
+    step.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"eager_ms": statistics.median(times["eager"]),
+            "captured_ms": statistics.median(times["captured"]),
+            "eager_peak_gib": peaks["eager"],
+            "captured_peak_gib": peaks["captured"]}
+
+
 def model_step_path(work: pathlib.Path, spec: dict) -> dict:
     """Tune one model's train step (full width, ``spec``'s depth, batch
-    and sequence) over the quick model-step space in process; check the
-    session, that every config launched the SSD kernel where the model
-    has Mamba2 layers and the flash kernel exactly when ``use_flash=1``,
-    and the flash/plain loss agreement within ``spec["loss_rtol"]``.
-    Returns what the result line needs."""
+    and sequence) over the quick model-step space in process (on the
+    card each config's samples replay a CUDA graph of its step); check
+    the session, that every config launched the SSD kernel where the
+    model has Mamba2 layers and the flash kernel exactly when
+    ``use_flash=1``, and the flash/plain loss agreement within
+    ``spec["loss_rtol"]``; then the plain and the best flash step eager
+    against captured (:func:`eager_vs_captured`). Returns what the result
+    line needs."""
     import dataclasses
     import gc
     import statistics
@@ -1005,12 +1079,26 @@ def model_step_path(work: pathlib.Path, spec: dict) -> dict:
     if not (math.isfinite(rel) and rel <= spec["loss_rtol"]):
         fail(f"model step: flash loss {losses['flash']} vs plain "
              f"{losses['plain']}")
+    compare = {}
+    for label, step in (("use_flash=0", StepConfig(remat=False)),
+                        (f"use_flash=1 {tile}",
+                         StepConfig(use_flash=True, flash_block_q=tile[0],
+                                    flash_block_k=tile[1], remat=False))):
+        wc = w.with_step(step)
+        c = compare[label] = eager_vs_captured(wc.fn, wc.args)
+        print(f"  {label} step, median of {2 * STEP_REPS} each, in turns: "
+              f"eager {c['eager_ms']:.2f} ms "
+              f"({flops / c['eager_ms'] / 1e6:.1f} GFLOP/s), peak "
+              f"{c['eager_peak_gib']:.2f} GiB; captured "
+              f"{c['captured_ms']:.2f} ms "
+              f"({flops / c['captured_ms'] / 1e6:.1f} GFLOP/s), peak "
+              f"{c['captured_peak_gib']:.2f} GiB")
     del w
     gc.collect()
     torch.cuda.empty_cache()
     out = {"launches": launches, "routes": routes, "tile": tile,
            "step_ms": step_ms, "best": result.best_config, "wall": wall,
-           "loss_rel": rel}
+           "loss_rel": rel, "compare": compare}
     if "f32_loss_rtol" in spec:
         out.update(f32_loss(cfg, b, s, tile, spec["f32_loss_rtol"]))
     return out
@@ -1426,8 +1514,9 @@ def serving_path() -> dict:
     """mamba2-130m at full width and depth: one prefill of a batch of
     SERVING["batch"] prompts of SERVING["seq"] tokens through
     ``api.prefill_fn``, then greedy decode steps through
-    ``api.decode_fn``. Requires one SSD launch per layer in the prefill,
-    finite logits and tokens in the vocabulary."""
+    ``api.decode_fn``, then the same decode eager against captured
+    (:func:`replayed_decode`). Requires one SSD launch per layer in the
+    prefill, finite logits and tokens in the vocabulary."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -1483,14 +1572,18 @@ def serving_path() -> dict:
                  "vocabulary")
         serving_launches = kernels.launch_counts()
     print(f"prefill {prefill_ms:.1f} ms ({b * s / prefill_ms * 1e3:.0f} "
-          f"tokens/s); decode {decode_ms:.3f} ms per step of {b} tokens; "
-          f"peak memory {peak / 2 ** 30:.2f} GiB; launches {serving_launches}"
-          f"; first generated tokens {gen_tokens[:, :8].tolist()}")
+          f"tokens/s); decode {decode_ms:.3f} ms per step of {b} tokens "
+          f"(eager, api.decode_fn); peak memory {peak / 2 ** 30:.2f} GiB; "
+          f"launches {serving_launches}; first generated tokens "
+          f"{gen_tokens[:, :8].tolist()}")
+    replayed = replayed_decode({"params": params, "cfg": cfg, "step": step,
+                                "batch": {"tokens": tok}, "cache": cache,
+                                "pos": s + steps - 1, "logits": logits})
     del params, cache, logits
     torch.cuda.empty_cache()
     return {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
             "peak_gib": peak / 2 ** 30,
-            "launches": serving_launches["ssd_chunk_scan"]}
+            "launches": serving_launches["ssd_chunk_scan"], **replayed}
 
 
 def decode_continues_prefill() -> dict:
@@ -1686,7 +1779,9 @@ def served(spec: dict) -> dict:
           f"{'generate' if 'layers' in spec else 'serve'}(batch={b}, "
           f"prompt_len={s}, gen={gen}{extra}): prefill {prefill_ms:.1f} ms "
           f"({b * s / result['prefill_s']:.0f} tokens/s), decode "
-          f"{decode_ms:.3f} ms per step of {b} tokens (eager), peak memory "
+          f"{decode_ms:.3f} ms per step of {b} tokens (captured from the "
+          f"second step: the eager warm-up and the capture included), "
+          f"peak memory "
           f"{peak / 2 ** 30:.2f} GiB; cache "
           + ", ".join(f"{k} {shape} {str(dt).replace('torch.', '')}"
                       for k, (shape, dt) in got.items())
@@ -1698,105 +1793,95 @@ def served(spec: dict) -> dict:
             "state": state}
 
 
-def captured(fn, reset):
-    """``fn`` captured in a CUDA graph, after one warm-up call on a side
-    stream (what capture cannot do, such as a library's first-call
-    set-up, happens there) and ``reset()`` to undo it; returns the
-    graph's ``replay``. A failed capture raises."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    reset()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return graph.replay
-
-
 def replayed_decode(state: dict, steps: int = GRAPH_STEPS) -> dict:
     """``steps`` greedy decode steps from the cache a ``serve`` call left,
-    eagerly and replayed from one CUDA graph, each on its own copy of
-    the cache. The graph holds one ``decode_fn`` step on static token,
-    position (a 0-d tensor) and cache tensors: each cache leaf the step
-    returns as a new tensor is copied back into the static one, the
-    argmax into the static token, and the position advanced, all inside
-    the capture. The replayed tokens must be the eager loop's."""
+    each run from its own copy of the cache: through
+    ``launch.serve.greedy_decode`` (the loop ``generate`` runs) eagerly,
+    under ``graphs.disabled()``, and as the package runs it on the card
+    (the first step eager, the second captured in a CUDA graph, the rest
+    replayed), whose tokens must be the eager loop's; then the same step
+    through ``graphs.captured`` as ``greedy_decode`` calls it, warmed up
+    and captured before the clock starts, to time the replays alone (its
+    tokens must be the eager ones too). Returns the eager ms per step and
+    the host's enqueue time, greedy_decode's ms per step whole (warm-up
+    and capture included), a replayed step's ms, and each run's peak
+    memory."""
+    import contextlib
     import torch
+    from repro_torch import graphs
+    from repro_torch.launch.serve import greedy_decode
     from repro_torch.models import api
     from repro_torch.models.params import map_tree
     params, cfg, step = state["params"], state["cfg"], state["step"]
     vocab = cfg.vocab_size
     inputs = {k: v for k, v in state["batch"].items() if k != "tokens"}
-
-    def copy_into(static: dict, tree: dict) -> None:
-        for (_, s_), (_, t_) in zip(named_leaves(static),
-                                    named_leaves(tree)):
-            if t_ is not s_:
-                s_.copy_(t_)
-
     with torch.no_grad():
         cache0 = api.extend_cache(state["cache"], steps)
         pos0 = int(state["pos"]) + 1
-        first = state["logits"][..., :vocab].argmax(dim=-1)
+        logits0 = state["logits"].clone()
 
-        cache, tok, eager = map_tree(lambda _, t: t.clone(), cache0), first, []
+    def fresh() -> dict:
+        return map_tree(lambda _, t: t.clone(), cache0)
+
+    runs = {}
+    for label in ("eager", "generate"):
+        cache = fresh()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        for i in range(steps):
-            logits, cache = api.decode_fn(params, {"tokens": tok, **inputs},
-                                          cache, pos0 + i, cfg, step)
-            tok = logits[..., :vocab].argmax(dim=-1)
-            eager.append(tok)
+        with graphs.disabled() if label == "eager" else \
+                contextlib.nullcontext():
+            out = greedy_decode(params, logits0, cache, pos0, steps, cfg,
+                                step, inputs=inputs)
         # the host's clock before the synchronize: how long it took to
         # enqueue the steps, against the time until the card is done
         enqueue_ms = (time.perf_counter() - t0) * 1e3 / steps
         torch.cuda.synchronize()
-        eager_ms = (time.perf_counter() - t0) * 1e3 / steps
-        del cache
+        runs[label] = {"tokens": out["tokens"][:, 1:], "enqueue_ms": enqueue_ms,
+                       "ms": (time.perf_counter() - t0) * 1e3 / steps,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del cache, out
 
-        static = map_tree(lambda _, t: t.clone(), cache0)
-        static_tok = first.clone()
-        static_pos = torch.tensor(pos0, device="cuda")
+    def decode_step(params, batch, cache, pos):
+        return api.decode_fn(params, batch, cache, pos, cfg, step)
 
-        def one_step():
-            logits, new = api.decode_fn(params,
-                                        {"tokens": static_tok, **inputs},
-                                        static, static_pos, cfg, step)
-            copy_into(static, new)
-            static_tok.copy_(logits[..., :vocab].argmax(dim=-1))
-            static_pos.add_(1)
-
-        def reset():
-            copy_into(static, cache0)
-            static_tok.copy_(first)
-            static_pos.fill_(pos0)
-
-        replay = captured(one_step, reset)
-        replayed = []
+    decode = graphs.captured(decode_step, donate_argnums=(2,),
+                             device_scalars=(3,))
+    cache, tok, replayed = fresh(), logits0[:, -1:, :vocab].argmax(-1), []
+    with torch.no_grad():
+        for i in range(steps):
+            if i == 2:        # after the warm-up and the capture
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            logits, cache = decode(params, {"tokens": tok, **inputs}, cache,
+                                   pos0 + i)
+            tok = logits[:, -1:, :vocab].argmax(-1)
+            replayed.append(tok)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            replay()
-            replayed.append(static_tok.clone())
-        torch.cuda.synchronize()
-        graph_ms_ = (time.perf_counter() - t0) * 1e3 / steps
-    eager_t, replayed_t = torch.cat(eager, dim=1), torch.cat(replayed, dim=1)
-    if not torch.equal(eager_t, replayed_t):
-        fail(f"{cfg.name}: graph-replayed decode tokens "
-             f"{replayed_t[:, :8].tolist()} differ from the eager loop's "
-             f"{eager_t[:, :8].tolist()}")
+        graph_ms_ = (time.perf_counter() - t0) * 1e3 / (steps - 2)
+    decode.release()
+    eager_t = runs["eager"]["tokens"]
+    for label, got in (("generate's decode loop", runs["generate"]["tokens"]),
+                       ("the replayed step", torch.cat(replayed, dim=1))):
+        if not torch.equal(eager_t, got):
+            fail(f"{cfg.name}: {label}'s tokens {got[:, :8].tolist()} "
+                 f"differ from the eager loop's {eager_t[:, :8].tolist()}")
+    eager_ms = runs["eager"]["ms"]
     print(f"{cfg.name} decode from position {pos0}, {steps} steps of "
-          f"{first.shape[0]} tokens: eager {eager_ms:.3f} ms per step (the "
-          f"host enqueued it in {enqueue_ms:.3f}), replayed from a CUDA "
-          f"graph {graph_ms_:.3f} ms per step (same tokens; the card idle "
-          f"{1 - graph_ms_ / eager_ms:.1%} of an eager step)")
-    del replay, static, cache0
+          f"{eager_t.shape[0]} tokens through launch.serve.greedy_decode: "
+          f"eager {eager_ms:.3f} ms per step (the host enqueued it in "
+          f"{runs['eager']['enqueue_ms']:.3f}), peak "
+          f"{runs['eager']['peak_gib']:.2f} GiB; captured as generate runs "
+          f"it {runs['generate']['ms']:.3f} ms per step (its eager warm-up "
+          f"and capture included), peak {runs['generate']['peak_gib']:.2f} "
+          f"GiB; a replayed step alone {graph_ms_:.3f} ms (same tokens; the "
+          f"card idle {1 - graph_ms_ / eager_ms:.1%} of an eager step)")
+    del cache, cache0
     torch.cuda.empty_cache()
-    return {"eager_ms": eager_ms, "enqueue_ms": enqueue_ms,
-            "graph_ms": graph_ms_}
+    return {"eager_ms": eager_ms, "enqueue_ms": runs["eager"]["enqueue_ms"],
+            "generate_ms": runs["generate"]["ms"], "graph_ms": graph_ms_,
+            "eager_peak_gib": runs["eager"]["peak_gib"],
+            "graph_peak_gib": runs["generate"]["peak_gib"]}
 
 
 def long_context_decode(state: dict) -> dict:
@@ -1958,7 +2043,7 @@ def serving_continues_prefill(arch: str, layers: "int | None" = None
 
 def dense_and_hybrid_serving() -> dict:
     """granite-3-2b and zamba2-2.7b served at full width and depth
-    (:func:`served`), each with its decode replayed from a CUDA graph
+    (:func:`served`), each with its decode eager against captured
     (:func:`replayed_decode`); granite's decode at decode_32k's context
     (:func:`long_context_decode`); decode continuing prefill in f32 for
     both; and the serving CLI once on the card."""
@@ -3110,18 +3195,16 @@ def model_stack_path(tile: tuple[int, int], tiles) -> dict:
     bf16 flash kernel at each train step's shape
     (:func:`flash_stack_checks`, llama-vision's D = 128 timed);
     the train steps of STACK_STEP (:func:`stack_train_step`); the serves
-    of STACK_SERVE (:func:`served`), granite-moe's decode also replayed
-    from a CUDA graph (:func:`replayed_decode`: the MoE decode step
-    captures); and decode continuing prefill in f32 at STACK_CONTINUE's
-    depths (:func:`serving_continues_prefill`)."""
+    of STACK_SERVE (:func:`served`), each one's decode also eager against
+    captured (:func:`replayed_decode`); and decode continuing prefill in
+    f32 at STACK_CONTINUE's depths (:func:`serving_continues_prefill`)."""
     import torch
     out = {"flash": flash_stack_checks(tiles), "train": {}, "serve": {}}
     for label, spec in STACK_STEP.items():
         out["train"][label] = stack_train_step(spec, tile)
     for label, spec in STACK_SERVE.items():
         run = served(spec)
-        if label == "granite_moe":
-            run.update(replayed_decode(run["state"]))
+        run.update(replayed_decode(run["state"]))
         del run["state"]
         torch.cuda.empty_cache()
         out["serve"][label] = run
@@ -3132,8 +3215,9 @@ def model_stack_path(tile: tuple[int, int], tiles) -> dict:
 
 class UpdateTimer:
     """Stands in for ``repro_torch.train.steps.adamw_update`` during a
-    training run: each call between two CUDA events, its metrics (0-d
-    tensors on the card) kept to be read after the run."""
+    training run: each eager call between two CUDA events, its metrics
+    (0-d tensors on the card) kept to be read after the run; a call
+    inside a CUDA graph's capture passes straight through."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -3142,6 +3226,10 @@ class UpdateTimer:
 
     def __call__(self, *args, **kwargs):
         import torch
+        if torch.cuda.is_current_stream_capturing():
+            # inside a CUDA graph's capture: replays run the update with
+            # no call here, so a captured step's update is not timed
+            return self.fn(*args, **kwargs)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3196,32 +3284,44 @@ def timed_training(run, label: str) -> dict:
 
 def launcher_training() -> dict:
     """Phase 15 (a): mamba2-130m at its published config through
-    ``repro_torch.launch.train.train`` (TRAIN_LAUNCH): the straight run,
-    then the first part with a checkpoint and a resumed run to the same
-    step. The loss must fall by more than TRAIN_LAUNCH["loss_drop"], the
+    ``repro_torch.launch.train.train`` (TRAIN_LAUNCH): an eager run
+    (``graphs.disabled()``), the straight run (its steps replayed from a
+    CUDA graph from the third on), the first part with a checkpoint and
+    a resumed run to the same step (a graph of its own), and an eager run
+    again. The loss must fall by more than TRAIN_LAUNCH["loss_drop"], the
     resumed run's last loss must equal the straight run's within
-    TRAIN_LAUNCH["resume_rtol"], and every run must launch the SSD kernel
-    and no flash kernel."""
+    TRAIN_LAUNCH["resume_rtol"], the straight run's first losses must
+    equal the eager run's within the spread of the two eager runs
+    (bitwise where they are), and every run must launch the SSD kernel
+    twice a layer a step and no flash kernel."""
+    import contextlib
     import statistics
+    from repro_torch import graphs
     from repro_torch.configs import get
     from repro_torch.launch.train import train
     spec = TRAIN_LAUNCH
     cfg = get(spec["arch"])
     ckpt = WORK / "train_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
-    plan = (("straight", spec["steps"], None),
-            ("first part", spec["split"], ckpt),
-            ("resumed", spec["steps"], ckpt))
+    eager = spec["eager_steps"]
+    plan = (("eager", eager, None, True),
+            ("straight", spec["steps"], None, False),
+            ("first part", spec["split"], ckpt, False),
+            ("resumed", spec["steps"], ckpt, False),
+            ("eager again", eager, None, True))
     runs = {}
-    for label, steps, ckpt_dir in plan:
+    for label, steps, ckpt_dir, is_eager in plan:
         print(f"-- {label}: launch.train.train({spec['arch']!r}, "
               f"steps={steps}, batch={spec['batch']}, seq={spec['seq']}, "
               f"smoke=False, ckpt_dir={ckpt_dir and ckpt_dir.name}, "
-              f"device='cuda')", flush=True)
-        run = timed_training(lambda: train(
-            spec["arch"], steps=steps, batch=spec["batch"], seq=spec["seq"],
-            smoke=False, ckpt_dir=str(ckpt_dir) if ckpt_dir else None,
-            log_every=10, device="cuda"), f"{cfg.name} {label}")
+              f"device='cuda')" + (" under graphs.disabled()"
+                                   if is_eager else ""), flush=True)
+        with graphs.disabled() if is_eager else contextlib.nullcontext():
+            run = timed_training(lambda: train(
+                spec["arch"], steps=steps, batch=spec["batch"],
+                seq=spec["seq"], smoke=False,
+                ckpt_dir=str(ckpt_dir) if ckpt_dir else None,
+                log_every=10, device="cuda"), f"{cfg.name} {label}")
         n = len(run["result"]["losses"])
         ssd = run["launches"]["ssd_chunk_scan"]
         if ssd == 0 or run["launches"]["flash_attention"] != 0:
@@ -3234,9 +3334,11 @@ def launcher_training() -> dict:
             fail(f"{cfg.name} {label}: {ssd} SSD launches over {n} steps, "
                  f"want {2 * cfg.n_layers} a step (forward and remat "
                  f"recompute)")
-        run.update(steps=n, ssd_per_step=ssd / n,
+        update = run["update_ms"][1:]
+        run.update(steps=n, ssd_per_step=ssd / n, eager=is_eager,
                    step_ms=run["result"]["mean_step_s"] * 1e3,
-                   update_ms_mean=statistics.mean(run["update_ms"][1:]))
+                   update_ms_mean=statistics.mean(update) if update
+                   else None)
         runs[label] = run
     size = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
     kept = sorted(p.name for p in ckpt.iterdir())
@@ -3245,6 +3347,9 @@ def launcher_training() -> dict:
     first, last = straight["result"]["losses"][0], \
         straight["result"]["losses"][-1]
     rel = abs(resumed["result"]["losses"][-1] / last - 1.0)
+    e1, e2 = (runs[k]["result"]["losses"] for k in ("eager", "eager again"))
+    spread = max(abs(a - b) for a, b in zip(e1, e2))
+    gap = max(abs(a - b) for a, b in zip(e1, straight["result"]["losses"]))
     print(f"{cfg.name} trained through the launcher at its published config "
           f"(d_model {cfg.d_model}, {cfg.ssm_heads} SSD heads of "
           f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
@@ -3254,11 +3359,14 @@ def launcher_training() -> dict:
           f"schedule (peak 3e-3, warmup 100); no cut")
     for label, run in runs.items():
         losses = run["result"]["losses"]
-        print(f"  {label}: {run['steps']} steps, step {run['step_ms']:.2f} ms"
-              f" (mean after the first), AdamW update "
-              f"{run['update_ms_mean']:.3f} ms (CUDA events, mean after the "
-              f"first), global norm {run['grad_norm'][-1]:.4f} at the last "
-              f"step, loss {losses[0]:.6f} -> {losses[-1]:.6f}, peak memory "
+        update = ("AdamW update "
+                  f"{run['update_ms_mean']:.3f} ms (CUDA events, mean after "
+                  f"the first)" if run["update_ms_mean"] is not None else
+                  "AdamW update inside the graph (not timed)")
+        print(f"  {label} ({'eager' if run['eager'] else 'captured'}): "
+              f"{run['steps']} steps, step {run['step_ms']:.2f} ms (mean "
+              f"after the first{'' if run['eager'] else ' two'}), {update}, "
+              f"loss {losses[0]:.6f} -> {losses[-1]:.6f}, peak memory "
               f"{run['peak_gib']:.2f} GiB, SSD launches "
               f"{run['launches']['ssd_chunk_scan']} "
               f"({run['ssd_per_step']:g} a step: {cfg.n_layers} + "
@@ -3269,7 +3377,12 @@ def launcher_training() -> dict:
     print(f"  loss drop over {spec['steps']} steps {first - last:.6f} "
           f"(must exceed {spec['loss_drop']}); resumed last loss "
           f"{resumed['result']['losses'][-1]:.6f} vs straight {last:.6f}: "
-          f"relative {rel:.3e} (tol {spec['resume_rtol']})")
+          f"relative {rel:.3e} (tol {spec['resume_rtol']}); the first "
+          f"{eager} losses captured vs eager: max abs difference {gap:.3e} "
+          f"(eager vs eager again {spread:.3e})")
+    print(f"  step ms: eager {runs['eager']['step_ms']:.2f}, captured "
+          f"{straight['step_ms']:.2f}, eager again "
+          f"{runs['eager again']['step_ms']:.2f}")
     if not first - last > spec["loss_drop"]:
         fail(f"{cfg.name}: the loss fell {first - last} over "
              f"{spec['steps']} steps")
@@ -3280,8 +3393,13 @@ def launcher_training() -> dict:
     if not rel <= spec["resume_rtol"]:
         fail(f"{cfg.name}: resumed last loss "
              f"{resumed['result']['losses'][-1]} vs straight {last}")
+    if not gap <= spread:
+        fail(f"{cfg.name}: captured losses {straight['result']['losses']} "
+             f"differ from the eager ones {e1} by {gap}, more than the "
+             f"eager runs' spread {spread}")
     return {"runs": runs, "loss_drop": first - last, "resume_rel": rel,
-            "ckpt_gib": size / 2 ** 30,
+            "ckpt_gib": size / 2 ** 30, "eager_gap": gap,
+            "eager_spread": spread,
             "ssd_launches": sum(r["launches"]["ssd_chunk_scan"]
                                 for r in runs.values())}
 
@@ -3289,9 +3407,14 @@ def launcher_training() -> dict:
 def dense_training(tile: tuple[int, int]) -> dict:
     """Phase 15 (b): granite-3-2b at all its layers (TRAIN_DENSE) through
     ``train.steps.build_train_step`` with the bf16 flash kernel at
-    ``tile``, remat and AdamW, on the synthetic stream: the steps, each
-    timed between two synchronizes, the first a warm-up. Every flash
-    launch must take the tensor-core route."""
+    ``tile``, remat and AdamW, on the synthetic stream: one training run
+    whose steps go in turns eagerly (``bundle.fn``) and through
+    ``bundle.jitted()`` (its first call eager, the second captured, the
+    rest replayed), as TRAIN_DENSE["modes"] lists them, each timed
+    between two synchronizes. Reports the mean of the eager steps after
+    the first and of the replayed ones, and each mode's peak memory (the
+    captured one's over its warm-up and capture). Every flash launch must
+    take the tensor-core route, 2 a layer a step."""
     import gc
     import statistics
     import torch
@@ -3304,41 +3427,61 @@ def dense_training(tile: tuple[int, int]) -> dict:
     from repro_torch.optim import adamw_init
     from repro_torch.train.steps import build_train_step
     spec = TRAIN_DENSE
+    modes = spec["modes"]
     cfg = get(spec["arch"])
     b, s = spec["batch"], spec["seq"]
     step_cfg = StepConfig(use_flash=True, flash_block_q=tile[0],
                           flash_block_k=tile[1], remat=True)
     bundle = build_train_step(cfg, WorkloadShape("train_4k_b1", s, b,
                                                  "train"), step_cfg=step_cfg)
+    jitted = bundle.jitted()
     defs = api.param_defs(cfg)
     params = materialize(torch.Generator(device="cuda").manual_seed(0), defs)
     opt = adamw_init(defs, "cuda")
     pipeline = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size), b, s,
                            device="cuda")
     step_ms: list[float] = []
+    peaks: dict = {}
 
     def run() -> dict:
         nonlocal params, opt
         losses = []
-        for i in range(spec["steps"]):
+        for i, mode in enumerate(modes):
             batch = pipeline.batch_at(i)
             torch.cuda.synchronize()
+            if i == 0 or mode != modes[i - 1]:
+                torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            params, opt, metrics = bundle.fn(params, opt, batch, i)
+            fn = bundle.fn if mode == "eager" else jitted
+            params, opt, metrics = fn(params, opt, batch, i)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            peaks[mode] = max(peaks.get(mode, 0.0),
+                              torch.cuda.max_memory_allocated() / 2 ** 30)
             losses.append(float(metrics["loss"]))
         return {"losses": losses}
 
     out = timed_training(run, f"{cfg.name} train")
-    n = spec["steps"]
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    jitted.release()
+    n = len(modes)
     flash = out["launches"]["flash_attention"]
-    if flash == 0 or out["routes"]["tensor_cores"] != flash:
+    if flash != 2 * cfg.n_layers * n or out["routes"]["tensor_cores"] != \
+            flash:
         fail(f"{cfg.name} train: flash launches {flash}, routes "
-             f"{out['routes']}; want launches, all on the tensor cores")
+             f"{out['routes']}; want {2 * cfg.n_layers} a step, all on the "
+             f"tensor cores")
     count = n_params(defs)
     losses = out["result"]["losses"]
-    out.update(step_ms=statistics.mean(step_ms[1:]), step_ms_each=step_ms,
+    first_captured = modes.index("captured")
+    eager_ms = [t for i, t in enumerate(step_ms)
+                if modes[i] == "eager" and i > 0]
+    replayed_ms = [t for i, t in enumerate(step_ms)
+                   if modes[i] == "captured" and i > first_captured + 1]
+    out.update(step_ms=statistics.mean(eager_ms), step_ms_each=step_ms,
+               captured_step_ms=statistics.mean(replayed_ms),
+               eager_peak_gib=peaks["eager"],
+               captured_peak_gib=peaks["captured"], reserved_gib=reserved,
                update_ms_mean=statistics.mean(out["update_ms"][1:]),
                flash_per_step=flash / n)
     print(f"{cfg.name} trained through build_train_step at its published "
@@ -3349,15 +3492,21 @@ def dense_training(tile: tuple[int, int]) -> dict:
           f" {count * 8 / 1e9:.2f} GB of f32 moments); B={b}, S={s} (batch "
           f"256 -> 1); use_flash=1 tile {tile}, remat, AdamW, lr from the "
           f"cosine schedule (steps 0-{n - 1}: warmup)")
-    print(f"  {n} steps: step {out['step_ms']:.1f} ms (mean after the first;"
-          f" each " + ", ".join(f"{t:.1f}" for t in step_ms) + "), AdamW "
-          f"update {out['update_ms_mean']:.2f} ms (CUDA events; each "
-          + ", ".join(f"{t:.2f}" for t in out["update_ms"]) + f"), global "
-          f"norm {out['grad_norm'][-1]:.4f}, loss {losses[0]:.6f} -> "
-          f"{losses[-1]:.6f}, peak memory {out['peak_gib']:.2f} GiB, "
-          f"launches {out['launches']} (flash {out['flash_per_step']:g} a "
-          f"step, routes {out['routes']})")
-    del params, opt, bundle
+    print(f"  {n} steps ({', '.join(modes)}): eager step "
+          f"{out['step_ms']:.1f} ms (mean after the first), replayed step "
+          f"{out['captured_step_ms']:.1f} ms (mean after the warm-up and the "
+          f"capture); each " + ", ".join(f"{t:.1f}" for t in step_ms)
+          + f"; AdamW update {out['update_ms_mean']:.2f} ms (CUDA events, "
+          f"eager steps; each " + ", ".join(f"{t:.2f}" for t in
+                                            out["update_ms"])
+          + f"), global norm {out['grad_norm'][-1]:.4f}, loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}; peak memory eager "
+          f"{out['eager_peak_gib']:.2f} GiB, captured "
+          f"{out['captured_peak_gib']:.2f} GiB (warm-up, capture, replays), "
+          f"reserved {reserved:.2f} GiB with the graph held; launches "
+          f"{out['launches']} (flash {out['flash_per_step']:g} a step, "
+          f"routes {out['routes']})")
+    del params, opt, bundle, jitted
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3583,8 +3732,12 @@ def sharded_steps(tile: tuple[int, int]) -> dict:
     """Phase 16 (c, d): granite-3-2b at full width (DIST_STEP) through
     ``build_train_step`` on ``make_host_mesh()`` with TRAIN_RULES, the
     bf16 flash kernel at ``tile`` and remat: DIST_STEP["steps"] steps
-    against the same steps with ``mesh=None`` from the same weights and
-    batches (losses, global norms and final parameters bitwise); the
+    through ``bundle.jitted()`` (the first eager, the second captured in
+    a CUDA graph, the rest replayed) against the same captured steps with
+    ``mesh=None`` from the same weights and batches (losses, global norms
+    and final parameters bitwise), and those against the meshless steps
+    run eagerly twice (``graphs.disabled()``: within the two eager runs'
+    spread); the
     flash launches, all on the tensor cores; both step times and peak
     memory; the dry run's peak-bytes estimate of this step (traced on
     ``meta``) within PEAK_ESTIMATE of the measured peak; then one step
@@ -3594,10 +3747,12 @@ def sharded_steps(tile: tuple[int, int]) -> dict:
     beside these, every wrapper's launches and flash attention's launches
     per route, summed over the sharded runs (each counted from 0 just
     before its steps and read just after)."""
+    import contextlib
     import dataclasses
     import gc
+    import statistics
     import torch
-    from repro_torch import kernels
+    from repro_torch import graphs, kernels
     from repro_torch.configs import get
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.distributed import sharding as sh
@@ -3621,7 +3776,7 @@ def sharded_steps(tile: tuple[int, int]) -> dict:
     def whole(x):
         return x.full_tensor() if type(x).__name__ == "DTensor" else x
 
-    def run(m, policy: str, steps: int) -> dict:
+    def run(m, policy: str, steps: int, eager: bool = False) -> dict:
         step_cfg = StepConfig(use_flash=True, flash_block_q=tile[0],
                               flash_block_k=tile[1], remat=True,
                               remat_policy=policy)
@@ -3639,13 +3794,15 @@ def sharded_steps(tile: tuple[int, int]) -> dict:
         fn = bundle.jitted()
         kernels.reset_launch_counts()
         metrics, step_ms = [], []
-        for i in range(steps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, opt, mt = fn(params, opt, batches[i], i)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            metrics.append({k: whole(v).clone() for k, v in mt.items()})
+        with graphs.disabled() if eager else contextlib.nullcontext():
+            for i in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, mt = fn(params, opt, batches[i], i)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                metrics.append({k: whole(v).clone() for k, v in mt.items()})
+        fn.release()
         out = {"metrics": metrics, "step_ms": step_ms,
                "peak_bytes": torch.cuda.max_memory_allocated() - base,
                "launches": kernels.launch_counts(),
@@ -3657,11 +3814,31 @@ def sharded_steps(tile: tuple[int, int]) -> dict:
             out["estimate"] = bundle.lower().peak_bytes
         return out
 
+    eager = run(None, "nothing_saveable", spec["steps"], eager=True)
     plain = run(None, "nothing_saveable", spec["steps"])
     plain_params = plain.pop("params")
     sharded = run(mesh, "nothing_saveable", spec["steps"])
+    eager2 = run(None, "nothing_saveable", spec["steps"], eager=True)
     if not sharded["dtensor"]:
         fail("the sharded step's parameters are not DTensors")
+    # the captured meshless steps against the eager ones, within the
+    # spread of the two eager runs (0 where eager is bitwise repeatable)
+    gaps = {}
+    for key in ("loss", "grad_norm"):
+        gaps[key] = tuple(
+            max(float((x[i][key] - y[i][key]).abs()) for i in
+                range(spec["steps"]))
+            for x, y in ((plain["metrics"], eager["metrics"]),
+                         (eager2["metrics"], eager["metrics"])))
+    gaps["params"] = tuple(
+        max(float((x[k].float() - eager["params"][k].float()).abs().max())
+            for k in x)
+        for x in (plain_params, eager2["params"]))
+    for key, (gap, spread) in gaps.items():
+        if not gap <= spread:
+            fail(f"captured meshless steps: {key} differs from the eager "
+                 f"steps' by {gap}, more than the spread of two eager runs "
+                 f"({spread})")
     for i, (a, c) in enumerate(zip(plain["metrics"], sharded["metrics"])):
         for key in ("loss", "grad_norm"):
             if not torch.equal(a[key], c[key]):
@@ -3692,11 +3869,28 @@ def sharded_steps(tile: tuple[int, int]) -> dict:
           + ", global norms "
           + ", ".join(f"{float(m['grad_norm']):.6f}"
                       for m in sharded["metrics"]) + ", final params)")
-    print(f"  step ms (each): sharded "
+    print(f"  captured meshless vs eager meshless, max abs difference "
+          f"(eager vs eager again): "
+          + ", ".join(f"{k} {g:.3e} ({sp:.3e})"
+                      for k, (g, sp) in gaps.items()))
+    print(f"  step ms (each; captured: the first eager, the second "
+          f"captured): sharded captured "
           + ", ".join(f"{t:.1f}" for t in sharded["step_ms"])
-          + "; meshless " + ", ".join(f"{t:.1f}" for t in plain["step_ms"]))
+          + "; meshless captured "
+          + ", ".join(f"{t:.1f}" for t in plain["step_ms"])
+          + "; meshless eager "
+          + ", ".join(f"{t:.1f}" for t in eager["step_ms"])
+          + "; meshless eager again "
+          + ", ".join(f"{t:.1f}" for t in eager2["step_ms"]))
+    print(f"  replayed step (mean after the capture): sharded "
+          f"{statistics.mean(sharded['step_ms'][2:]):.1f} ms, meshless "
+          f"{statistics.mean(plain['step_ms'][2:]):.1f} ms; eager meshless "
+          f"{statistics.mean(eager['step_ms'][1:] + eager2['step_ms'][1:]):.1f}"
+          f" ms (mean after the first)")
     print(f"  peak memory: sharded {sharded['peak_bytes'] / 2 ** 30:.3f} GiB,"
-          f" meshless {plain['peak_bytes'] / 2 ** 30:.3f} GiB; the dry run's "
+          f" meshless {plain['peak_bytes'] / 2 ** 30:.3f} GiB (captured), "
+          f"meshless eager {eager['peak_bytes'] / 2 ** 30:.3f} GiB; the dry "
+          f"run's "
           f"estimate on meta {sharded['estimate'] / 2 ** 30:.3f} GiB "
           f"({ratio:.3f}x the measured)")
     print(f"  flash launches {flash} ({per_step} a step), routes "
@@ -3738,6 +3932,9 @@ def sharded_steps(tile: tuple[int, int]) -> dict:
     runs = [sharded] + list(runs_by_policy.values())
     return {"sharded": {k: v for k, v in sharded.items() if k != "metrics"},
             "plain": {k: v for k, v in plain.items() if k != "metrics"},
+            "eager": {k: v for k, v in eager.items()
+                      if k not in ("metrics", "params")},
+            "eager_gaps": gaps,
             "losses": [float(m["loss"]) for m in sharded["metrics"]],
             "policies": policies, "estimate_ratio": ratio,
             "launches": {k: sum(r["launches"][k] for r in runs)
@@ -4408,7 +4605,8 @@ def main() -> int:
 
     # -- 8. serving -----------------------------------------------------------
     phase("serving (mamba2-130m 4 x 32768-token prefill; granite-3-2b and "
-          "zamba2-2.7b through serve, 4 x 4096 + 32; CUDA-graph decode; "
+          "zamba2-2.7b through serve, 4 x 4096 + 32; decode eager and "
+          "captured; "
           "32k-context decode)")
     serving = serving_path()
     errs["continue"] = decode_continues_prefill()
@@ -4457,8 +4655,9 @@ def main() -> int:
     d128 = stack["flash"]["d128"]
 
     # -- 15. training launch ---------------------------------------------------
-    phase("training launch (mamba2-130m through launch.train: 10 steps, "
-          "5 + resume to 10; granite-3-2b at 40 layers, 3 AdamW steps)")
+    phase("training launch (mamba2-130m through launch.train: 40 steps, "
+          "20 + resume to 40, two eager runs of 6; granite-3-2b at 40 "
+          "layers, 7 AdamW steps eager and captured)")
     training = training_launch_path(step["tile"])
     dense_train = training["dense"]
     launcher_runs = training["launcher"]["runs"]
@@ -4577,6 +4776,7 @@ def main() -> int:
          "model_stack_max_abs_err": stack["flash"]["errs"],
          "dtype": "bfloat16", "causal": True, "tensor_cores": True,
          "model_step_ms": step["step_ms"][(1, *step["tile"])],
+         "model_step_eager_vs_captured": step["compare"],
          "full_depth_step_ms": deep["step_ms"],
          "full_depth_peak_gib": deep["peak_gib"],
          "model_stack": {
@@ -4591,6 +4791,10 @@ def main() -> int:
              "arch": DIST_STEP["arch"], "layers": DIST_STEP["layers"],
              "sharded_step_ms": dist["steps"]["sharded"]["step_ms"],
              "meshless_step_ms": dist["steps"]["plain"]["step_ms"],
+             "meshless_eager_step_ms": dist["steps"]["eager"]["step_ms"],
+             "meshless_eager_peak_gib": (
+                 dist["steps"]["eager"]["peak_bytes"] / 2 ** 30),
+             "captured_vs_eager": dist["steps"]["eager_gaps"],
              "sharded_peak_gib": (dist["steps"]["sharded"]["peak_bytes"]
                                   / 2 ** 30),
              "meshless_peak_gib": (dist["steps"]["plain"]["peak_bytes"]
@@ -4609,7 +4813,11 @@ def main() -> int:
                       "update_ms": dense_train["update_ms"],
                       "grad_norm": dense_train["grad_norm"],
                       "losses": dense_train["result"]["losses"],
-                      "peak_gib": dense_train["peak_gib"],
+                      "captured_step_ms": dense_train["captured_step_ms"],
+                      "eager_peak_gib": dense_train["eager_peak_gib"],
+                      "captured_peak_gib": dense_train["captured_peak_gib"],
+                      "reserved_gib": dense_train["reserved_gib"],
+                      "modes": list(TRAIN_DENSE["modes"]),
                       "flash_per_step": dense_train["flash_per_step"]}},
         {"name": "flash_attention_f32", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_tf32x3.cu",
@@ -4696,6 +4904,7 @@ def main() -> int:
                     if label != "continue"},
          "zamba2_step_ms": {f"use_flash={k[0]} tile=({k[1]}, {k[2]})": ms
                             for k, ms in hyb["step_ms"].items()},
+         "zamba2_step_eager_vs_captured": hyb["compare"],
          "zamba2_step_trace": {"wall_ms": trace["wall_ms"],
                                "device_busy_ms": trace["busy_ms"],
                                "device_ms": trace["parts"]},
@@ -4705,6 +4914,8 @@ def main() -> int:
              "loss_drop": training["launcher"]["loss_drop"],
              "resume_rel": training["launcher"]["resume_rel"],
              "checkpoint_gib": training["launcher"]["ckpt_gib"],
+             "captured_vs_eager_loss": training["launcher"]["eager_gap"],
+             "eager_vs_eager_loss": training["launcher"]["eager_spread"],
              "runs": {label: {"steps": run["steps"],
                               "step_ms": run["step_ms"],
                               "update_ms": run["update_ms_mean"],
@@ -4713,6 +4924,7 @@ def main() -> int:
                               "loss_last": run["result"]["losses"][-1],
                               "peak_gib": run["peak_gib"],
                               "ssd_per_step": run["ssd_per_step"],
+                              "eager": run["eager"],
                               "wall_s": run["wall_s"]}
                       for label, run in launcher_runs.items()}}},
     ]}))

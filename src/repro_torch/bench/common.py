@@ -56,11 +56,13 @@ import functools
 import itertools
 import math
 import threading
+import weakref
 from typing import Callable, Union
 
 import numpy as np
 import torch
 
+from .. import graphs
 from ..core import (Direction, EvaluationSettings, SearchSpace,
                     default_cache, grid, steady_sampler, timed_sampler)
 from ..core.card_clock import CardClock
@@ -807,13 +809,20 @@ def model_step_family(workload: str,
     name (its SMOKE config), a :class:`ModelConfig` or None (the tiny
     dense toy). The weights, inputs and work term are built once, at the
     first config, and shared by every config; each config pre-heats
-    once, at its first invocation. Samples are host-clock GFLOP/s around
+    once, at its first invocation. On the card the pre-heat also
+    captures the config's step in a CUDA graph
+    (:func:`repro_torch.graphs.captured`, the counterpart of the
+    reference's ``w.compiled()``: an eager warm-up call, then the
+    capture), every sample replays it, and the graph is released with
+    the config's sampler factory, when its trial is done; on the host
+    every call is eager. Samples are host-clock GFLOP/s around
     one step and a ``torch.cuda.synchronize``: a step takes
     milliseconds, so the tens of microseconds of dispatch and
     synchronize in each sample (PERF.md) are negligible. ``precompile``
     builds the shared workload and, on the card, the kernel library for
     a flash config or a model with SSD layers, in the tuner's background
-    pipeline. ``audit_spec`` declares the step under a config on ``meta``
+    pipeline (no capture there: it runs on the tuner's own thread).
+    ``audit_spec`` declares the step under a config on ``meta``
     weights and tokens against the family's work term (the plain path's
     count): the tuner audits the space's first config, ``use_flash=0``,
     where the two agree; at ``use_flash=1`` the trace counts the flash
@@ -835,22 +844,30 @@ def model_step_family(workload: str,
     def bench(cfg: dict) -> Callable:
         w, flops = base()
         wc = _model_step(w, cfg)
+        # the workload's arguments are the same tensors at every call, so
+        # the graph reads them in place
+        step = graphs.captured(wc.fn) if graphs.enabled(dev) else wc.fn
         heated = threading.Event()
 
         def factory():
             if not heated.is_set():
-                wc.fn(*wc.args)                  # pre-heat, once per config
+                # pre-heat, once per config: on the card the eager
+                # warm-up, then the capture
+                for _ in range(2 if step is not wc.fn else 1):
+                    step(*wc.args)
                 sync()
                 heated.set()
             trace_instant("workload", kernel=workload, arch=w.cfg.name,
                           flops=flops, **{k: cfg[k] for k in sorted(cfg)})
 
             def run():
-                wc.fn(*wc.args)
+                step(*wc.args)
                 sync()
 
             return timed_sampler(run, work=flops / 1e9)  # GFLOP/s
 
+        if step is not wc.fn:
+            weakref.finalize(factory, step.release)
         return factory
 
     def precompile(cfg: dict) -> None:

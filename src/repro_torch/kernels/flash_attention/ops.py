@@ -48,7 +48,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import threading
 from typing import Any, Optional, Sequence
 
 import torch
@@ -56,6 +55,7 @@ import torch.nn.functional as F
 
 from ...distributed.local import local_vjp, to_layout
 from .. import build, registry
+from ..counting import count_launch
 
 __all__ = ["OP", "ROUTE_TILES", "SM90_TILES", "TF32X3_D256_TILES",
            "TF32X3_TILES", "attention_ref", "bytes_moved", "flash_attention",
@@ -89,7 +89,6 @@ _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 7
              + (ctypes.c_int, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
                 ctypes.c_void_p))
 _MAX_GRID_YZ = 65535
-_COUNT_LOCK = threading.Lock()
 #: (dtype, head dim) -> ctypes launcher, filled at its first launch
 _LAUNCHERS: dict = {}
 
@@ -299,9 +298,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {rc}")
-    with _COUNT_LOCK:
-        flash_attention.launches += 1
-        flash_attention.route_launches[path] += 1
+    count_launch(flash_attention, path)
     return o
 
 

@@ -33,12 +33,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Any, Optional, Sequence
 
 import torch
 
 from .. import build, registry
+from ..counting import count_launch
 
 __all__ = ["BF16_TILES", "DEFAULT_TILES", "OP", "ROUTE_TILES", "TILES",
            "flops", "matmul", "matmul_ref", "route", "smem_bytes",
@@ -70,7 +70,6 @@ _MAX_GRID_Y = 65535
 #: a block's opt-in shared memory on an H100, which the tensor-core
 #: kernel's ring fills (csrc/hopper.cuh's kSmemLimit)
 _SMEM_LIMIT = 232448
-_COUNT_LOCK = threading.Lock()
 #: (dtype, tile) -> ctypes launcher, filled at its first launch
 _LAUNCHERS: dict = {}
 
@@ -192,9 +191,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
     if rc != 0:
         raise RuntimeError(f"matmul {path} kernel launch failed: CUDA "
                            f"error {rc}")
-    with _COUNT_LOCK:
-        matmul.launches += 1
-        matmul.route_launches[path] += 1
+    count_launch(matmul, path)
     return c
 
 

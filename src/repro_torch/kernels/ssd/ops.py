@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Any, Optional, Sequence
 
 import torch
@@ -36,6 +35,7 @@ import torch
 from ...distributed.actctx import cumsum, reshape
 from ...distributed.local import local_vjp, to_layout
 from .. import build, registry
+from ..counting import count_launch
 from .ref import ssd_chunk_scan_ref
 
 __all__ = ["KERNELS", "MAX_STATE", "OP", "bytes_moved", "chunk_scan",
@@ -54,7 +54,6 @@ _MAX_GRID_X = 2 ** 31 - 1
 _MAX_GRID_Y = 65535
 _ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int64,) * 6
              + (ctypes.c_int, ctypes.c_void_p))
-_COUNT_LOCK = threading.Lock()
 _LAUNCHER: list = []          # the ctypes launcher, filled at first launch
 
 
@@ -185,8 +184,7 @@ def _launch(xdt, bm, cm, cum, h0, return_state: bool):
     if rc != 0:
         raise RuntimeError(f"SSD chunk-scan kernel launch failed: CUDA "
                            f"error {rc}")
-    with _COUNT_LOCK:
-        ssd_chunk_scan.launches += 1
+    count_launch(ssd_chunk_scan)
     return y, h_out
 
 

@@ -14,19 +14,18 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import threading
 from typing import Any, Sequence
 
 import torch
 
 from .. import build, registry
+from ..counting import count_launch
 
 __all__ = ["OP", "bytes_moved", "flops", "triad", "triad_ref"]
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
-_COUNT_LOCK = threading.Lock()
 _LAUNCHERS: dict = {}   # dtype -> ctypes launcher, filled at its first launch
 
 
@@ -63,8 +62,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, gamma: float) -> torch.Tensor:
             float(gamma), dev.index, build.current_stream_ptr(dev.index))
     if rc != 0:
         raise RuntimeError(f"triad kernel launch failed: CUDA error {rc}")
-    with _COUNT_LOCK:
-        triad.launches += 1
+    count_launch(triad)
     return c
 
 

@@ -6,20 +6,32 @@ Usage:
       --smoke --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
 The reference jits the steps of ``train.steps.build_prefill_step`` and
-``build_decode_step`` over a host mesh; both belong to the port's
-training launch and distribution (``ROADMAP.md``), and on one card
-there is nothing to shard. So the port calls the model API directly,
-``api.prefill_fn``, ``api.extend_cache`` and ``api.decode_fn``, under
-``torch.no_grad()`` (nothing here needs a gradient, and without it every
-step would keep its activations for one). Decode writes the KV cache in
-place, so a step moves one slot of it, not the whole cache.
+``build_decode_step`` over a host mesh, and its decode once more with
+``jax.jit(decode.fn)``, compiled at its first call and run ``gen - 1``
+times. On one card there is nothing to shard, so the port calls the
+model API, ``api.prefill_fn``, ``api.extend_cache`` and
+``api.decode_fn``, under ``torch.no_grad()`` (nothing here needs a
+gradient, and without it every step would keep its activations for
+one). Decode writes the KV cache in place, so a step moves one slot of
+it, not the whole cache.
+
+On the card decode goes through :func:`repro_torch.graphs.captured`,
+the port's counterpart of ``jax.jit``: the first step runs eagerly, the
+second captures a CUDA graph of one step (the cache donated, ``pos`` a
+device scalar), and every later step replays it, so a step is no longer
+the host issuing some 60 ops a layer. The logits a step returns are the
+graph's buffer, so the loop keeps clones. Prefill stays eager: it runs
+once, and a graph pays only when it is replayed. On the host every step
+is eager.
 
 The clocks read the host's ``time.perf_counter`` after a device
 synchronize: after the prefill (the cache it fills is what decode
-reads) and after the decode loop. The first prefill of a process also
-holds the one-time costs (the SSD kernel library's build on the card),
-as the reference's first call holds its compilation; warm up with a
-short call first to time the steady state.
+reads) and after the decode loop, which holds the warm-up step and the
+capture, as the reference's decode clock holds its compilation. The
+first prefill of a process also holds the one-time costs (the SSD
+kernel library's build on the card), as the reference's first call
+holds its compilation; warm up with a short call first to time the
+steady state.
 """
 
 from __future__ import annotations
@@ -31,14 +43,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import configs
+from .. import configs, graphs
 from ..device import resolve_device, synchronizer
 from ..models import api
 from ..models.config import ModelConfig
 from ..models.params import materialize
 from ..models.transformer import StepConfig
 
-__all__ = ["generate", "main", "serve", "serve_inputs"]
+__all__ = ["generate", "greedy_decode", "main", "serve", "serve_inputs"]
 
 
 def serve_inputs(cfg: ModelConfig, batch: int, rng: np.random.Generator,
@@ -56,15 +68,62 @@ def serve_inputs(cfg: ModelConfig, batch: int, rng: np.random.Generator,
     return {name: torch.from_numpy(x).to(device=device, dtype=cfg.tdtype)}
 
 
+def greedy_decode(params: dict, logits: torch.Tensor, cache: dict, pos: int,
+                  steps: int, cfg: ModelConfig, step: StepConfig, *,
+                  forced: Optional[torch.Tensor] = None,
+                  inputs: Optional[dict] = None) -> dict:
+    """``steps`` decode steps from ``cache`` after ``logits`` (B, L, V)
+    (a prefill's, or the step before's), at positions ``pos``, ``pos +
+    1``, ...; ``cache`` is written in place. Each token is the argmax of
+    the last logits over the vocabulary, or, when ``forced`` (B, steps +
+    1) is given, its column t (teacher forcing); ``inputs`` (the
+    family's ``frames`` or ``image_embeds``) go to every step. On the
+    card the steps go through :func:`repro_torch.graphs.captured`: the
+    first runs eagerly, the second captures a CUDA graph of one step (the
+    cache donated, ``pos`` a device scalar), the rest replay it; the
+    graph is released at the end. Returns the tokens (B, steps + 1),
+    the first picked from ``logits``, and the logits each came from (B,
+    steps + 1, V)."""
+    inputs = inputs or {}
+
+    def pick(t: int, logits: torch.Tensor) -> torch.Tensor:
+        if forced is not None:
+            return forced[:, t:t + 1]
+        return logits[:, -1:, :cfg.vocab_size].argmax(dim=-1)
+
+    def decode_step(params, batch, cache, pos):
+        return api.decode_fn(params, batch, cache, pos, cfg, step)
+
+    decode = decode_step
+    if graphs.enabled(logits.device):
+        decode = graphs.captured(decode_step, donate_argnums=(2,),
+                                 device_scalars=(3,))
+    tokens = pick(0, logits)
+    generated, step_logits = [tokens], [logits[:, -1:]]
+    with torch.no_grad():
+        for t in range(steps):
+            logits, cache = decode(params, {"tokens": tokens, **inputs},
+                                   cache, pos + t)
+            tokens = pick(t + 1, logits)
+            generated.append(tokens)
+            # a graph's logits are its buffer, overwritten by the next step
+            step_logits.append(logits.clone())
+    if decode is not decode_step:
+        decode.release()
+    return {"tokens": torch.cat(generated, dim=1),
+            "logits": torch.cat(step_logits, dim=1)}
+
+
 def generate(params: dict, prompt: torch.Tensor, cfg: ModelConfig, gen: int,
              *, forced: Optional[torch.Tensor] = None,
              inputs: Optional[dict] = None) -> dict:
     """Prefill ``prompt`` (B, S) and decode ``gen - 1`` more tokens, each
     at position S + t from the cache the prefill built (grown by ``gen``
-    slots). ``inputs`` holds the family's other inputs (``frames``,
-    ``image_embeds``), given to the prefill and to every decode step.
-    Each token is the argmax of the last logits over the
-    vocabulary, or, when ``forced`` (B, gen) is given, its column t
+    slots), by :func:`greedy_decode` (on the card, replayed from a CUDA
+    graph from its second step on). ``inputs`` holds the family's other
+    inputs (``frames``, ``image_embeds``), given to the prefill and to
+    every decode step. Each token is the argmax of the last logits over
+    the vocabulary, or, when ``forced`` (B, gen) is given, its column t
     (teacher forcing). Returns the tokens (B, gen) int32, the logits each
     token came from (B, gen, vocab_padded) and the seconds of the prefill
     and of the decode loop, each read after a device synchronize. The
@@ -82,26 +141,12 @@ def generate(params: dict, prompt: torch.Tensor, cfg: ModelConfig, gen: int,
         sync()
         t_prefill = time.perf_counter() - t0
         cache = api.extend_cache(cache, gen)
-
-        def pick(t: int, logits: torch.Tensor) -> torch.Tensor:
-            if forced is not None:
-                return forced[:, t:t + 1]
-            return logits[:, -1:, :cfg.vocab_size].argmax(dim=-1)
-
-        tokens = pick(0, logits)
-        generated, step_logits = [tokens], [logits[:, -1:]]
         t0 = time.perf_counter()
-        for t in range(gen - 1):
-            logits, cache = api.decode_fn(params,
-                                          {"tokens": tokens, **inputs},
-                                          cache, prompt_len + t, cfg, step)
-            tokens = pick(t + 1, logits)
-            generated.append(tokens)
-            step_logits.append(logits)
+        out = greedy_decode(params, logits, cache, prompt_len, gen - 1, cfg,
+                            step, forced=forced, inputs=inputs)
         sync()
         t_decode = time.perf_counter() - t0
-    return {"tokens": torch.cat(generated, dim=1).to(torch.int32),
-            "logits": torch.cat(step_logits, dim=1),
+    return {"tokens": out["tokens"].to(torch.int32), "logits": out["logits"],
             "prefill_s": t_prefill, "decode_s": t_decode}
 
 

@@ -15,10 +15,17 @@ make_host_mesh`, one rank per card; ``gloo`` for ``--device cpu``) with
 batches are DTensors, also at world size 1. The metrics are read back
 whole (replicated DTensors).
 
+On the card the step is captured in a CUDA graph (``bundle.jitted()``,
+:mod:`repro_torch.graphs`, the counterpart of the reference's jitted
+step): the first step of a run is eager, the second captures the graph,
+and every later step replays it. A resumed run brings new tensors, so it
+starts a graph of its own.
+
 Each step is timed on the host's clock between two device
 synchronizes, so a step's time holds its kernels; the reference's first
-(compiling) step is left out of the statistics, and so is the port's
-first, which holds the kernel library's build on the card.
+(compiling) step is left out of the statistics, and so are the port's
+first (the kernel library's build) and, on the card, its second (the
+capture).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_2b \\
@@ -33,7 +40,7 @@ from typing import Optional
 
 import torch
 
-from .. import configs
+from .. import configs, graphs
 from ..checkpoint import CheckpointManager
 from ..core import welford
 from ..core.confidence import ci_mean
@@ -97,6 +104,7 @@ def train(arch: str, steps: int = 100, batch: int = 8, seq: int = 256,
     losses = []
     # straggler watchdog: CI over observed step times (the paper's Welford)
     times = welford.init()
+    warm = start_step + (2 if graphs.enabled(dev) else 1)
     for step in range(start_step, steps):
         batch_data = pipeline.batch_at(step)
         block_until_ready()
@@ -110,7 +118,7 @@ def train(arch: str, steps: int = 100, batch: int = 8, seq: int = 256,
             if dt > straggler_factor * max(interval.hi, 1e-9):
                 print(f"[train] straggler step {step}: {dt:.3f}s vs "
                       f"CI hi {interval.hi:.3f}s")
-        if step > 0:  # skip the first step (one-time costs) in the stats
+        if step >= warm:  # one-time costs (build, capture) left out
             times = welford.update(times, dt)
         losses.append(_scalar(metrics["loss"]))
         if step % log_every == 0:
@@ -121,6 +129,7 @@ def train(arch: str, steps: int = 100, batch: int = 8, seq: int = 256,
             manager.save(step + 1, {"params": params, "opt": opt_state})
     if manager is not None:
         manager.save(steps, {"params": params, "opt": opt_state})
+    step_fn.release()
     leaf = next(iter(flatten(params).values()))
     return {"losses": losses, "final_loss": losses[-1],
             "mean_step_s": float(times.mean) if times.count else None,

@@ -5,6 +5,9 @@ A workload is a named callable with concrete example arguments. The
 benchmark layer (:func:`repro_torch.bench.common.model_step_family`)
 turns a model step into a tuning objective whose search space is the
 flash-attention tiles of :class:`~repro_torch.models.transformer.StepConfig`.
+A workload's ``fn`` is the eager step; on the card the benchmark layer
+captures it in a CUDA graph (:func:`repro_torch.graphs.captured`) and
+times its replays, as the reference times ``w.compiled()``.
 
 The work term (:func:`workload_flops`) replaces the reference's
 compiler-reported cost: ``torch.utils.flop_counter.FlopCounterMode``

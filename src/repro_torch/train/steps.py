@@ -8,14 +8,19 @@ The same bundles serve three consumers:
   * ``launch/train.py``   — real training on the host mesh;
   * the benchmarks       — step-level objectives for the tuner.
 
-The reference jits each step with its shardings. The port runs it
-eagerly: :meth:`StepBundle.jitted` places every argument on the mesh
+The reference jits each step with its shardings. The port's
+:meth:`StepBundle.jitted` places every argument on the mesh
 (``distribute_tensor``, each rank slicing its own copy; a DTensor
 already placed passes through) and runs the step under the activation
-context; :meth:`StepBundle.lower` traces it on ``meta``. Where the
-reference donates an argument, ``fn`` updates it in place. With
-``mesh=None`` a bundle has no shardings and runs plain tensors on one
-device, as before the distribution layer.
+context; on ``cuda`` the step goes through
+:func:`repro_torch.graphs.captured` (the counterpart of ``jax.jit``):
+its first call at a signature runs eagerly, the second captures a CUDA
+graph, and later calls replay it. The placement stays outside the graph.
+:meth:`StepBundle.lower` traces the step on ``meta``. Where the
+reference donates an argument, ``fn`` updates it in place, and the
+graph takes it as its own buffer. With ``mesh=None`` a bundle has no
+shardings and runs plain tensors on one device, as before the
+distribution layer.
 
 The train step's loss and gradients come from
 :func:`repro_torch.models.api.loss_and_grads`, the helper the workloads'
@@ -36,6 +41,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from .. import graphs
 from ..distributed import sharding as sh
 from ..distributed.actctx import activation_sharding, global_stride
 from ..models import api
@@ -98,19 +104,31 @@ class StepBundle:
     in_shardings: Any = None       # NamedSharding trees, same order
     out_shardings: Any = None      # sharding tree of the outputs
     donate_argnums: tuple = ()
+    device_scalars: tuple = ()     # int arguments read on the device
 
     def jitted(self) -> Callable:
-        """The step as an eager callable: its arguments placed on the mesh
-        (:func:`place`), its outputs redistributed to ``out_shardings``;
-        with no mesh (no shardings), ``fn`` itself."""
-        if self.in_shardings is None:
-            return self.fn
+        """The step as a callable: its arguments placed on the mesh
+        (:func:`place`), its outputs redistributed to ``out_shardings``
+        (with no mesh, neither); in between, on ``cuda``, the step
+        captured in a CUDA graph (:func:`repro_torch.graphs.captured`,
+        with the bundle's donated arguments and device scalars), on
+        ``cpu`` and ``meta`` ``fn`` itself. Outputs that are not donated
+        are the graph's buffers, overwritten by the next call. The
+        callable's ``release()`` frees its graphs."""
+        step = graphs.captured(self.fn, self.donate_argnums,
+                               self.device_scalars)
 
         def run(*args):
-            placed = tuple(place(a, s) for a, s in zip(args,
-                                                         self.in_shardings))
-            return place(self.fn(*placed), self.out_shardings)
+            if self.in_shardings is not None:
+                args = tuple(place(a, s)
+                             for a, s in zip(args, self.in_shardings))
+            device = next(x.device for x in flatten(args[0]).values())
+            out = (step if graphs.enabled(device) else self.fn)(*args)
+            if self.out_shardings is None:
+                return out
+            return place(out, self.out_shardings)
 
+        run.release = step.release
         return run
 
     def lower(self):
@@ -294,7 +312,8 @@ def build_train_step(cfg: ModelConfig, shape: WorkloadShape, mesh=None,
                 _batch_args(cfg, shape),
                 torch.empty((), dtype=torch.int32, device=_META))
     if mesh is None:
-        return StepBundle(fn=train_step, abstract_args=abstract)
+        return StepBundle(fn=train_step, abstract_args=abstract,
+                          donate_argnums=(0, 1), device_scalars=(3,))
     param_shard = sh.sharding_tree(defs, rules, mesh)
     opt_shard = sh.sharding_tree(opt_defs, rules, mesh)
     rep = _replicated(mesh)
@@ -304,7 +323,7 @@ def build_train_step(cfg: ModelConfig, shape: WorkloadShape, mesh=None,
                       _batch_shardings(cfg, shape, mesh, rules), rep),
         out_shardings=(param_shard, opt_shard,
                        {"loss": rep, "grad_norm": rep, "lr": rep}),
-        donate_argnums=(0, 1))
+        donate_argnums=(0, 1), device_scalars=(3,))
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +369,8 @@ def build_decode_step(cfg: ModelConfig, shape: WorkloadShape, mesh=None,
                 api.cache_init(cfg, shape, _META),
                 torch.empty((), dtype=torch.int32, device=_META))
     if mesh is None:
-        return StepBundle(fn=decode_step, abstract_args=abstract)
+        return StepBundle(fn=decode_step, abstract_args=abstract,
+                          donate_argnums=(2,), device_scalars=(3,))
     cache_shard = _cache_shardings(cfg, shape, mesh, rules)
     return StepBundle(
         fn=decode_step, abstract_args=abstract,
@@ -359,7 +379,7 @@ def build_decode_step(cfg: ModelConfig, shape: WorkloadShape, mesh=None,
                       cache_shard, _replicated(mesh)),
         out_shardings=(_logits_sharding(cfg, shape, mesh, rules),
                        cache_shard),
-        donate_argnums=(2,))
+        donate_argnums=(2,), device_scalars=(3,))
 
 
 def default_step_cfg(cfg: ModelConfig, shape: WorkloadShape) -> StepConfig:

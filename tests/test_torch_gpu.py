@@ -6,8 +6,12 @@ and SSD kernels' gradients, a mamba2 prefill through the SSD kernel,
 tuning sessions through the kernels (the GEMM tile search keeping all 12
 tiles, and a surrogate search over them recording its run in the
 ledger), on-device timing of incumbent trials through torch.profiler,
-the SMOKE granite and zamba2 decode on the card against the host, and
-three AdamW steps on the card against the same steps on the host.
+the SMOKE granite and zamba2 decode on the card against the host,
+three AdamW steps on the card against the same steps on the host, and
+captured steps (``repro_torch.graphs``): every kernel route replayed
+from a CUDA graph, ``generate``'s captured decode for each family's
+SMOKE config, and three captured train steps without a mesh and on the
+one-rank host mesh, each against the eager runs.
 
 Marked ``gpu``; each skips from inside the ``card`` fixture when no card
 is visible, so every worker collects the same tests (on the CPU they are
@@ -17,6 +21,8 @@ the shared conftest, which imports jax:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
+
+import contextlib
 
 import pytest
 import torch
@@ -572,3 +578,207 @@ def test_adamw_update_on_card_matches_the_host(card):
             torch.testing.assert_close(out.cpu(), want, rtol=rtol,
                                        atol=atol)
             out.copy_(want)      # the next step starts from the host's
+
+
+# ---------------------------------------------------------------------------
+# Captured steps (repro_torch.graphs): the port's counterpart of jax.jit
+# ---------------------------------------------------------------------------
+
+
+def _kernel_calls(device):
+    """(name, wrapper, call(inputs), inputs) of every kernel route, at
+    small shapes: each call goes through the wrapper as a step does."""
+    from repro_torch.kernels import flash_attention, matmul, triad
+    from repro_torch.kernels.ssd import ssd_chunk_scan
+    gen = torch.Generator().manual_seed(11)
+
+    def randn(*shape, dtype=torch.float32):
+        return _randn(gen, *shape, dtype=dtype, device=device)
+
+    def qkv(d, dtype):
+        return (randn(1, 4, 256, d, dtype=dtype),
+                randn(1, 2, 256, d, dtype=dtype),
+                randn(1, 2, 256, d, dtype=dtype))
+
+    def attend(q, k, v):
+        return flash_attention(q, k, v, bq=64, bk=64)
+
+    a = torch.rand(4, 512, 16, generator=gen)
+    dt = (0.01 + 0.2 * torch.rand(4, 512, 16, generator=gen)).to(device)
+    return [
+        ("triad", triad, lambda a, b: triad(a, b, gamma=3.0),
+         (randn(1 << 16), randn(1 << 16))),
+        ("matmul f32", matmul, lambda a, b: matmul(a, b),
+         (randn(256, 192), randn(192, 320))),
+        ("matmul bf16", matmul, lambda a, b: matmul(a, b),
+         (randn(256, 192, dtype=torch.bfloat16),
+          randn(192, 320, dtype=torch.bfloat16))),
+        ("flash bf16 D=64", flash_attention, attend, qkv(64, torch.bfloat16)),
+        ("flash bf16 D=128", flash_attention, attend,
+         qkv(128, torch.bfloat16)),
+        ("flash f32 D=64", flash_attention, attend, qkv(64, torch.float32)),
+        ("flash f32 D=256", flash_attention, attend,
+         qkv(256, torch.float32)),
+        ("ssd", ssd_chunk_scan,
+         lambda x, dt, a, b, c: ssd_chunk_scan(x, dt, a, b, c, chunk=128),
+         (0.5 * randn(4, 512, 16, 8), dt, -a.mean((0, 1)).to(device),
+          0.5 * randn(4, 512, 16), 0.5 * randn(4, 512, 16))),
+    ]
+
+
+@pytest.mark.parametrize("index", range(8))
+def test_each_kernel_replays_from_a_captured_graph_on_card(card, index):
+    """Every kernel route inside a CUDA graph (its launch function sets
+    its attributes and launches on the capturing stream): three calls on
+    new inputs, the first eager, the second captured and replayed, the
+    third replayed, each equal to the eager wrapper on the same inputs,
+    and one launch counted for each call."""
+    from repro_torch import graphs
+    name, wrapper, call, inputs = _kernel_calls(card)[index]
+    step = graphs.captured(call)
+    for i in range(3):
+        args = tuple(x * (1 + 0.25 * i) for x in inputs)
+        want = call(*args)
+        before = wrapper.launches
+        got = step(*args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1, name
+        assert torch.equal(got, want), (name, i)
+    (entry,) = step._entries.values()
+    assert entry.graph is not None and len(entry.launches) == 1, name
+    step.release()
+
+
+def _decode_runs(arch, card):
+    """generate's decode on the card, eager and captured, from the same
+    SMOKE weights and prompt: (tokens, logits, launches) of each."""
+    from repro_torch import graphs, kernels
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import generate, serve_inputs
+    from repro_torch.models import api
+    from repro_torch.models.params import materialize
+    import numpy as np
+    cfg = get_smoke(arch)
+    params = materialize(torch.Generator(device=card).manual_seed(0),
+                         api.param_defs(cfg))
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (2, 16))).to(card)
+    inputs = serve_inputs(cfg, 2, rng, card)
+    out = {}
+    for label in ("eager", "captured", "eager again"):
+        kernels.reset_launch_counts()
+        if label == "captured":
+            run = generate(params, prompt, cfg, 10, inputs=inputs)
+        else:
+            with graphs.disabled():
+                run = generate(params, prompt, cfg, 10, inputs=inputs)
+        torch.cuda.synchronize()
+        out[label] = (run["tokens"], run["logits"], kernels.launch_counts())
+    return out
+
+
+@pytest.mark.parametrize("arch", ["granite_3_2b", "granite_moe_1b_a400m",
+                                  "llama_3_2_vision_11b", "whisper_base",
+                                  "mamba2_130m", "zamba2_2_7b",
+                                  "mixtral_8x22b", "gemma_2b"])
+def test_captured_decode_gives_the_eager_tokens_on_card(card, arch):
+    """Each family's SMOKE config through ``generate`` on the card: the
+    decode steps replayed from a CUDA graph give the eager loop's tokens,
+    their logits the eager ones within the spread of two eager runs
+    (bitwise where the two eager runs are), and the same launches."""
+    runs = _decode_runs(arch, card)
+    e1, cap, e2 = runs["eager"], runs["captured"], runs["eager again"]
+    assert torch.equal(cap[0], e1[0]), (cap[0], e1[0])
+    spread = float((e1[1] - e2[1]).abs().max())
+    assert float((cap[1] - e1[1]).abs().max()) <= spread
+    assert cap[2] == e1[2] == e2[2]
+
+
+@pytest.fixture
+def one_rank():
+    """No process group before or after the test (a process has one)."""
+    from repro_torch.launch.mesh import release_world
+    release_world()
+    yield
+    release_world()
+
+
+def _train_runs(arch, mesh, card, use_flash):
+    """Three train steps of ``arch``'s SMOKE config on the card, eager,
+    captured and eager again, from the same weights and batches: each
+    run's metrics, final parameters and optimizer state (whole tensors)
+    and launches by kernel and route."""
+    from repro_torch import graphs, kernels
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import api
+    from repro_torch.models.config import WorkloadShape
+    from repro_torch.models.params import flatten, materialize
+    from repro_torch.models.transformer import StepConfig
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.steps import build_train_step
+    import numpy as np
+    cfg = get_smoke(arch)
+    defs = api.param_defs(cfg)
+    bundle = build_train_step(
+        cfg, WorkloadShape("t", 128, 2, "train"), mesh,
+        step_cfg=StepConfig(use_flash=use_flash, flash_block_q=64,
+                            flash_block_k=64, remat=True, loss_chunk=64))
+    rng = np.random.default_rng(3)
+    batches = [{"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 128))).to(card)} for _ in range(3)]
+
+    def whole(x):
+        return x.full_tensor() if type(x).__name__ == "DTensor" else x
+
+    out = {}
+    for label in ("eager", "captured", "eager again"):
+        params = materialize(torch.Generator(device=card).manual_seed(0),
+                             defs)
+        opt = adamw_init(defs, card)
+        fn = bundle.jitted()
+        kernels.reset_launch_counts()
+        metrics = []
+        with graphs.disabled() if label != "captured" else \
+                contextlib.nullcontext():
+            for i, batch in enumerate(batches):
+                params, opt, mt = fn(params, opt, batch, i)
+                metrics.append({k: whole(v).clone() for k, v in mt.items()})
+        torch.cuda.synchronize()
+        state = {f"p/{k}": whole(v) for k, v in flatten(params).items()}
+        state.update({f"o/{k}": whole(v) for k, v in flatten(opt).items()})
+        out[label] = (metrics, state, kernels.launch_counts(),
+                      dict(kernels.flash_attention.route_launches))
+        fn.release()
+    return out
+
+
+def _spread(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["meshless", "world1"])
+@pytest.mark.parametrize("arch,use_flash", [("granite_3_2b", True),
+                                            ("mamba2_130m", False)])
+def test_captured_train_steps_equal_the_eager_ones_on_card(
+        card, one_rank, arch, use_flash, sharded):
+    """Three train steps through ``StepBundle.jitted()`` on the card
+    (granite's SMOKE config with the f32 flash kernel and remat, mamba2's
+    with the SSD kernel; without a mesh and on the one-rank ``nccl`` host
+    mesh), replayed from a CUDA graph from the second on, against the
+    same steps run eagerly twice: every loss, global norm, parameter and
+    moment within the spread of the two eager runs (that spread is 0 on
+    an H100, so bitwise), and the same launches by kernel and route."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh() if sharded else None
+    runs = _train_runs(arch, mesh, card, use_flash)
+    e1, cap, e2 = runs["eager"], runs["captured"], runs["eager again"]
+    for i, (a, b, c) in enumerate(zip(e1[0], cap[0], e2[0])):
+        for k in a:
+            assert _spread(b[k], a[k]) <= _spread(c[k], a[k]), (i, k)
+    for k, v in e1[1].items():
+        assert _spread(cap[1][k], v) <= _spread(e2[1][k], v), k
+    assert cap[2] == e1[2] == e2[2] and cap[3] == e1[3] == e2[3]
+    launched = cap[2]["flash_attention"] if use_flash else \
+        cap[2]["ssd_chunk_scan"]
+    assert launched > 0
