@@ -9,8 +9,8 @@ run when it fails:
 
 1. card      — ``nvidia-smi`` name and power limit; torch, CUDA, nvcc.
 2. build     — compile the CUDA kernels for sm_90a, and beside them the
-               sequential SSD design the shipped one replaced
-               (``csrc/baseline/ssd_sequential.cu``, its own library, for
+               mma.sync SSD design the shipped one replaced
+               (``csrc/baseline/ssd_mma_sync.cu``, its own library, for
                its time only); print the seconds, every kernel's
                registers, spills and static shared memory, the kernels
                that spill, the dynamic shared memory of the GEMM and
@@ -20,7 +20,8 @@ run when it fails:
                bf16 tensor-core GEMM at every tile with its registers and
                spills, which must not spill or serialise its wgmma, ptxas
                C7520), and each of the four SSD kernels' threads, dynamic
-               shared memory and blocks per SM; the library's bf16, tf32x3
+               shared memory, blocks per SM, registers and spills (none
+               may spill or serialise its wgmma); the library's bf16, tf32x3
                and tf32x3_d256 flash tile tables and its bf16 GEMM table
                (and each tile's shared memory) must be the wrapper's.
 3. checks    — each kernel against its plain PyTorch version on the card:
@@ -47,7 +48,8 @@ run when it fails:
                and final state on SSD_CASES (the cases of
                ``tests/test_kernel_ssd.py``, an odd chunk, mamba2-130m's
                widths at Q in {128, 256, 512}, zamba2-2.7b's, N = 200,
-               N = 256 and B·H·C = 73,728 blocks) within SSD_ULPS f32 ulps
+               N = 256, B·H·C = 73,728 chunks and rows that are not 16
+               bytes apart: P = 6, N = 10, Q = 50) within SSD_ULPS f32 ulps
                of the largest element, and its autograd gradients (exact).
 4. timing    — CUDA-event times of each kernel at the main path's shapes
                (each checked against its plain version on the same
@@ -79,7 +81,7 @@ run when it fails:
                SSD kernel at SSD_MAIN (mamba2-130m serving, zamba2-2.7b
                train, mamba2-130m through the training launcher), checked
                first, beside its bounds (3xTF32 tensor
-               cores and CUDA cores), the sequential design it replaced
+               cores and CUDA cores), the mma.sync design it replaced
                (checked too), its plain version (no PyTorch call computes
                it) and each of its four kernels' device time
                (``torch.profiler``).
@@ -488,7 +490,8 @@ GEMMA_F32_STEP = {"arch": "gemma_2b", "layers": 2, "batch": 1, "seq": 4096}
 #: mamba2-130m's widths at S = 4096 with Q in {128, 256, 512} (the config's
 #: chunk and the knob space of src/repro/launch/perf.py:73), zamba2-2.7b's,
 #: N = 200 (a ragged last k slice) and N = 256 (the widest state taken), and
-#: B·H·C = 73,728 blocks, past 65,535 (the flattened grid)
+#: B·H·C = 73,728 chunks, and rows that are not 16 bytes apart (P = 6,
+#: N = 10, Q = 50: the rounded-up copies TMA needs)
 SSD_CASES = (
     [(2, 3, 4, 16, 8, 16, False), (2, 3, 4, 32, 16, 8, False),
      (1, 8, 2, 16, 8, 16, False), (2, 3, 8, 8, 8, 16, False),
@@ -497,7 +500,7 @@ SSD_CASES = (
     + [(1, 24, 4096 // q, q, 64, 128, False) for q in (128, 256, 512)]
     + [(1, 80, 32, 128, 64, 64, False)]
     + [(1, 3, 4, 96, 64, 200, True), (2, 2, 3, 128, 32, 256, False),
-       (1, 9, 8192, 8, 8, 16, False)])
+       (1, 9, 8192, 8, 8, 16, False), (1, 3, 2, 50, 6, 10, True)])
 #: the main path's shapes (B, H, C, Q, P, N): mamba2-130m serving,
 #: zamba2-2.7b's train step and mamba2-130m trained through the launcher
 #: (phase 15: B=8, S=2048)
@@ -509,7 +512,7 @@ SSD_MAIN = {"mamba2 serving": (4, 24, 128, 256, 64, 128),
 # order than the plain version's: the limit is SSD_ULPS f32 ulps (2**-23)
 # of the largest output element, per element, far below the reference
 # tests. 2e-5 times that magnitude; on an H100 the error reads under 5
-# such ulps (the sequential CUDA-core design read under 3; PERF.md). A
+# such ulps (the CUDA-core design of PR 13 read under 3; PERF.md). A
 # dropped or misplaced 64-position sub-tile moves outputs by O(0.1) or
 # more.
 SSD_ULPS = 8
@@ -1300,8 +1303,10 @@ def ssd_shape_cost(shape: tuple) -> dict:
     heads, the causal triangle of the quadratic terms): ``bound`` at the
     rate of f32-accurate products on the tensor cores (TF32X3_PEAK, the
     least time for this work at f32 accuracy), ``bound_cuda_cores`` at the
-    CUDA cores' F32_PEAK. ``blocks``: each kernel's grid (``ops.grid``)."""
-    from repro_torch.kernels.ssd import bytes_moved, flops, grid, needed_flops
+    CUDA cores' F32_PEAK. ``blocks``: each kernel's grid (``ops.grid``);
+    ``items``: the persistent kernels' work items (``ops.work_items``)."""
+    from repro_torch.kernels.ssd import (bytes_moved, flops, grid,
+                                         needed_flops, work_items)
     b, h, c, q, p, n = shape
     work = needed_flops(b, h, c * q, q, p, n)
     moved = bytes_moved(b, h, c * q, q, p, n, return_state=True)
@@ -1314,17 +1319,18 @@ def ssd_shape_cost(shape: tuple) -> dict:
             "bytes": moved, "bound": tc, "bound_by": tc_by,
             "bound_cuda_cores": cc, "bound_by_cuda_cores": cc_by,
             "blocks": {name: x * y for name, (x, y)
-                       in grid(b, h, c, q, p, n).items()}}
+                       in grid(b, h, c, q, p, n).items()},
+            "items": work_items(b, h, c, q, p, n)}
 
 
 def start_ssd_baseline_build(nvcc: str):
-    """Start compiling the sequential SSD design the shipped kernel
-    replaced (``csrc/baseline/ssd_sequential.cu``, outside the kernel
+    """Start compiling the mma.sync SSD design the shipped kernel
+    replaced (``csrc/baseline/ssd_mma_sync.cu``, outside the kernel
     library) into a library of its own; returns (process, path)."""
     from repro_torch.kernels import build
-    src = build.CSRC / "baseline" / "ssd_sequential.cu"
+    src = build.CSRC / "baseline" / "ssd_mma_sync.cu"
     out = build.BUILD_ROOT.parent / "ssd_baseline" / (
-        build.source_hash() + "_libssdsequential.so")
+        build.source_hash() + "_libssdmmasync.so")
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-shared", "-o",
                              str(out), str(src)], stdout=subprocess.PIPE,
@@ -1333,13 +1339,14 @@ def start_ssd_baseline_build(nvcc: str):
 
 
 def ssd_baseline_fn(lib_path):
-    """The sequential design's launcher as a function of the kernel-layout
-    operands (no h0), returning (y, final state): the time the shipped
-    kernel is compared with (``was_ms``), never a path of the port."""
+    """The mma.sync design's launcher as a function of the kernel-layout
+    operands (dense, no h0), returning (y, final state): the time the
+    shipped kernel is compared with (``was_ms``), never a path of the
+    port."""
     import torch
     from repro_torch.kernels import build
     fn = ctypes.CDLL(str(lib_path)).rt_ssd_chunk_scan_f32
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64] * 6
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
@@ -1349,12 +1356,13 @@ def ssd_baseline_fn(lib_path):
         y = torch.empty_like(xdt)
         h_out = xdt.new_empty((b, h, p, n))
         scores = xdt.new_empty((b, c, q, q))
+        states = xdt.new_empty((b, h, c, p, n))
         rc = fn(xdt.data_ptr(), bm.data_ptr(), cm.data_ptr(), cum.data_ptr(),
-                None, y.data_ptr(), h_out.data_ptr(), scores.data_ptr(), b, h,
-                c, q, p, n, xdt.device.index,
+                None, y.data_ptr(), h_out.data_ptr(), scores.data_ptr(),
+                states.data_ptr(), b, h, c, q, p, n, xdt.device.index,
                 build.current_stream_ptr(xdt.device.index))
         if rc != 0:
-            fail(f"the sequential SSD baseline failed to launch: CUDA error "
+            fail(f"the mma.sync SSD baseline failed to launch: CUDA error "
                  f"{rc}")
         return y, h_out
     return run
@@ -4066,8 +4074,8 @@ def main() -> int:
     baseline_log = baseline_proc.communicate(timeout=SUBPROCESS_TIMEOUT_S)[0]
     if baseline_proc.returncode != 0:
         print(baseline_log)
-        fail("the sequential SSD baseline did not build")
-    print(f"sequential SSD baseline {baseline_lib.name} built in "
+        fail("the mma.sync SSD baseline did not build")
+    print(f"mma.sync SSD baseline {baseline_lib.name} built in "
           f"{time.perf_counter() - t0:.2f}s (with the library)")
     ssd_baseline = ssd_baseline_fn(baseline_lib)
     log = build.library_path().parent / "build.log"
@@ -4151,6 +4159,14 @@ def main() -> int:
                   row.split(", 0 bytes stack")[0] + (
                       "" if ", 0 bytes spill stores" in row else " SPILLS")
                   for row in rows) or "not in the build log"))
+    ssd_bad = [line.strip() for line in text.splitlines()
+               if "C7520" in line and "_ssd_cu_" in line] \
+        if log.exists() else ["no build log"]
+    ssd_bad += [row for row in ptxas_rows if row.startswith("ssd_")
+                and ", 0 bytes spill stores" not in row]
+    if ssd_bad:
+        fail(f"an SSD kernel spills or has serialised wgmma (C7520): "
+             f"{ssd_bad}")
 
     # -- 3. checks ---------------------------------------------------------
     phase("kernel checks")
@@ -4464,17 +4480,27 @@ def main() -> int:
         want_y, want_h = ssd_chunk_scan_ref(xdt, bm, cm, cum,
                                             return_state=True)
         was_y, was_h = ssd_baseline(xdt, bm, cm, cum)
-        check_close(f"ssd {label} sequential baseline y", was_y, want_y,
+        check_close(f"ssd {label} mma.sync baseline y", was_y, want_y,
                     ssd_tol(want_y))
-        check_close(f"ssd {label} sequential baseline state", was_h, want_h,
+        check_close(f"ssd {label} mma.sync baseline state", was_h, want_h,
                     ssd_tol(want_h))
         del want_y, want_h, was_y, was_h
         cost = ssd_shape_cost(shape)
         with torch.no_grad():
-            t = {"kernel": cuda_ms(lambda: chunk_scan(
-                     xdt, bm, cm, cum, return_state=True), iters=10, warmup=2),
-                 "was": cuda_ms(lambda: ssd_baseline(xdt, bm, cm, cum),
-                                iters=3, warmup=1),
+            # the shipped kernel and the design it replaced in turns
+            # (kernel, was, was, kernel), each the mean of its two
+            turns = [cuda_ms(lambda: chunk_scan(
+                         xdt, bm, cm, cum, return_state=True), iters=10,
+                         warmup=2),
+                     cuda_ms(lambda: ssd_baseline(xdt, bm, cm, cum),
+                             iters=5, warmup=1)]
+            turns += [cuda_ms(lambda: ssd_baseline(xdt, bm, cm, cum),
+                              iters=5, warmup=1),
+                      cuda_ms(lambda: chunk_scan(
+                          xdt, bm, cm, cum, return_state=True), iters=10,
+                          warmup=2)]
+            t = {"kernel": (turns[0] + turns[3]) / 2,
+                 "was": (turns[1] + turns[2]) / 2, "turns": turns,
                  "plain": cuda_ms(lambda: ssd_chunk_scan_ref(
                      xdt, bm, cm, cum, return_state=True), iters=2,
                      warmup=1)}
@@ -4486,7 +4512,7 @@ def main() -> int:
               f"TFLOP/s of the formula's {cost['flops'] / 1e9:.1f} GFLOP, "
               f"{cost['needed'] / t['kernel'] / 1e9:.2f} of the needed "
               f"{cost['needed'] / 1e9:.2f}; {t['was'] / t['kernel']:.2f}x "
-              f"faster than the sequential design's {t['was']:.4f} ms) | "
+              f"faster than the mma.sync design's {t['was']:.4f} ms) | "
               f"bound {cost['bound']:.4f} ms at {TF32X3_PEAK / 1e12:.0f} "
               f"TFLOP/s, 3xTF32 ({cost['bound_by']}; "
               f"{cost['bound'] / t['kernel']:.1%} of it), "
@@ -4495,8 +4521,12 @@ def main() -> int:
               f"({cost['bound_by_cuda_cores']}); {cost['bytes'] / 1e9:.4f} "
               f"GB / 3.35 TB/s | plain {t['plain']:.4f} ms | library: none "
               f"(no PyTorch call computes the chunk scan)")
+        print("  turns (kernel, was, was, kernel) " + ", ".join(
+            f"{x:.4f}" for x in turns) + " ms")
         print("  blocks " + ", ".join(f"{k} {v}" for k, v in
-                                      cost["blocks"].items()))
+                                      cost["blocks"].items())
+              + "; work items " + ", ".join(f"{k} {v}" for k, v in
+                                            cost["items"].items()))
         print("  device ms per kernel (torch.profiler) " + ", ".join(
             f"{k} {v:.4f}" for k, v in parts_ms.items()))
         del ops, xdt, bm, cm, cum
@@ -4894,6 +4924,8 @@ def main() -> int:
          "train_device_ms_per_kernel": t_hyb["parts"],
          "launcher_train_shape": list(t_lt["shape"]),
          "launcher_train_ms": t_lt["kernel"],
+         "launcher_train_was_ms": t_lt["was"],
+         "was_source": "src/repro_torch/csrc/baseline/ssd_mma_sync.cu",
          "launcher_train_plain_ms": t_lt["plain"],
          "launcher_train_bound_ms": t_lt["bound"],
          "serving_prefill_ms": serving["prefill_ms"],

@@ -7,23 +7,30 @@ Each variant below is one named edit of the source, compiled with ``nvcc``
 into a library of its own and launched through its ``extern "C"``
 launcher on the same operands (the main path's shapes, ``SHAPES``):
 
-- ``tensor_core_sums``: the partial sums are dropped and every product
-  accumulates in the tensor cores' own accumulator (which truncates), for
-  the error that the partial sums avoid;
-- ``no_split``: operands reach the tensor cores unsplit (wrong values; for
-  the time the split costs);
-- ``no_loads``: the k slices after the first ring fill are not loaded
-  (wrong values; for the time the loads cost);
+- ``tensor_core_sums``: no fresh partial sums in the scores and states
+  kernels: each of their products accumulates its whole k range in the
+  tensor cores' own accumulator (which truncates), for the error that the
+  partial sums avoid (the output kernel's partials are always one stage:
+  its row halves share their registers);
+- ``partials_k64``: the scores' and states' partial sums span two stages
+  (k = 64, twice the shipped k = 32), for how long one may be;
+- ``no_split``: operands reach the tensor cores unsplit (hi = x, lo = 0;
+  wrong values; for the time the split costs, the producer's and the
+  consumers');
+- ``no_loads``: the stages after the ring's first fill are not copied
+  (wrong values; for the time TMA costs);
 - ``one_product``: only a_hi·b_hi of the three products runs (wrong
   values; for the time the tensor cores cost).
 
 It prints, and writes as JSON with ``--out``: the card's sustained
-``mma.sync`` m16n8k8 TF32 rate (independent chains, no memory traffic);
-for each variant, the largest error of y and of the final state in f32
-ulps of the largest element (against the plain version), each kernel's
-device time (``torch.profiler``) and the whole launch's time (CUDA
-events); and, for the shipped kernel and ``tensor_core_sums``, the error of
-each product alone on one chunk. Runs only on a card with ``nvcc``.
+``wgmma`` m64n64k8 TF32 rate, with long chains (4 accumulators, no wait)
+and in the kernel's pattern (a group of twelve into one accumulator, then
+a wait), two warpgroups a block; for each variant, the largest error of y
+and of the final state in f32 ulps of the largest element (against the
+plain version), each kernel's device time (``torch.profiler``) and the
+whole launch's time (CUDA events); and, for the shipped kernel and
+``tensor_core_sums``, the error of each product alone on one chunk. Runs
+only on a card with ``nvcc``.
 """
 
 from __future__ import annotations
@@ -33,12 +40,13 @@ import ctypes
 import json
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
 from ..kernels import build
-from ..kernels.ssd import KERNELS, ssd_chunk_scan_ref
+from ..kernels.ssd import KERNELS, ssd_chunk_scan_ref, tma_rows
 
 #: the main path's (B, H, C, Q, P, N): mamba2-130m serving, zamba2-2.7b train
 SHAPES = {"mamba2 serving": (4, 24, 128, 256, 64, 128),
@@ -48,53 +56,68 @@ SHAPES = {"mamba2 serving": (4, 24, 128, 256, 64, 128),
 EDITS = {
     "shipped": [],
     "tensor_core_sums": [
-        ("    Acc part;\n    zero(part);", "    Acc& part = acc;"),
-        ("        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += "
-         "part[mt][nt][e];", "        {}")],
+        ("constexpr int kPartialStages = 1;",
+         "constexpr int kPartialStages = 1 << 20;")],
+    "partials_k64": [
+        ("constexpr int kPartialStages = 1;",
+         "constexpr int kPartialStages = 2;")],
     "no_split": [
-        ("  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
-         "  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;",
-         "  hi = __float_as_uint(x);\n  lo = hi;")],
+        ("  split_tf32(x, hi, lo);\n}",
+         "  hi = __float_as_uint(x);\n  lo = 0u;\n}")],
     "no_loads": [
-        ("    if (next < steps) load(next, ring + (next % kStages) * kStage);",
-         "")],
+        ("  const bool load = true;", "  const bool load = !c.wrapped;")],
     "one_product": [
-        ("          mma_tf32(part[mt][nt], al[mt], bh[f][nt][0], "
-         "bh[f][nt][1]);",
-         "          part[mt][nt][0] += __uint_as_float(al[mt][0] ^ "
-         "al[mt][1] ^ al[mt][2] ^ al[mt][3]);"),
-        ("          mma_tf32(part[mt][nt], ah[f][mt], bl[nt][0], "
-         "bl[nt][1]);",
-         "          part[mt][nt][1] += __uint_as_float(bl[nt][0] ^ "
-         "bl[nt][1]);")],
+        ("constexpr int kProducts = 3;", "constexpr int kProducts = 1;")],
 }
 
-_MMA_RATE_SRC = r"""
-#include <cuda_runtime.h>
-#include <stdint.h>
-__global__ void mma_rate(float* out, int iters) {
-  uint32_t a[4];
-  for (int i = 0; i < 4; ++i)
-    a[i] = __float_as_uint(1.0f + threadIdx.x * 1e-3f + i);
-  const uint32_t b0 = __float_as_uint(0.5f), b1 = __float_as_uint(0.25f);
-  float acc[8][4] = {};
-  for (int it = 0; it < iters; ++it)
+_RATE_SRC = r"""
+#include "tf32x3.cuh"
+// 64 x 16 TF32 tiles of A and B (64-byte swizzle), two warpgroups a block.
+// chain = 0: 4 accumulators, 8 wgmma a group, one group in flight;
+// chain = 1: the kernel's pattern, 12 wgmma into one accumulator, then wait.
+__global__ void __launch_bounds__(256) wgmma_rate(float* out, int iters,
+                                                  int chain) {
+  __shared__ __align__(1024) uint32_t tile[2][64 * 16];
+  for (int i = threadIdx.x; i < 2 * 64 * 16; i += blockDim.x)
+    tile[i / 1024][i % 1024] = __float_as_uint(1.0f / (1 + i % 7));
+  __syncthreads();
+  fence_async_smem();
+  const uint64_t da = smem_desc<64>(smem_u32(tile[0]));
+  const uint64_t db = smem_desc<64>(smem_u32(tile[1]));
+  float acc[4][32];
+  for (int c = 0; c < 4; ++c)
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
+  for (int it = 0; it < iters; ++it) {
+    wgmma_fence();
+    if (chain) {
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
-      asm volatile(
-          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-          "{%0, %1, %2, %3};\n"
-          : "+f"(acc[c][0]), "+f"(acc[c][1]), "+f"(acc[c][2]),
-            "+f"(acc[c][3])
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      for (int k = 0; k < 12; ++k)
+        wgmma_ss<64>(acc[0], desc_add(da, 32 * (k % 2)),
+                     desc_add(db, 32 * (k % 2)), k > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc[0]);
+      for (int i = 0; i < 32; ++i) acc[1][i] += acc[0][i];
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+          wgmma_ss<64>(acc[c], desc_add(da, 32 * k), desc_add(db, 32 * k), 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+  }
+  wgmma_wait_all();
   float s = 0.0f;
-  for (int c = 0; c < 8; ++c)
-    s += acc[c][0] + acc[c][1] + acc[c][2] + acc[c][3];
+  for (int c = 0; c < 4; ++c) {
+    fence_regs(acc[c]);
+    for (int i = 0; i < 32; ++i) s += acc[c][i];
+  }
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
-extern "C" int run_mma_rate(void* out, int blocks, int iters) {
-  mma_rate<<<blocks, 128>>>(static_cast<float*>(out), iters);
+extern "C" int run_wgmma_rate(void* out, int blocks, int iters, int chain) {
+  wgmma_rate<<<blocks, 256>>>(static_cast<float*>(out), iters, chain);
   return cudaGetLastError();
 }
 """
@@ -103,8 +126,9 @@ extern "C" int run_mma_rate(void* out, int blocks, int iters) {
 def _compile(src: str, out: Path) -> ctypes.CDLL:
     cu = out.with_suffix(".cu")
     cu.write_text(src, encoding="utf-8")
-    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
-                           str(out), str(cu)], text=True, capture_output=True)
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I",
+                           str(build.CSRC), "-shared", "-o", str(out),
+                           str(cu)], text=True, capture_output=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {out.name}:\n{proc.stdout}"
                            f"{proc.stderr}")
@@ -125,7 +149,7 @@ def variant_source(name: str) -> str:
 
 def _launcher(lib: ctypes.CDLL):
     fn = lib.rt_ssd_chunk_scan_f32
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64] * 9
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
@@ -134,16 +158,18 @@ def _launcher(lib: ctypes.CDLL):
         n = bm.shape[-1]
         y = torch.empty_like(xdt)
         h_out = xdt.new_empty((b, h, p, n))
-        scores = xdt.new_empty((b, c, q, q))
-        states = xdt.new_empty((b, h, c, p, n))
+        (xdt, ld_p), (bm, ld_n), (cm, _), (cum, ld_q) = map(
+            tma_rows, (xdt, bm, cm, cum))
+        scores = xdt.new_empty((b, c, q, ld_q))
+        states = xdt.new_empty((b, h, c, p, ld_n))
         rc = fn(xdt.data_ptr(), bm.data_ptr(), cm.data_ptr(), cum.data_ptr(),
                 None if h0 is None else h0.data_ptr(), y.data_ptr(),
                 h_out.data_ptr(), scores.data_ptr(), states.data_ptr(), b, h,
-                c, q, p, n, xdt.device.index,
+                c, q, p, n, ld_p, ld_n, ld_q, xdt.device.index,
                 build.current_stream_ptr(xdt.device.index))
         if rc != 0:
             raise RuntimeError(f"launch failed: CUDA error {rc}")
-        return y, h_out, scores
+        return y, h_out, scores[..., :q]
     return run
 
 
@@ -198,18 +224,24 @@ def kernel_ms(fn, names=KERNELS, calls: int = 3) -> dict:
     return out
 
 
-def mma_rate(work: Path) -> dict:
-    """Sustained mma.sync m16n8k8 TF32 rate: 16 warps an SM, 8 independent
-    accumulator chains a warp."""
-    lib = _compile(_MMA_RATE_SRC, work / "mma_rate.so")
-    lib.run_mma_rate.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+def wgmma_rate(work: Path) -> dict:
+    """Sustained wgmma m64n64k8 TF32 rate, TFLOP/s, two warpgroups a block
+    and one block an SM per 256 threads: long chains (``chains``) and the
+    kernel's pattern of a group of twelve, then a wait (``groups_of_12``), at
+    1 and at 2 blocks an SM (2 and 4 warpgroups)."""
+    lib = _compile(_RATE_SRC, work / "wgmma_rate.so")
+    lib.run_wgmma_rate.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    blocks, iters = sms * 4, 4096
-    out = torch.empty(blocks * 128, device="cuda")
-    ms = _ms(lambda: lib.run_mma_rate(out.data_ptr(), blocks, iters), 3)
-    mmas = blocks * 4 * iters * 8
-    return {"tflops_tf32": mmas * 2048 / ms / 1e9,
-            "mma_per_us_per_sm": mmas / sms / (ms * 1e3)}
+    out = {}
+    for chain, label in ((0, "chains"), (1, "groups_of_12")):
+        for per_sm in (1, 2):
+            blocks, iters = sms * per_sm, 2048
+            buf = torch.empty(blocks * 256, device="cuda")
+            ms = _ms(lambda: lib.run_wgmma_rate(buf.data_ptr(), blocks,
+                                                iters, chain), 3)
+            mmas = blocks * 2 * iters * (12 if chain else 8)
+            out[f"{label}_{2 * per_sm}wg"] = mmas * 2 * 64 * 64 * 8 / ms / 1e9
+    return out
 
 
 def probe() -> dict:
@@ -219,10 +251,12 @@ def probe() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     work = Path(tempfile.mkdtemp(prefix="ssd_probe_"))
     report = {"device": torch.cuda.get_device_name(0),
-              "mma_sync_tf32": mma_rate(work), "variants": {}}
-    runs = {name: _launcher(_compile(variant_source(name),
-                                     work / f"ssd_{name}.so"))
-            for name in EDITS}
+              "wgmma_tf32": wgmma_rate(work), "variants": {}}
+    with ThreadPoolExecutor(len(EDITS)) as pool:  # one nvcc a variant
+        libs = dict(zip(EDITS, pool.map(
+            lambda name: _compile(variant_source(name),
+                                  work / f"ssd_{name}.so"), EDITS)))
+    runs = {name: _launcher(lib) for name, lib in libs.items()}
     gen = torch.Generator(device="cuda").manual_seed(3)
     for label, shape in SHAPES.items():
         xdt, bm, cm, cum, _ = _inputs(gen, *shape)

@@ -1,5 +1,6 @@
-// Mamba2 SSD chunk scan (state-space duality), f32 results from the tensor
-// cores.
+// Mamba2 SSD chunk scan (state-space duality), f32 results from Hopper's
+// tensor cores: every product as three TF32 products (3xTF32) on wgmma,
+// every operand brought in by TMA on an mbarrier ring.
 //
 // Replaces: src/repro/kernels/ssd/ssd.py:36, _ssd_kernel /
 // ssd_chunk_scan_pallas (the model-layout reshapes of ops.ssd_chunk_scan
@@ -27,426 +28,743 @@
 // P = 64, N = 64; bytes bound it there: 0.1725 GB), against 2.375 and
 // 0.121 ms at the CUDA cores' 67 TFLOP/s.
 //
-// Design: the chunk-parallel decomposition of SSD (Dao & Gu 2024, §6; the
-// four steps of mamba_ssm's ssd_combined). Only the state carry is
-// sequential, and it is elementwise; the three products that do not depend
-// on the carried state run for every chunk at once. One launcher enqueues
-// four kernels on the caller's stream:
-//
+// Decomposition: SSD's chunk-parallel form (Dao & Gu 2024, §6; the four
+// steps of mamba_ssm's ssd_combined). Only the state carry is sequential,
+// and it is elementwise; the three products that do not depend on the
+// carried state run for every chunk at once. One launcher enqueues four
+// kernels on the caller's stream:
 // 1. ssd_scores_kernel: each chunk's C_c B_c^T, which depends on (b, c)
 //    only (the heads share B and C, n_groups = 1), once for all heads into
 //    a (B, C, Q, Q) scratch, only the 64 x 64 tiles on or below the
-//    diagonal. The sequential design read each score tile back from device
-//    memory, and took exp of it, once per head and 32 state rows (48 times
-//    at mamba2-130m's serving shape); here each head's output block reads
-//    it once, from L2.
+//    diagonal.
 // 2. ssd_states_kernel: each chunk's own state contribution
-//    s_c = (xdt_c ⊙ exp(cum_c[Q-1] - cum_c))^T B_c, a (P, N) matrix, into
-//    a (B, H, C, P, N) scratch. Grid x is B·H·C (12,288 at the serving
-//    shape, 2,560 at zamba2's), y the 64 x 64 tiles of (P, N), in place of
-//    the sequential design's one block per (b, h, 32 state rows) walking
-//    every chunk: 192 and 160 blocks on 132 SMs.
-// 3. ssd_pass_kernel: the state carry, one thread per (b, h, 4 elements
-//    of the P·N state; 1 where P·N is not a multiple of 4), walking the
-//    chunks in order: it writes the state that enters chunk c over s_c
-//    (h0, or 0, at c = 0), then h <- exp(cum_c[Q-1]) h + s_c, and the final
-//    state to h_out when asked. Elementwise and bound by memory: every
-//    thread and every element updates in parallel, where the sequential
-//    design updated the state from its last row tile only; each thread
-//    loads 8 chunks ahead of its sequential updates.
-// 4. ssd_output_kernel: for each (b, c, 64-row tile of i, h, 64-column
-//    tile of p), y = (C_c h_c^T) ⊙ exp(cum_i) + (scores ⊙ L) xdt_c, the
-//    two terms in two cp.async rings one after the other (each loop keeps
-//    only its own registers). The heads are the fastest block index, so a
-//    chunk's score tile is still in L2 when its H heads read it. Only the
-//    column slices that hold some j <= i are visited, and a warp skips a
-//    slice that lies wholly above its rows. The causal mask and the decay
-//    exp(cum_i - cum_j) are applied on the A fragment's own (row, column)
-//    coordinates as it is loaded. In the tile's diagonal slices exp sees
-//    cum_i - cum_j only for j <= i (elsewhere -inf, so exp gives 0 without
-//    a branch); in the slices left of the tile (j < i0 <= i) the decay
-//    factors as exp(cum_i - cum_i0) exp(cum_i0 - cum_j), the column factor
-//    on the fragment and the row factor once on the accumulator, both <= 1.
-//    So nothing overflows (cum spans more than 88 in a chunk at zamba2's
-//    random-weight steps), and exp runs once a column there, not once an
-//    element.
+//    s_c = (xdt_c ⊙ exp(cum_c[Q-1] - cum_c))^T B_c, a (P, N) matrix, into a
+//    (B, H, C, P, N) scratch.
+// 3. ssd_pass_kernel: the state carry, one thread per (b, h, 4 elements of
+//    the P·N state; 1 where N is not a multiple of 4 or h0 is not 16-byte
+//    aligned), walking the chunks in order: it writes the state that
+//    enters chunk c over s_c (h0, or 0, at c = 0), then
+//    h <- exp(cum_c[Q-1]) h + s_c, and the final state to h_out when
+//    asked. Bound by memory; each thread loads 8 chunks ahead of its
+//    sequential updates.
+// 4. ssd_output_kernel: y = (C_c h_c^T) ⊙ exp(cum_i) + (scores ⊙ L) xdt_c
+//    for each (b, c, 128-row tile of i, pair of heads, 64-column tile of p).
 //
-// Every product (C·Bᵀ, (xdt ⊙ decay)ᵀ·B, C·hᵀ, the masked scores·xdt) runs
-// on mma.sync.m16n8k8 TF32 with the 3xTF32 split, in place of the
-// sequential design's FMAs fed from shared memory (2 x 4 outputs a thread):
-// a = a_hi + a_lo, each rounded to TF32 (in integer arithmetic, see
-// split_tf32), and a·b ≈ a_lo·b_hi + a_hi·b_lo + a_hi·b_hi, so each product
-// carries about 22 of f32's 24 bits and the dropped a_lo·b_lo is below
-// 2^-22 of it. The tensor cores add into their f32 accumulator with
-// truncation, so a long chain of additions at one magnitude drifts toward
-// zero by up to an ulp each: accumulating a whole k range in the tensor
-// cores' accumulator read 11.2 ulps of the largest output on an H100
-// (bench/ssd_probe.py), past the limit. So each group of 2 k8 steps
-// starts fresh partial sums, adds its small terms first and its large ones
-// last (two truncations at the partial's full size), and the partials are
-// added into the running sums on the CUDA cores, rounded to nearest. On an
-// H100 every product then stays within 5 ulps of the largest output
-// (chip_smoke.py holds the scan to 8), so no product falls back to f32
-// FMA.
-//
-// Kernels 1, 2 and 4 share one shape: 128 threads (4 warps), a 64 x 64
-// output tile, each warp a 32 x 32 quarter (2 x 4 accumulator tiles of
-// 16 x 8; each operand element is split by 2 warps, the fewest for 4 warps
-// on 64 x 64), k in slices of 32 fed by a 3-stage cp.async ring in dynamic
-// shared memory (55,936 bytes a block, past the 48 KB default: the launcher
-// opts in). A tile whose rows are contiguous along k is stored with a
-// 36-float row stride, one contiguous along the output's rows or columns
-// with a 72-float stride, so every fragment load of a warp hits 32 distinct
-// banks. Operands are copied 16 bytes at a time where their row length and
-// base are 16-byte aligned, 4 bytes at a time otherwise, and zero-filled
-// past their edges: any Q >= 1, any P >= 1, N <= 256. Registers: at most
-// 128 a thread for the scores and states kernels (4 blocks an SM), 168 for
-// the output kernel (3), none spilled.
-//
-// What holds it back (edited copies of this file on an H100,
-// bench/ssd_probe.py; PERF.md): the work around each mma.sync more than the
-// tensor cores. Counting the work the function needs, three TF32 products
-// each, the kernel runs at about 30% of the 304 TFLOP/s of mma.sync TF32
-// the card sustains on independent chains; the compiler keeps only two
-// accumulator chains of a warp in flight within its registers. Taking the
-// split away saves 18% of the output kernel's time, its loads 27%, two of
-// the three products 13%. TF32 wgmma, with both operands split once into
-// K-major shared memory, is the next step.
+// The three products run on one Hopper design (sm_90a):
+// - Blocks: one producer warpgroup and two consumer warpgroups (384
+//   threads), one block an SM, persistent: a block walks the work items
+//   blockIdx.x, + gridDim.x, ... and the ring below runs on from one item
+//   to the next. The two consumers take what the heads share once: two
+//   heads of one chunk in the states and output kernels (B_c, or C_c and
+//   the score tile, loaded and split once for both), two column tiles of
+//   one row tile in the scores kernel. A consumer's tile is 64 x 64; in
+//   the output kernel 128 x 64, its head's xdt_c and h_c shared by two row
+//   halves.
+// - The ring: stages of k = 32, one 128-byte swizzle row of f32 (as many
+//   as fit the 227 KB a block may take: 3 to 5), each with three
+//   mbarriers: landed (the TMA copies' bytes), full (the producer's part)
+//   and empty (both consumers done). Producer warp 0 issues the copies,
+//   one thread, each stage as soon as the consumers free it; warps 1 .. 3
+//   (96 threads) do each landed stage's shared work. TMA's zero fill
+//   covers every ragged edge (rows past Q through 3-D tensor maps with the
+//   chunk as its own dimension, columns past P, N or Q), so nothing is
+//   masked at the loads.
+// - Operands: for .tf32, wgmma reads both shared-memory operands K-major
+//   only. Where an operand is K-major as stored (C_c and B_c for the
+//   scores, C_c and h_c for the inter-chunk term) it is split in place, hi
+//   over the raw tile and lo beside it: shared memory x shared memory.
+//   Where it is not (B_c for the states, xdt_c for the intra-chunk term)
+//   TMA lands 32 rows of 64 columns (two 32-column boxes) and it is
+//   written transposed into hi and lo tiles (transpose_split). The other
+//   operand of those two comes from registers: each consumer thread loads
+//   its A fragment (PTX ISA, wgmma .tf32 register A: rows r and r + 8,
+//   columns t and t + 4, r = 16 warp + lane / 4, t = lane % 4) from the
+//   raw tile, scales it and splits it there: (xdt ⊙ exp(cum_c[Q-1] -
+//   cum_c))^T with the factor the producer takes once per column, and the
+//   scores with the causal mask and the decay. What the heads share the
+//   producer splits or transposes; what is one head's its consumer does,
+//   behind a named barrier of its warpgroup. (The producer doing it all
+//   ran 1.3x slower: its three warps could not keep up.)
+// - The decay never overflows (cum spans more than 88 in a chunk at
+//   zamba2's random-weight steps): in the score tile's slices that reach
+//   a half's diagonal exp sees cum_i - cum_j only for j <= i (elsewhere
+//   -inf, so exp gives 0 without a branch); in the slices left of the tile
+//   (j < i0 <= i) it factors as exp(cum_i - cum_i0) exp(cum_i0 - cum_j),
+//   the column factor on the fragment (the producer's, once a column) and
+//   the row factor on the partial sum as it is added, both <= 1; the
+//   inter-chunk term's partials take exp(cum_i) as they are added.
+// - Accuracy: a = a_hi + a_lo, each rounded to TF32 (split_tf32 in
+//   tf32x3.cuh) and a·b ≈ a_lo·b_hi + a_hi·b_lo + a_hi·b_hi, small products
+//   first, so each product carries about 22 of f32's 24 bits and the
+//   dropped a_lo·b_lo is below 2^-22 of it. The tensor cores truncate as
+//   they add, so a long chain at one magnitude drifts toward zero by up to
+//   an ulp each: accumulating a whole k range in the tensor cores'
+//   accumulator read 11.2 ulps of the largest output on an H100 against
+//   chip_smoke.py's limit of 8. So every stage (four k8 steps, twelve
+//   wgmma m64n64k8) starts a fresh accumulator, and the CUDA cores add it
+//   into the running sums, rounded to nearest (kPartialStages;
+//   bench/ssd_probe.py measures longer ones).
+// - What holds it back (an H100; bench/ssd_probe.py and edited copies,
+//   PERF.md): not the loads (skipping every copy after the ring's first
+//   fill saves 2%, and 4 to 8 stages ran alike) but each consumer's
+//   serial chain a stage: its own transform, the A fragments, twelve
+//   dependent wgmma, the wait and the adds, with two consumers to overlap
+//   them. The split costs 12% of the time, two of the three products 15%.
+//   Wider tiles amortise more of the chain, while their registers last:
+//   the output kernel's 128-row tiles (halves in turn through one partial
+//   sum) took 0.2 ms off 64-row ones; 128 columns in the states kernel,
+//   and two partial sums or two fragment sets in the output kernel,
+//   spilled and ran slower.
+// - Registers: ptxas compiles every role to the launch's 168 a thread and
+//   each region after a setmaxnreg to its count: the producer keeps 56 (88
+//   in the states kernel, whose producer transposes) and the consumers
+//   take the rest (224, 208); the launcher refuses a kernel compiled with
+//   fewer than 168. The warpgroup index is broadcast from lane 0: from
+//   threadIdx.x / 128 ptxas serialises every wgmma (C7520).
+// TMA wants 16-byte aligned operands whose rows are a multiple of 16 bytes
+// apart: the Python wrapper copies xdt, bm, cm or cum whose row is not so
+// into a buffer whose rows are rounded up to 4 floats (ld_p, ld_n, ld_q),
+// and lays out its scores and states scratch the same way.
+// Not done here: clusters sharing a TMA load, a TMA store of the outputs,
+// keeping the states out of device memory between kernels 2, 3 and 4.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;          // 4 warps
-constexpr int kTile = 64;              // rows and columns of an output tile
-constexpr int kSlice = 32;             // k depth of a staged slice
-constexpr int kStages = 3;             // cp.async ring depth
-constexpr int kKStride = kSlice + 4;   // row stride, k-contiguous tiles
-constexpr int kMStride = kTile + 8;    // row stride, row/column-contiguous
-constexpr int kOperand = kTile * kKStride;       // floats of one operand
-constexpr int kStage = 2 * kOperand + kSlice;    // two operands + a vector
-constexpr int kSmemBytes = (kStages * kStage + kTile) * 4;
-// Blocks an SM for the launch bounds: 4 (128 registers) for the scores and
-// states kernels; 3 (168) for the output kernel, whose intra-chunk term
-// spills at 128.
-constexpr int kBlocks = 4;
-constexpr int kOutputBlocks = 3;
+constexpr int kThreads = 384;          // a producer, two consumer warpgroups
+constexpr int kTransformers = 96;      // producer warps 1 .. 3
+constexpr int kConsumerThreads = 256;
+// registers a thread with all 384 threads resident (ptxas's budget), and
+// what setmaxnreg gives each role: the producer keeps kProducerRegs (88
+// in the states kernel, whose producer transposes, else 56) and each
+// consumer takes the rest (Regs<88>: 208, Regs<56>: 224)
+constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;  // 168
+template <int kProducer>
+struct Regs {
+  static constexpr int kProducerRegs = kProducer;
+  static constexpr int kConsumerRegs =
+      (kLaunchRegs * kThreads - 128 * kProducer) / 256 / 8 * 8;
+  static_assert(128 * kProducerRegs + 256 * kConsumerRegs <=
+                    kLaunchRegs * kThreads,
+                "registers");
+};
+constexpr int kTile = 64;              // a consumer's output tile
+constexpr int kK = 32;                 // k depth of a stage
+static_assert(kK == 32, "a stage is one 128-byte swizzle row of f32");
+constexpr int kSteps = kK / 8;         // its k8 steps
+constexpr int kRowBytes = kK * 4;      // a K-major tile's rows (swizzle)
+constexpr int kTileBytes = kTile * kRowBytes;  // a K-major 64 x kK tile
+constexpr int kTileItems = kTileBytes / 16;    // its float4s
+constexpr int kBoxBytes = kK * 32 * 4;  // kK rows of a 32-column box
+// a tile's float4s (or items of a transpose) a transformer thread takes
+constexpr int kTransformerIters =
+    (kTileItems + kTransformers - 1) / kTransformers;
+constexpr int kVecSlot = 128;          // a stage's vector of kK floats
 constexpr int kMaxN = 256;             // the largest state width taken
 constexpr int kPassThreads = 256;
 constexpr int kPassAhead = 8;          // chunks loaded ahead in the pass
-constexpr int kGroup = 2;              // k8 steps per partial sum
-constexpr int kWM = 2;                 // 16-row tiles per warp
-constexpr int kWN = 4;                 // 8-column tiles per warp
-static_assert(kThreads / 32 == (kTile / (16 * kWM)) * (kTile / (8 * kWN)) &&
-              kSlice * kMStride == kOperand && kKStride % 32 == 4 &&
-              kMStride % 32 == 8 && kSlice % (8 * kGroup) == 0 &&
-              kTile == 64,
-              "tile shape");
+// Stages one partial sum spans before the CUDA cores add it in.
+constexpr int kPartialStages = 1;
+static_assert(kThreads == 128 + kConsumerThreads &&
+                  kTransformers == 96 && kTransformers == kTile + kK,
+              "warpgroups");
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
-                                           int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
-                                          int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// The ring in dynamic shared memory: kStages stages of kStageBytes of tiles
+// from a 1024-byte aligned base, then kVecs vector slots a stage, then the
+// landed (one arrival with the copies' bytes), full (the 96 transforming
+// threads) and empty (the 256 consumer threads) mbarriers of each stage.
+template <int kStageBytes_, int kVecs_>
+struct Ring {
+  static constexpr int kStageBytes = kStageBytes_;
+  static constexpr int kVecs = kVecs_;
+  static constexpr int kPerStage = kStageBytes + kVecs * kVecSlot + 24;
+  static constexpr int kStages = (kSmemLimit - 1024) / kPerStage;
+  static constexpr int kVecBase = kStages * kStageBytes;
+  static constexpr int kBarBase = kVecBase + kStages * kVecs * kVecSlot;
+  static constexpr size_t kSmemBytes = 1024 + kBarBase + 24 * kStages;
+  static_assert(kStages >= 2 && kSmemBytes <= kSmemLimit, "shared memory");
+  static_assert(kStageBytes % 1024 == 0, "stages on the swizzle pattern");
 
-// x = hi + lo with hi rounded to TF32 (to nearest, ties away from zero,
-// as cvt.rna does) and x - hi exact; lo is returned with the same rounding
-// applied to its top bits (the tensor cores read the top 19 bits of each
-// operand and ignore the rest). In integer arithmetic: cvt.rna.tf32.f32
-// compiles to four instructions with an inf/NaN test, these to four in all
-// for both parts; the operands here are finite.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
-}
+  uint32_t base;        // stage 0, as a shared-memory address
+  unsigned char* ptr;   // the same, as a generic pointer
 
-// d += a b on the tensor cores: a 16 x 8 (row), b 8 x 8 (col), TF32 in.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A warp's accumulators: kWM x kWN tiles of 16 x 8 (a 32 x 32 warp tile).
-using Acc = float[kWM][kWN][4];
-
-__device__ __forceinline__ void zero(Acc& acc) {
-#pragma unroll
-  for (int mt = 0; mt < kWM; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kWN; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-}
-
-// One 32-deep k slice of a warp's 32 x 32 tile: acc += A (32 x 32) B
-// (32 x 32) in 3xTF32. a_at(m, k) and b_at(k, n) read the staged operands
-// at the warp's local coordinates (m, k, n < 32). g and t are the lane's
-// group and thread-in-group. Fragment layouts of m16n8k8 (PTX ISA): A
-// a0..a3 at (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B b0, b1 at
-// (t, g), (t + 4, g); the accumulator c0..c3 at (g, 2t), (g, 2t + 1),
-// (g + 8, 2t), (g + 8, 2t + 1). Each group of kGroup k8 steps sums into
-// fresh partials, small terms first, which are then added into acc. The
-// 8 tiles are the inner loop, so that runs of mma.sync are independent;
-// the groups stay a loop, which halves the code.
-template <class LoadA, class LoadB>
-__device__ __forceinline__ void warp_slice(Acc& acc, LoadA a_at, LoadB b_at,
-                                           int g, int t) {
-#pragma unroll 1
-  for (int k0 = 0; k0 < kSlice / 8; k0 += kGroup) {
-    Acc part;
-    zero(part);
-    uint32_t ah[kGroup][kWM][4], bh[kGroup][kWN][2];
-#pragma unroll
-    for (int f = 0; f < kGroup; ++f) {
-      const int k = 8 * (k0 + f) + t;
-      uint32_t al[kWM][4], bl[kWN][2];
-#pragma unroll
-      for (int mt = 0; mt < kWM; ++mt) {
-        const int m = 16 * mt + g;
-        split_tf32(a_at(m, k), ah[f][mt][0], al[mt][0]);
-        split_tf32(a_at(m + 8, k), ah[f][mt][1], al[mt][1]);
-        split_tf32(a_at(m, k + 4), ah[f][mt][2], al[mt][2]);
-        split_tf32(a_at(m + 8, k + 4), ah[f][mt][3], al[mt][3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < kWN; ++nt) {
-        split_tf32(b_at(k, 8 * nt + g), bh[f][nt][0], bl[nt][0]);
-        split_tf32(b_at(k + 4, 8 * nt + g), bh[f][nt][1], bl[nt][1]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < kWM; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kWN; ++nt)
-          mma_tf32(part[mt][nt], al[mt], bh[f][nt][0], bh[f][nt][1]);
-#pragma unroll
-      for (int mt = 0; mt < kWM; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kWN; ++nt)
-          mma_tf32(part[mt][nt], ah[f][mt], bl[nt][0], bl[nt][1]);
-    }
-#pragma unroll
-    for (int f = 0; f < kGroup; ++f)
-#pragma unroll
-      for (int mt = 0; mt < kWM; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kWN; ++nt)
-          mma_tf32(part[mt][nt], ah[f][mt], bh[f][nt][0], bh[f][nt][1]);
-#pragma unroll
-    for (int mt = 0; mt < kWM; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kWN; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+  __device__ explicit Ring(unsigned char* raw) {
+    const uint32_t a = smem_u32(raw);
+    base = (a + 1023u) & ~1023u;
+    ptr = raw + (base - a);
   }
-}
-
-// Stage rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of a row-major
-// matrix (row stride ld; rows < r_end and columns < c_end exist) into dst
-// (row stride sld), zero-filling the rest; 16-byte copies when vec (ld and
-// the matrix's base 16-byte aligned, so c_end is a multiple of 4 too).
-template <int ROWS, int COLS>
-__device__ __forceinline__ void stage_tile(float* dst, int sld,
-                                           const float* src, int64_t ld,
-                                           int r0, int r_end, int c0,
-                                           int c_end, bool vec) {
-  if (vec) {
-    constexpr int kVec = COLS / 4;
-    for (int idx = threadIdx.x; idx < ROWS * kVec; idx += kThreads) {
-      const int r = idx / kVec;
-      const int v = idx % kVec;
-      const int row = r0 + r;
-      const int col = c0 + 4 * v;
-      const bool in = row < r_end && col < c_end;
-      cp_async16(dst + r * sld + 4 * v, in ? src + row * ld + col : src,
-                 in ? 16 : 0);
+  __device__ uint32_t tile(int s, int off) const {
+    return base + s * kStageBytes + off;
+  }
+  __device__ unsigned char* at(int s, int off) const {
+    return ptr + s * kStageBytes + off;
+  }
+  __device__ uint32_t vec(int s, int v) const {
+    return base + kVecBase + (s * kVecs + v) * kVecSlot;
+  }
+  __device__ float* vec_at(int s, int v) const {
+    return reinterpret_cast<float*>(ptr + kVecBase +
+                                    (s * kVecs + v) * kVecSlot);
+  }
+  __device__ uint32_t landed(int s) const { return base + kBarBase + 8 * s; }
+  __device__ uint32_t full(int s) const {
+    return base + kBarBase + 8 * (kStages + s);
+  }
+  __device__ uint32_t empty(int s) const {
+    return base + kBarBase + 8 * (2 * kStages + s);
+  }
+  __device__ void init(int tid) const {
+    if (tid != 0) return;
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(landed(s), 1);
+      mbar_init(full(s), kTransformers);
+      mbar_init(empty(s), kConsumerThreads);
     }
-  } else {
-    for (int idx = threadIdx.x; idx < ROWS * COLS; idx += kThreads) {
-      const int r = idx / COLS;
-      const int cl = idx % COLS;
-      const int row = r0 + r;
-      const int col = c0 + cl;
-      const bool in = row < r_end && col < c_end;
-      cp_async4(dst + r * sld + cl, in ? src + row * ld + col : src,
-                in ? 4 : 0);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
+
+// Where a role is in the ring: the stage, its phase bit, and whether every
+// stage has been used once (from then on the issuer waits for a stage to
+// be emptied before it copies into it).
+struct Cursor {
+  int s = 0;
+  uint32_t phase = 0;
+  bool wrapped = false;
+  template <int kStages>
+  __device__ __forceinline__ void next() {
+    if (++s == kStages) {
+      s = 0;
+      phase ^= 1u;
+      wrapped = true;
     }
   }
+};
+
+// The issuer's turn at the cursor's stage: waits until the consumers have
+// emptied it, then expects `bytes` of copies on its landed barrier.
+// Returns whether to issue them.
+template <class R>
+__device__ __forceinline__ bool claim(const R& ring, const Cursor& c,
+                                      uint32_t bytes) {
+  if (c.wrapped) mbar_wait(ring.empty(c.s), c.phase ^ 1u);
+  const bool load = true;
+  mbar_expect_tx(ring.landed(c.s), load ? bytes : 0u);
+  return load;
 }
 
-// The k slices of a block through the cp.async ring: load(s, stage) issues
-// slice s's copies, compute(s, stage) consumes them; copies issued before
-// the ring starts land with slice 0. One __syncthreads a slice: the stage
-// that slice s + kStages - 1 overwrites was consumed at slice s - 1, which
-// every thread finished before the barrier of slice s.
-template <class Load, class Compute>
-__device__ __forceinline__ void pipeline(int steps, float* ring, Load load,
-                                         Compute compute) {
+// A float at a shared-memory address (32-bit addresses keep the A
+// fragments' loop-invariant offsets in half the registers of generic
+// pointers); volatile, so it stays after the barrier waits before it.
+__device__ __forceinline__ float lds(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+// The 3xTF32 split of tf32x3.cuh (the one place bench/ssd_probe.py's
+// no_split variant edits).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  split_tf32(x, hi, lo);
+}
+
+// The four floats at `hi` (a raw tile as TMA landed it) split in place: hi
+// over them, lo at the same place of the tile kTileBytes on (an
+// elementwise split keeps the swizzle).
+__device__ __forceinline__ void split4(unsigned char* hi) {
+  const float4 x = *reinterpret_cast<const float4*>(hi);
+  uint4 h, l;
+  split(x.x, h.x, l.x);
+  split(x.y, h.y, l.y);
+  split(x.z, h.z, l.z);
+  split(x.w, h.w, l.w);
+  *reinterpret_cast<uint4*>(hi) = h;
+  *reinterpret_cast<uint4*>(hi + kTileBytes) = l;
+}
+
+// Row `col` of the transpose of `raw` (kK rows of 64 columns as two
+// 32-column boxes, 128-byte swizzle), its columns 4 kq .. 4 kq + 3, split
+// to `hi` and kTileBytes on (64 rows of kK, 128-byte swizzle). With kq a
+// constant the swizzle terms are too, so each of the four loads and the
+// two stores takes one XOR; a warp (32 columns) reads one row of a box
+// and each quarter writes 8 rows: no bank conflicts either way.
+__device__ __forceinline__ void transpose_split(const unsigned char* raw,
+                                                unsigned char* hi, int col,
+                                                int kq) {
+  const unsigned char* box = raw + kBoxBytes * (col / 32);
+  const int byte = 4 * (col % 32);
+  float x[4];
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) load(s, ring + s * kStage);
-    cp_async_commit();
-  }
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = s + kStages - 1;
-    if (next < steps) load(next, ring + (next % kStages) * kStage);
-    cp_async_commit();
-    compute(s, ring + (s % kStages) * kStage);
-  }
-  cp_async_wait<0>();
+  for (int e = 0; e < 4; ++e)
+    x[e] = *reinterpret_cast<const float*>(
+        box + swizzled<128>(4 * kq + e, byte));
+  uint4 h, l;
+  split(x[0], h.x, l.x);
+  split(x[1], h.y, l.y);
+  split(x[2], h.z, l.z);
+  split(x[3], h.w, l.w);
+  const uint32_t dst = swizzled<kRowBytes>(col, 16 * kq);
+  *reinterpret_cast<uint4*>(hi + dst) = h;
+  *reinterpret_cast<uint4*>(hi + kTileBytes + dst) = l;
 }
 
-// Write a warp's 32 x 32 accumulator tile at rows r0 + (0..31), columns
-// c0 + (0..31) of a row-major matrix (row stride ld), inside r_end x c_end.
-__device__ __forceinline__ void store_tile(float* out, int64_t ld, int r0,
-                                           int r_end, int c0, int c_end,
-                                           const Acc& acc, int g, int t) {
+// A consumer's A fragments of one stage (kSteps k8 steps), split into hi and
+// lo. PTX ISA, wgmma .tf32 register A: a0 (r, t), a1 (r + 8, t),
+// a2 (r, t + 4), a3 (r + 8, t + 4), r = 16 warp + lane / 4, t = lane % 4.
+struct Frag {
+  uint32_t hi[kSteps][4], lo[kSteps][4];
+};
+
+// Fills `f` from `at(m, k)`, element (m, k) of the warpgroup's 64 x kK A.
+template <class At>
+__device__ __forceinline__ void a_fragments(Frag& f, int r, int t, At at) {
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const int k = 8 * kk + t;
+    split(at(r, k), f.hi[kk][0], f.lo[kk][0]);
+    split(at(r + 8, k), f.hi[kk][1], f.lo[kk][1]);
+    split(at(r, k + 4), f.hi[kk][2], f.lo[kk][2]);
+    split(at(r + 8, k + 4), f.hi[kk][3], f.lo[kk][3]);
+  }
+}
+
+// One stage's products into `part`, issued and committed, not waited for:
+// lo.hi and hi.lo of every k8 step, then hi.hi (small terms first); `part`
+// starts afresh when `fresh`. B is a K-major 64 x kK tile in shared memory
+// at b (hi; lo kTileBytes on); A too at a (issue_ss) or the fragments
+// (issue_rs), which must not change until retire_products. kProducts
+// counts the products from the last (bench/ssd_probe.py's one_product
+// runs 1).
+constexpr int kProducts = 3;
+__device__ __forceinline__ void issue_ss(float (&part)[32], uint32_t a,
+                                         uint32_t b, bool fresh) {
+  const uint64_t ah = smem_desc<kRowBytes>(a);
+  const uint64_t al = smem_desc<kRowBytes>(a + kTileBytes);
+  const uint64_t bh = smem_desc<kRowBytes>(b);
+  const uint64_t bl = smem_desc<kRowBytes>(b + kTileBytes);
+  wgmma_fence();
+#pragma unroll
+  for (int prod = 3 - kProducts; prod < 3; ++prod)
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk)
+      wgmma_ss<64>(part, desc_add(prod == 0 ? al : ah, 32 * kk),
+                   desc_add(prod == 1 ? bl : bh, 32 * kk),
+                   fresh && prod == 3 - kProducts && kk == 0 ? 0 : 1);
+  wgmma_commit();
+}
+__device__ __forceinline__ void issue_rs(float (&part)[32], Frag& a,
+                                         uint32_t b, bool fresh) {
+  const uint64_t bh = smem_desc<kRowBytes>(b);
+  const uint64_t bl = smem_desc<kRowBytes>(b + kTileBytes);
+  wgmma_fence();
+#pragma unroll
+  for (int prod = 3 - kProducts; prod < 3; ++prod)
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk)
+      wgmma_rs<64>(part, prod == 0 ? a.lo[kk] : a.hi[kk],
+                   desc_add(prod == 1 ? bl : bh, 32 * kk),
+                   fresh && prod == 3 - kProducts && kk == 0 ? 0 : 1);
+  wgmma_commit();
+}
+// Waits for the consumer's products: `part` holds them, `a` is free.
+__device__ __forceinline__ void retire_products(float (&part)[32]) {
+  wgmma_wait_all();
+  fence_regs(part);
+}
+__device__ __forceinline__ void retire_products(float (&part)[32], Frag& a) {
+  retire_products(part);
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    fence_regs(a.hi[kk]);
+    fence_regs(a.lo[kk]);
+  }
+}
+
+// The named barrier of consumer warpgroup w (ids 1 and 2; 0 is
+// __syncthreads'): its 128 threads' writes to its own tiles are done.
+__device__ __forceinline__ void consumer_sync(int w) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
+}
+
+// A consumer's pass over the n stages of one work item: for each,
+// prepare(c, i) waits for it at cursor c and readies it (the consumer's
+// own transforms, A's fragments), issue(c, i) starts its products,
+// retire(i) waits for them and adds the partial sum, and the stage goes
+// back to the producer. (Preparing stage i + 1 while stage i's products
+// run, from a second fragment buffer, measured no faster on an H100.)
+template <class R, class Prepare, class Issue, class Retire>
+__device__ __forceinline__ void run_stages(const R& ring, Cursor& cur, int n,
+                                           Prepare prepare, Issue issue,
+                                           Retire retire) {
+  for (int i = 0; i < n; ++i, cur.template next<R::kStages>()) {
+    prepare(cur, i);
+    issue(cur, i);
+    retire(i);
+    mbar_arrive(ring.empty(cur.s));
+  }
+}
+
+// The consumer's own part of a stage, a quarter of a tile's float4s a
+// thread: split in place (split_own) or transposed (transpose_own), then
+// made visible to wgmma across the warpgroup.
+__device__ __forceinline__ void split_own(unsigned char* tile, int ct, int w) {
+#pragma unroll
+  for (int i = 0; i < kTileItems / 128; ++i)
+    split4(tile + 16 * (ct + 128 * i));
+  fence_async_smem();
+  consumer_sync(w);
+}
+__device__ __forceinline__ void transpose_own(const unsigned char* raw,
+                                              unsigned char* hi, int ct,
+                                              int w) {
+#pragma unroll
+  for (int i = 0; i < kK / 8; ++i)  // half the column's 4-float groups
+    transpose_split(raw, hi, ct % kTile, kK / 8 * (ct / kTile) + i);
+  fence_async_smem();
+  consumer_sync(w);
+}
+
+// Whether stage i of a run of n starts a partial sum, and whether it ends
+// one (which is then added into the running sums).
+__device__ __forceinline__ bool starts_partial(int i) {
+  return i % kPartialStages == 0;
+}
+__device__ __forceinline__ bool ends_partial(int i, int n) {
+  return (i + 1) % kPartialStages == 0 || i + 1 == n;
+}
+
+// acc += part · f on the CUDA cores, rounded once: accumulator element
+// 4 j + e is row r + 8 (e / 2) (factor fa for r, fb for r + 8), column
+// 8 j + 2 t + e % 2 of the consumer's tile.
+__device__ __forceinline__ void add_partial(float (&acc)[32],
+                                            const float (&part)[32], float fa,
+                                            float fb) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    acc[4 * j] = fmaf(part[4 * j], fa, acc[4 * j]);
+    acc[4 * j + 1] = fmaf(part[4 * j + 1], fa, acc[4 * j + 1]);
+    acc[4 * j + 2] = fmaf(part[4 * j + 2], fb, acc[4 * j + 2]);
+    acc[4 * j + 3] = fmaf(part[4 * j + 3], fb, acc[4 * j + 3]);
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+}
+
+// Write a consumer's 64 x 64 accumulator at rows row0 .., columns col0 ..
+// of a row-major matrix (row stride ld), inside r_end x c_end.
+__device__ __forceinline__ void store_acc(float* out, int64_t ld, int row0,
+                                          int r_end, int col0, int c_end,
+                                          const float (&acc)[32], int r,
+                                          int t) {
   const bool pairs = ld % 2 == 0;
 #pragma unroll
-  for (int mt = 0; mt < kWM; ++mt)
+  for (int j = 0; j < 8; ++j) {
+    const int col = col0 + 8 * j + 2 * t;
 #pragma unroll
-    for (int nt = 0; nt < kWN; ++nt) {
-      const int col = c0 + 8 * nt + 2 * t;
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + r + 8 * half;
+      if (row >= r_end || col >= c_end) continue;
+      float* p = out + row * ld + col;
+      const float v0 = acc[4 * j + 2 * half];
+      const float v1 = acc[4 * j + 2 * half + 1];
+      if (pairs && col + 1 < c_end) {
+        *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+      } else {
+        p[0] = v0;
+        if (col + 1 < c_end) p[1] = v1;
+      }
+    }
+  }
+}
+
+// ---- 1. scores ------------------------------------------------------------
+// A stage: C_c's 64 rows x 32 (hi, lo), then each consumer's 64 rows of
+// B_c (hi, lo).
+using ScoresRing = Ring<6 * kTileBytes, 0>;
+__host__ __device__ constexpr int scores_b(int w) {
+  return 2 * kTileBytes * (1 + w);
+}
+
+struct ScoresMaps {
+  CUtensorMap cm, bm;  // (N, Q, B·C), boxes of 32 x 64
+};
+
+// scores[b, c] = C_c B_c^T on the 64 x 64 tiles (it, jt), jt <= it. Work
+// item: (b·C + c, row tile it, pair of column tiles jp); consumer w takes
+// column tile 2 jp + w, pairs wholly above the diagonal are skipped. The
+// producer splits C_c, each consumer its own B_c tile.
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_scores_kernel(const __grid_constant__ ScoresMaps maps,
+                  float* __restrict__ scores, int64_t bc_count, int q_len,
+                  int ld_s, int n) {
+  using R = ScoresRing;
+  extern __shared__ unsigned char smem_raw[];
+  const R ring(smem_raw);
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int q_tiles = (q_len + kTile - 1) / kTile;
+  const int pairs = (q_tiles + 1) / 2;
+  const int64_t items = bc_count * q_tiles * pairs;
+  const int steps = (n + kK - 1) / kK;
+  auto decode = [&](int64_t item, int64_t& bc, int& it, int& jp) {
+    jp = static_cast<int>(item % pairs);
+    item /= pairs;
+    it = static_cast<int>(item % q_tiles);
+    bc = item / q_tiles;
+    return 2 * jp <= it;
+  };
+  ring.init(tid);
+  __syncthreads();
+
+  if (wg == 0) {
+    set_max_regs_dec<Regs<56>::kProducerRegs>();
+    Cursor cur;
+    if (tid == 0) {  // the issuer
+      for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+        int64_t bc;
+        int it, jp;
+        if (!decode(item, bc, it, jp)) continue;
+        for (int st = 0; st < steps; ++st, cur.next<R::kStages>()) {
+          if (!claim(ring, cur, 3 * kTileBytes)) continue;
+          const uint32_t bar = ring.landed(cur.s);
+          tma_load_3d(ring.tile(cur.s, 0), &maps.cm, bar, kK * st,
+                      kTile * it, static_cast<int>(bc));
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = r0 + 16 * mt + g + 8 * half;
-        if (row >= r_end || col >= c_end) continue;
-        float* p = out + row * ld + col;
-        const float v0 = acc[mt][nt][2 * half];
-        const float v1 = acc[mt][nt][2 * half + 1];
-        if (pairs && col + 1 < c_end) {
-          *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-        } else {
-          p[0] = v0;
-          if (col + 1 < c_end) p[1] = v1;
+          for (int w = 0; w < 2; ++w)
+            tma_load_3d(ring.tile(cur.s, scores_b(w)), &maps.bm, bar,
+                        kK * st, kTile * (2 * jp + w), static_cast<int>(bc));
+        }
+      }
+    } else if (tid >= 32) {  // the transformers: C_c split in place
+      for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+        int64_t bc;
+        int it, jp;
+        if (!decode(item, bc, it, jp)) continue;
+        for (int st = 0; st < steps; ++st, cur.next<R::kStages>()) {
+          mbar_wait(ring.landed(cur.s), cur.phase);
+          unsigned char* stage = ring.at(cur.s, 0);
+#pragma unroll 4
+          for (int i = 0; i < kTransformerIters; ++i) {
+            const int idx = tid - 32 + kTransformers * i;
+            if (idx < kTileItems) split4(stage + 16 * idx);
+          }
+          fence_async_smem();
+          mbar_arrive(ring.full(cur.s));
         }
       }
     }
+    return;
+  }
+
+  set_max_regs_inc<Regs<56>::kConsumerRegs>();
+  const int w = wg - 1;
+  const int ct = tid % 128;
+  const int r = 16 * (ct / 32) + ct % 32 / 4;
+  const int t = ct % 4;
+  Cursor cur;
+  float part[32];
+  for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+    int64_t bc;
+    int it, jp;
+    if (!decode(item, bc, it, jp)) continue;
+    const int jt = 2 * jp + w;
+    const bool active = jt <= it;
+    float acc[32];
+    zero(acc);
+    run_stages(
+        ring, cur, steps,
+        [&](const Cursor& c, int) {
+          mbar_wait(ring.landed(c.s), c.phase);
+          mbar_wait(ring.full(c.s), c.phase);
+          if (active) split_own(ring.at(c.s, scores_b(w)), ct, w);
+        },
+        [&](const Cursor& c, int st) {
+          if (active)
+            issue_ss(part, ring.tile(c.s, 0), ring.tile(c.s, scores_b(w)),
+                     starts_partial(st));
+        },
+        [&](int st) {
+          if (!active) return;
+          retire_products(part);
+          if (ends_partial(st, steps)) add_partial(acc, part, 1.0f, 1.0f);
+        });
+    if (active)
+      store_acc(scores + bc * q_len * ld_s, ld_s, kTile * it, q_len,
+                kTile * jt, q_len, acc, r, t);
+  }
 }
 
-// 1. scores[b, c] = C_c B_c^T on the 64 x 64 tiles (it, jt), jt <= it.
-__global__ void __launch_bounds__(kThreads, kBlocks)
-ssd_scores_kernel(const float* __restrict__ bm, const float* __restrict__ cm,
-                  float* __restrict__ scores, int64_t pairs, int q_len,
-                  int n, bool vec) {
-  extern __shared__ float4 smem4[];
-  float* ring = reinterpret_cast<float*>(smem4);
-  const int64_t pair = blockIdx.x % pairs;
-  const int64_t bc = blockIdx.x / pairs;   // b * C + c
-  int it = 0;                              // tile pair -> (row, column)
-  while (static_cast<int64_t>(it + 1) * (it + 2) / 2 <= pair) ++it;
-  const int jt =
-      static_cast<int>(pair - static_cast<int64_t>(it) * (it + 1) / 2);
-  const int i0 = it * kTile;
-  const int j0 = jt * kTile;
-  const float* c_rows = cm + bc * q_len * n;
-  const float* b_rows = bm + bc * q_len * n;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int wm = 32 * (threadIdx.x / 64);  // the warp's 32 x 32 tile
-  const int wn = 32 * (threadIdx.x / 32 % 2);
-
-  Acc acc;
-  zero(acc);
-  pipeline((n + kSlice - 1) / kSlice, ring,
-      [&](int s, float* st) {
-        stage_tile<kTile, kSlice>(st, kKStride, c_rows, n, i0, q_len,
-                                  s * kSlice, n, vec);
-        stage_tile<kTile, kSlice>(st + kOperand, kKStride, b_rows, n, j0,
-                                  q_len, s * kSlice, n, vec);
-      },
-      [&](int, const float* st) {
-        const float* cs = st + wm * kKStride;
-        const float* bs = st + kOperand + wn * kKStride;
-        warp_slice(acc,
-                   [&](int m, int k) { return cs[m * kKStride + k]; },
-                   [&](int k, int j) { return bs[j * kKStride + k]; }, g, t);
-      });
-  store_tile(scores + bc * q_len * q_len, q_len, i0 + wm, q_len, j0 + wn,
-             q_len, acc, g, t);
+// ---- 2. states ------------------------------------------------------------
+// A stage: B_c's raw 32 x 64, B_c^T hi and lo (64 x 32), each head's raw
+// xdt 32 x 64; vectors: each head's cum (2 w) and decay (2 w + 1).
+using StatesRing = Ring<5 * kTileBytes, 4>;
+constexpr int kStatesBt = kTileBytes;
+__host__ __device__ constexpr int states_x(int w) {
+  return kTileBytes * (3 + w);
 }
 
-// 2. states[b, h, c] = (xdt_c ⊙ exp(cum_c[Q-1] - cum_c))^T B_c, the (P, N)
-//    tile (p0, n0) given by blockIdx.y.
-__global__ void __launch_bounds__(kThreads, kBlocks)
-ssd_states_kernel(const float* __restrict__ xdt, const float* __restrict__ bm,
+struct StatesMaps {
+  CUtensorMap xdt;  // (P, Q, B·H·C), boxes of 32 x 32
+  CUtensorMap bm;   // (N, Q, B·C), boxes of 32 x 32
+  CUtensorMap cum;  // (Q, B·H·C), boxes of 32
+};
+
+// states[b, h, c] = (xdt_c ⊙ exp(cum_c[Q-1] - cum_c))^T B_c. Work item:
+// (b·C + c, pair of heads hp, 64 rows of p, 64 columns of n); consumer w
+// takes head 2 hp + w. The producer transposes B_c and takes each head's
+// decay; each consumer builds its A from its head's raw xdt.
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_states_kernel(const __grid_constant__ StatesMaps maps,
                   const float* __restrict__ cum, float* __restrict__ states,
-                  int64_t heads, int64_t chunks, int q_len, int p_dim, int n,
-                  int n_tiles, bool vec_x, bool vec_b) {
-  extern __shared__ float4 smem4[];
-  float* ring = reinterpret_cast<float*>(smem4);
-  float* total = ring + kStages * kStage;  // cum_c[Q-1]
-  const int64_t bhc = blockIdx.x;          // (b * H + h) * C + c
-  const int64_t b = bhc / (heads * chunks);
-  const int64_t c = bhc % chunks;
-  const int p0 = static_cast<int>(blockIdx.y / n_tiles) * kTile;
-  const int n0 = static_cast<int>(blockIdx.y % n_tiles) * kTile;
-  const float* x_rows = xdt + bhc * q_len * p_dim;
-  const float* b_rows = bm + (b * chunks + c) * q_len * n;
-  const float* cu = cum + bhc * q_len;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int wm = 32 * (threadIdx.x / 64);
-  const int wn = 32 * (threadIdx.x / 32 % 2);
+                  int64_t bc_count, int heads, int64_t chunks, int q_len,
+                  int ld_q, int p_dim, int n, int ld_n) {
+  using R = StatesRing;
+  extern __shared__ unsigned char smem_raw[];
+  const R ring(smem_raw);
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int head_pairs = (heads + 1) / 2;
+  const int p_tiles = (p_dim + kTile - 1) / kTile;
+  const int n_tiles = (n + kTile - 1) / kTile;
+  const int64_t items = bc_count * head_pairs * p_tiles * n_tiles;
+  const int steps = (q_len + kK - 1) / kK;
+  struct Item {
+    int64_t bc, bhc;  // bhc of head 2 hp; the other's is bhc + chunks
+    int n_heads, pt, nt;
+  };
+  auto decode = [&](int64_t item) {
+    Item x;
+    x.nt = static_cast<int>(item % n_tiles);
+    item /= n_tiles;
+    x.pt = static_cast<int>(item % p_tiles);
+    item /= p_tiles;
+    const int hp = static_cast<int>(item % head_pairs);
+    x.bc = item / head_pairs;
+    x.bhc = ((x.bc / chunks) * heads + 2 * hp) * chunks + x.bc % chunks;
+    x.n_heads = min(2, heads - 2 * hp);
+    return x;
+  };
+  ring.init(tid);
+  __syncthreads();
 
-  // cum arrives by cp.async like the tiles (a plain load here would stall
-  // the warp, and at the next barrier the block, for a trip to L2)
-  if (threadIdx.x == 0) cp_async4(total, cu + q_len - 1, 4);
-  Acc acc;
-  zero(acc);
-  pipeline((q_len + kSlice - 1) / kSlice, ring,
-      [&](int s, float* st) {
-        const int k0 = s * kSlice;
-        stage_tile<kSlice, kTile>(st, kMStride, x_rows, p_dim, k0, q_len, p0,
-                                  p_dim, vec_x);
-        stage_tile<kSlice, kTile>(st + kOperand, kMStride, b_rows, n, k0,
-                                  q_len, n0, n, vec_b);
-        if (threadIdx.x < kSlice) {
-          const bool in = k0 + threadIdx.x < q_len;
-          cp_async4(st + 2 * kOperand + threadIdx.x,
-                    in ? cu + k0 + threadIdx.x : cu, in ? 4 : 0);
+  if (wg == 0) {
+    set_max_regs_dec<Regs<88>::kProducerRegs>();
+    Cursor cur;
+    if (tid == 0) {
+      for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+        const Item x = decode(item);
+        for (int st = 0; st < steps; ++st, cur.next<R::kStages>()) {
+          if (!claim(ring, cur,
+                     kTileBytes + x.n_heads * (kTileBytes + 4 * kK)))
+            continue;
+          const uint32_t bar = ring.landed(cur.s);
+#pragma unroll
+          for (int bx = 0; bx < 2; ++bx)
+            tma_load_3d(ring.tile(cur.s, kBoxBytes * bx), &maps.bm, bar,
+                        kTile * x.nt + 32 * bx, kK * st,
+                        static_cast<int>(x.bc));
+          for (int w = 0; w < x.n_heads; ++w) {
+            const int bhc = static_cast<int>(x.bhc + w * chunks);
+#pragma unroll
+            for (int bx = 0; bx < 2; ++bx)
+              tma_load_3d(ring.tile(cur.s, states_x(w) + kBoxBytes * bx),
+                          &maps.xdt, bar, kTile * x.pt + 32 * bx, kK * st,
+                          bhc);
+            tma_load_2d(ring.vec(cur.s, 2 * w), &maps.cum, bar, kK * st, bhc);
+          }
         }
-      },
-      [&](int, const float* st) {
-        const float* xs = st + wm;
-        const float* bs = st + kOperand + wn;
-        const float* cum_k = st + 2 * kOperand;
-        const float last = *total;
-        // rows past Q are zero-filled, cum there too: exp(last) <= 1 times
-        // 0 (cum <= 0)
-        warp_slice(acc,
-                   [&](int m, int k) {
-                     return xs[k * kMStride + m] * expf(last - cum_k[k]);
-                   },
-                   [&](int k, int j) { return bs[k * kMStride + j]; }, g, t);
-      });
-  store_tile(states + bhc * p_dim * n, n, p0 + wm, p_dim, n0 + wn, n, acc, g,
-             t);
+      }
+    } else if (tid >= 32) {  // B_c transposed and split; the decay
+      const int tt = tid - 32;
+      for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+        const Item x = decode(item);
+        // threads 0 .. 63 transpose a column each; 64 .. 95 take the
+        // decay of position tt - 64 of both heads, from cum_c[Q-1]
+        float last[2];
+#pragma unroll
+        for (int w = 0; w < 2; ++w)
+          last[w] = w < x.n_heads
+                        ? cum[(x.bhc + w * chunks) * ld_q + q_len - 1]
+                        : 0.0f;
+        for (int st = 0; st < steps; ++st, cur.next<R::kStages>()) {
+          mbar_wait(ring.landed(cur.s), cur.phase);
+          unsigned char* stage = ring.at(cur.s, 0);
+          if (tt < kTile) {
+            // in two passes of four 4-float groups (all eight at once
+            // spill)
+#pragma unroll 1
+            for (int pass = 0; pass < 2; ++pass)
+#pragma unroll
+              for (int kq = 0; kq < kK / 8; ++kq)
+                transpose_split(stage, stage + kStatesBt, tt,
+                                kK / 8 * pass + kq);
+          } else {
+            // past Q cum reads 0: exp(last) <= 1 times a zero row of xdt
+#pragma unroll
+            for (int w = 0; w < 2; ++w)
+              if (w < x.n_heads)
+                ring.vec_at(cur.s, 2 * w + 1)[tt - kTile] =
+                    expf(last[w] - ring.vec_at(cur.s, 2 * w)[tt - kTile]);
+          }
+          fence_async_smem();
+          mbar_arrive(ring.full(cur.s));
+        }
+      }
+    }
+    return;
+  }
+
+  set_max_regs_inc<Regs<88>::kConsumerRegs>();
+  const int w = wg - 1;
+  const int ct = tid % 128;
+  const int r = 16 * (ct / 32) + ct % 32 / 4;
+  const int t = ct % 4;
+  Cursor cur;
+  float part[32];
+  Frag a;
+  for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+    const Item x = decode(item);
+    const bool active = w < x.n_heads;
+    float acc[32];
+    zero(acc);
+    run_stages(
+        ring, cur, steps,
+        [&](const Cursor& c, int) {
+          mbar_wait(ring.landed(c.s), c.phase);  // the raw xdt
+          mbar_wait(ring.full(c.s), c.phase);
+          if (!active) return;
+          const uint32_t xs = ring.tile(c.s, states_x(w));
+          const uint32_t d = ring.vec(c.s, 2 * w + 1);
+          // A = (xdt ⊙ d)^T: element (p, q) is the raw tile's (q, p)
+          a_fragments(a, r, t, [&](int m, int k) {
+            return lds(xs + kBoxBytes * (m / 32) +
+                       swizzled<128>(k, 4 * (m % 32))) *
+                   lds(d + 4 * k);
+          });
+        },
+        [&](const Cursor& c, int st) {
+          if (active)
+            issue_rs(part, a, ring.tile(c.s, kStatesBt), starts_partial(st));
+        },
+        [&](int st) {
+          if (!active) return;
+          retire_products(part, a);
+          if (ends_partial(st, steps)) add_partial(acc, part, 1.0f, 1.0f);
+        });
+    if (active)
+      store_acc(states + (x.bhc + w * chunks) * p_dim * ld_n, ld_n,
+                kTile * x.pt, p_dim, kTile * x.nt, n, acc, r, t);
+  }
 }
 
 template <int VEC>
@@ -470,15 +788,17 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[VEC]) {
   }
 }
 
-// 3. The state carry over the chunks of one (b, h), VEC state elements a
-//    thread (4 where P·N is a multiple of 4 and h0 16-byte aligned):
-//    states[b, h, c] becomes the state entering chunk c; h_out (if given)
-//    the state after the last.
+// ---- 3. the state carry ---------------------------------------------------
+// Over the chunks of one (b, h), VEC state elements a thread (4 where N is
+// a multiple of 4, so that a chunk's (P, ld_n) state is dense, and h0
+// 16-byte aligned): states[b, h, c] becomes the state entering chunk c;
+// h_out (if given) the state after the last.
 template <int VEC>
 __global__ void __launch_bounds__(kPassThreads)
 ssd_pass_kernel(const float* __restrict__ cum, const float* __restrict__ h0,
                 float* states, float* __restrict__ h_out, int64_t chunks,
-                int q_len, int64_t pn, int64_t blocks_per_bh) {
+                int q_len, int ld_q, int n, int ld_n, int64_t pn,
+                int64_t ld_pn, int64_t blocks_per_bh) {
   const int64_t bh = blockIdx.x / blocks_per_bh;
   const int64_t e =
       ((blockIdx.x % blocks_per_bh) * kPassThreads + threadIdx.x) * VEC;
@@ -490,21 +810,22 @@ ssd_pass_kernel(const float* __restrict__ cum, const float* __restrict__ h0,
 #pragma unroll
     for (int v = 0; v < VEC; ++v) h[v] = 0.0f;
   }
-  float* st = states + bh * chunks * pn + e;
-  const float* last = cum + bh * chunks * q_len + (q_len - 1);
+  float* st =
+      states + bh * chunks * ld_pn + (VEC == 4 ? e : e / n * ld_n + e % n);
+  const float* last = cum + bh * chunks * ld_q + (q_len - 1);
   for (int64_t c0 = 0; c0 < chunks; c0 += kPassAhead) {
     float s[kPassAhead][VEC], d[kPassAhead];
 #pragma unroll
     for (int u = 0; u < kPassAhead; ++u) {
       if (c0 + u < chunks) {
-        load_vec(s[u], st + (c0 + u) * pn);
-        d[u] = expf(last[(c0 + u) * q_len]);
+        load_vec(s[u], st + (c0 + u) * ld_pn);
+        d[u] = expf(last[(c0 + u) * ld_q]);
       }
     }
 #pragma unroll
     for (int u = 0; u < kPassAhead; ++u) {
       if (c0 + u < chunks) {
-        store_vec(st + (c0 + u) * pn, h);
+        store_vec(st + (c0 + u) * ld_pn, h);
 #pragma unroll
         for (int v = 0; v < VEC; ++v) h[v] = fmaf(d[u], h[v], s[u][v]);
       }
@@ -513,182 +834,334 @@ ssd_pass_kernel(const float* __restrict__ cum, const float* __restrict__ h0,
   if (h_out != nullptr) store_vec(h_out + bh * pn + e, h);
 }
 
-// 4. y[b, h, c] rows i0 .. i0 + 63, columns p0 .. p0 + 63:
-//    (C_c h_c^T) ⊙ exp(cum_i) + (scores ⊙ L) xdt_c. Block index, fastest
-//    first: p tile, head, i tile, (b, c).
-__global__ void __launch_bounds__(kThreads, kOutputBlocks)
-ssd_output_kernel(const float* __restrict__ xdt, const float* __restrict__ cm,
-                  const float* __restrict__ cum,
-                  const float* __restrict__ scores,
-                  const float* __restrict__ states, float* __restrict__ y,
-                  int64_t heads, int64_t chunks, int q_len, int p_dim, int n,
-                  int i_tiles, int p_tiles, bool zero_h0, bool vec_x,
-                  bool vec_c, bool vec_s, bool vec_h) {
-  extern __shared__ float4 smem4[];
-  float* ring = reinterpret_cast<float*>(smem4);
-  float* cum_i = ring + kStages * kStage;  // [kTile]
-  int64_t idx = blockIdx.x;
-  const int pt = static_cast<int>(idx % p_tiles);
-  idx /= p_tiles;
-  const int64_t h = idx % heads;
-  idx /= heads;
-  const int it = static_cast<int>(idx % i_tiles);
-  const int64_t bc = idx / i_tiles;        // b * C + c
-  const int64_t b = bc / chunks;
-  const int64_t c = bc % chunks;
-  const int64_t bhc = (b * heads + h) * chunks + c;
-  const int i0 = it * kTile;
-  const int p0 = pt * kTile;
-  const float* cu = cum + bhc * q_len;
-  const float* c_rows = cm + bc * q_len * n;
-  const float* h_rows = states + bhc * p_dim * n;
-  const float* s_rows = scores + bc * q_len * q_len;
-  const float* x_rows = xdt + bhc * q_len * p_dim;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int wm = 32 * (threadIdx.x / 64);
-  const int wn = 32 * (threadIdx.x / 32 % 2);
-  if (threadIdx.x < kTile) {              // by cp.async, as the states'
-    const bool in = i0 + threadIdx.x < q_len;
-    cp_async4(cum_i + threadIdx.x, in ? cu + i0 + threadIdx.x : cu,
-              in ? 4 : 0);
+// ---- 4. output ------------------------------------------------------------
+// A work item's rows: 128 of i, two halves of 64, each consumer both.
+constexpr int kOutRows = 2 * kTile;
+// A stage of the intra-chunk term: the raw score tile (128 rows of i x 32
+// of j; half hh at kTileBytes · hh) at 0, each head's raw xdt (32 x 64) at
+// output_x(w) with its transpose's hi and lo after it; of the inter-chunk
+// term: C_c (half hh's hi and lo at 2 kTileBytes · hh), each head's state
+// h_c (64 rows of p x 32 of n; hi, lo) at output_h(w). Vectors: each
+// head's cum (2 w) and column factor (2 w + 1).
+using OutputRing = Ring<8 * kTileBytes, 4>;
+__host__ __device__ constexpr int output_x(int w) {
+  return kTileBytes * (2 + 3 * w);
+}
+__host__ __device__ constexpr int output_h(int w) {
+  return kTileBytes * (4 + 2 * w);
+}
+
+struct OutputMaps {
+  CUtensorMap scores;  // (Q, Q, B·C), boxes of 32 x 64
+  CUtensorMap cm;      // (N, Q, B·C), boxes of 32 x 64
+  CUtensorMap states;  // (N, P, B·H·C), boxes of 32 x 64
+  CUtensorMap xdt;     // (P, Q, B·H·C), boxes of 32 x 32
+  CUtensorMap cum;     // (Q, B·H·C), boxes of 32
+};
+
+// y[b, h, c] rows i0 .. i0 + 127, columns p0 .. p0 + 63:
+// (C_c h_c^T) ⊙ exp(cum_i) + (scores ⊙ L) xdt_c. Work item, fastest first:
+// p tile, pair of heads (consumer w takes head 2 hp + w), 128-row tile of
+// i (the last first), b·C + c: the items that read one chunk's scores,
+// C_c, h_c and xdt_c run side by side, so all but the first read them
+// from L2, and a block's items rotate through the i tiles. The inter-chunk
+// term's stages come first (none at c = 0 without h0), then the
+// intra-chunk term's column slices up to the tile's diagonal; a half
+// skips the slices wholly above its rows, and the lower half's rows past
+// Q. The producer splits C_c and takes each head's column factors; each
+// consumer splits its head's h_c and transposes its head's xdt. Every
+// partial sum is one stage long here (kPartialStages is the scores' and
+// the states'): the inter-chunk stages take one for each row half, the
+// intra-chunk stages run the halves in turn through one.
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_output_kernel(const __grid_constant__ OutputMaps maps,
+                  const float* __restrict__ cum, float* __restrict__ y,
+                  int64_t bc_count, int heads, int64_t chunks, int q_len,
+                  int ld_q, int p_dim, int n, int zero_h0) {
+  using R = OutputRing;
+  extern __shared__ unsigned char smem_raw[];
+  const R ring(smem_raw);
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int i_tiles = (q_len + kOutRows - 1) / kOutRows;
+  const int head_pairs = (heads + 1) / 2;
+  const int p_tiles = (p_dim + kTile - 1) / kTile;
+  const int64_t items = i_tiles * bc_count * head_pairs * p_tiles;
+  struct Item {
+    int64_t bc, bhc;  // bhc of head 2 hp; the other's is bhc + chunks
+    int n_heads, pt, i0, halves;  // halves: 2, or 1 where Q ends in the first
+    int n_inter, n_off, n_intra;  // stages: inter, left of the tile, intra
+  };
+  auto decode = [&](int64_t item) {
+    Item x;
+    x.pt = static_cast<int>(item % p_tiles);
+    item /= p_tiles;
+    const int hp = static_cast<int>(item % head_pairs);
+    item /= head_pairs;
+    x.i0 = kOutRows * (i_tiles - 1 - static_cast<int>(item % i_tiles));
+    x.bc = item / i_tiles;
+    const int64_t c = x.bc % chunks;
+    x.bhc = ((x.bc / chunks) * heads + 2 * hp) * chunks + c;
+    x.n_heads = min(2, heads - 2 * hp);
+    x.halves = x.i0 + kTile < q_len ? 2 : 1;
+    // the state entering chunk 0 is zero without h0: no inter-chunk term
+    x.n_inter = c == 0 && zero_h0 ? 0 : (n + kK - 1) / kK;
+    x.n_off = x.i0 / kK;
+    x.n_intra = (min(x.i0 + kOutRows, q_len) + kK - 1) / kK;
+    return x;
+  };
+  ring.init(tid);
+  __syncthreads();
+
+  if (wg == 0) {
+    set_max_regs_dec<Regs<56>::kProducerRegs>();
+    Cursor cur;
+    if (tid == 0) {
+      for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+        const Item x = decode(item);
+        const int bc = static_cast<int>(x.bc);
+        for (int st = 0; st < x.n_inter + x.n_intra;
+             ++st, cur.next<R::kStages>()) {
+          const bool inter = st < x.n_inter;
+          if (!claim(ring, cur,
+                     inter ? kTileBytes * (2 + x.n_heads)
+                           : 2 * kTileBytes +
+                                 x.n_heads * (kTileBytes + 4 * kK)))
+            continue;
+          const uint32_t bar = ring.landed(cur.s);
+          if (inter) {
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              tma_load_3d(ring.tile(cur.s, 2 * kTileBytes * hh), &maps.cm,
+                          bar, kK * st, x.i0 + kTile * hh, bc);
+            for (int w = 0; w < x.n_heads; ++w)
+              tma_load_3d(ring.tile(cur.s, output_h(w)), &maps.states, bar,
+                          kK * st, kTile * x.pt,
+                          static_cast<int>(x.bhc + w * chunks));
+            continue;
+          }
+          const int j0 = kK * (st - x.n_inter);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            tma_load_3d(ring.tile(cur.s, kTileBytes * hh), &maps.scores, bar,
+                        j0, x.i0 + kTile * hh, bc);
+          for (int w = 0; w < x.n_heads; ++w) {
+            const int bhc = static_cast<int>(x.bhc + w * chunks);
+#pragma unroll
+            for (int bx = 0; bx < 2; ++bx)
+              tma_load_3d(ring.tile(cur.s, output_x(w) + kBoxBytes * bx),
+                          &maps.xdt, bar, kTile * x.pt + 32 * bx, j0, bhc);
+            tma_load_2d(ring.vec(cur.s, 2 * w), &maps.cum, bar, j0, bhc);
+          }
+        }
+      }
+    } else if (tid >= 32) {
+      // inter stages: C_c split in place; intra stages left of the tile:
+      // each head's column factor exp(cum_i0 - cum_j)
+      const int tt = tid - 32;
+      for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+        const Item x = decode(item);
+        const int w = tt / kK;
+        const bool has_head = tt < 2 * kK && w < x.n_heads;
+        const float cum_i0 =
+            has_head ? cum[(x.bhc + w * chunks) * ld_q + x.i0] : 0.0f;
+        for (int st = 0; st < x.n_inter + x.n_intra;
+             ++st, cur.next<R::kStages>()) {
+          mbar_wait(ring.landed(cur.s), cur.phase);
+          if (st < x.n_inter) {
+            unsigned char* stage = ring.at(cur.s, 0);
+#pragma unroll 4
+            for (int i = 0; i < 2 * kTransformerIters; ++i) {
+              const int idx = tt + kTransformers * i;
+              if (idx < 2 * kTileItems)
+                split4(stage + 2 * kTileBytes * (idx / kTileItems) +
+                       16 * (idx % kTileItems));
+            }
+          } else if (has_head && st - x.n_inter < x.n_off) {
+            ring.vec_at(cur.s, 2 * w + 1)[tt % kK] =
+                expf(cum_i0 - ring.vec_at(cur.s, 2 * w)[tt % kK]);
+          }
+          fence_async_smem();
+          mbar_arrive(ring.full(cur.s));
+        }
+      }
+    }
+    return;
   }
 
-  // the state entering chunk 0 is zero without h0: no inter-chunk term
-  const int n_inter = (c == 0 && zero_h0) ? 0 : (n + kSlice - 1) / kSlice;
-  const int n_intra = (min(i0 + kTile, q_len) + kSlice - 1) / kSlice;
-  Acc acc;
-  zero(acc);
-  // Two rings in turn, the inter-chunk term's and the intra-chunk term's,
-  // so that each loop holds only its own registers.
-  pipeline(n_inter, ring,
-      [&](int s, float* st) {
-        stage_tile<kTile, kSlice>(st, kKStride, c_rows, n, i0, q_len,
-                                  s * kSlice, n, vec_c);
-        stage_tile<kTile, kSlice>(st + kOperand, kKStride, h_rows, n, p0,
-                                  p_dim, s * kSlice, n, vec_h);
-      },
-      [&](int, const float* st) {
-        const float* cs = st + wm * kKStride;
-        const float* hs = st + kOperand + wn * kKStride;
-        warp_slice(acc, [&](int m, int k) { return cs[m * kKStride + k]; },
-                   [&](int k, int p) { return hs[p * kKStride + k]; }, g, t);
-      });
-  __syncthreads();   // cum_i landed everywhere; the ring's stages are free
-  // The decay of row i, exp(cum_i - x), factors through the tile's first
-  // row as exp(cum_i - cum_i0) exp(cum_i0 - x), both <= 1 (cum falls along
-  // the chunk) where x is cum_j for a column j < i0 or 0 for the
-  // inter-chunk term: those terms are summed with the column factor only
-  // and their rows scaled once, before the first slice that reaches the
-  // diagonal tile, whose terms take exp(cum_i - cum_j) per element.
-  const float cum_i0 = cum_i[0];
-  const int n_off = i0 / kSlice;            // slices with every j < i0
-  float cu_row[kWM][2];                     // cum_i of the lane's rows
+  set_max_regs_inc<Regs<56>::kConsumerRegs>();
+  const int w = wg - 1;
+  const int ct = tid % 128;
+  const int r = 16 * (ct / 32) + ct % 32 / 4;
+  const int t = ct % 4;
+  Cursor cur;
+  float part[32];
+  Frag a;
+  for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+    const Item x = decode(item);
+    const bool active = w < x.n_heads;
+    const int64_t bhc = x.bhc + w * chunks;
+    // cum of the tile's first row and of the thread's rows
+    // i0 + 64 hh + r (+ 8) (rows past Q, which are not stored, take the
+    // first's); the partial sums' row factors: exp(cum_i) for the
+    // inter-chunk term, exp(cum_i - cum_i0) left of the tile
+    const float* cu = cum + (active ? bhc : 0) * ld_q;
+    const float cu_0 = cu[x.i0];
+    float cu_row[2][2], f_inter[2][2], f_left[2][2];
 #pragma unroll
-  for (int mt = 0; mt < kWM; ++mt)
+    for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-    for (int half = 0; half < 2; ++half)
-      cu_row[mt][half] = cum_i[wm + 16 * mt + 8 * half + g];
-  {
-    const float e = expf(cum_i0);           // the inter-chunk term is done
+      for (int e = 0; e < 2; ++e) {
+        const int row = x.i0 + kTile * hh + r + 8 * e;
+        cu_row[hh][e] = row < q_len ? cu[row] : cu_0;
+        f_inter[hh][e] = expf(cu_row[hh][e]);
+        f_left[hh][e] = expf(cu_row[hh][e] - cu_0);
+      }
+    const int n_left = x.n_inter + x.n_off;  // stages before the diagonal
+    // the upper half's diagonal stages: up to its last row
+    const int n_diag0 = min(kTile / kK, x.n_intra - x.n_off);
+    float acc[2][32];
+    zero(acc[0]);
+    zero(acc[1]);
+    run_stages(
+        ring, cur, x.n_inter + x.n_intra,
+        [&](const Cursor& c, int st) {
+          mbar_wait(ring.landed(c.s), c.phase);
+          mbar_wait(ring.full(c.s), c.phase);
+          if (!active) return;
+          unsigned char* stage = ring.at(c.s, 0);
+          if (st < x.n_inter)
+            split_own(stage + output_h(w), ct, w);
+          else
+            transpose_own(stage + output_x(w),
+                          stage + output_x(w) + kTileBytes, ct, w);
+        },
+        [&](const Cursor& c, int st) {
+          if (!active) return;
+          // the row halves in turn through one partial sum (two would not
+          // fit the registers)
 #pragma unroll
-    for (int mt = 0; mt < kWM; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kWN; ++nt)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[mt][nt][v] *= e;
-  }
-  pipeline(n_intra, ring,
-      [&](int s, float* st) {
-        const int j0 = s * kSlice;
-        stage_tile<kTile, kSlice>(st, kKStride, s_rows, q_len, i0, q_len, j0,
-                                  q_len, vec_s);
-        stage_tile<kSlice, kTile>(st + kOperand, kMStride, x_rows, p_dim, j0,
-                                  q_len, p0, p_dim, vec_x);
-        if (threadIdx.x < kSlice) {
-          const bool in = j0 + threadIdx.x < q_len;
-          cp_async4(st + 2 * kOperand + threadIdx.x,
-                    in ? cu + j0 + threadIdx.x : cu, in ? 4 : 0);
-        }
-      },
-      [&](int s, const float* st) {
-        const int j0 = s * kSlice;
-        const float* ss = st + wm * kKStride;
-        const float* xs = st + kOperand + wn;
-        const float* cum_j = st + 2 * kOperand;
-        if (s < n_off) {
-          // exp(cum_i0 - cum_j) depends on the column only (one exp for
-          // the 4 elements of a lane that share it)
-          warp_slice(acc,
-                     [&](int m, int k) {
-                       return ss[m * kKStride + k] *
-                              expf(cum_i0 - cum_j[k]);
-                     },
-                     [&](int k, int p) { return xs[k * kMStride + p]; }, g,
-                     t);
-          return;
-        }
-        if (s == n_off) {
-#pragma unroll
-          for (int mt = 0; mt < kWM; ++mt)
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const float e = expf(cu_row[mt][half] - cum_i0);
-#pragma unroll
-              for (int nt = 0; nt < kWN; ++nt) {
-                acc[mt][nt][2 * half] *= e;
-                acc[mt][nt][2 * half + 1] *= e;
-              }
+          for (int hh = 0; hh < 2; ++hh) {
+            if (hh == x.halves) break;
+            if (st < x.n_inter) {
+              issue_ss(part, ring.tile(c.s, 2 * kTileBytes * hh),
+                       ring.tile(c.s, output_h(w)), true);
+              retire_products(part);
+              add_partial(acc[hh], part, f_inter[hh][0], f_inter[hh][1]);
+              continue;
             }
-        }
-        // a warp whose rows all lie above this slice's columns adds 0
-        if (j0 > i0 + wm + 16 * kWM - 1) return;
-        // the decay only on and below the diagonal, inside Q: elsewhere
-        // exp(-inf) = 0, so nothing overflows and no branch is taken
-        warp_slice(acc,
-                   [&](int m, int k) {
-                     const int local = m - g;     // 16 mt + 8 half
-                     const int row = i0 + wm + m;
-                     const bool on = j0 + k <= row && row < q_len;
-                     const float d =
-                         cu_row[local / 16][local / 8 % 2] - cum_j[k];
-                     return ss[m * kKStride + k] * expf(on ? d : -INFINITY);
-                   },
-                   [&](int k, int p) { return xs[k * kMStride + p]; }, g, t);
-      });
-  store_tile(y + bhc * q_len * p_dim, p_dim, i0 + wm, q_len, p0 + wn, p_dim,
-             acc, g, t);
+            const bool left = st < n_left;
+            // the upper half stops at its diagonal
+            if (!left && hh == 0 && st - n_left >= n_diag0) continue;
+            const uint32_t ss = ring.tile(c.s, kTileBytes * hh);
+            auto score = [&](int m, int k) {
+              return lds(ss + swizzled<kRowBytes>(m, 4 * k));
+            };
+            if (left) {
+              const uint32_t colf = ring.vec(c.s, 2 * w + 1);
+              a_fragments(a, r, t, [&](int m, int k) {
+                return score(m, k) * lds(colf + 4 * k);
+              });
+            } else {
+              // the decay only on and below the diagonal, inside Q:
+              // elsewhere exp(-inf) = 0, so nothing overflows and no
+              // branch is taken
+              const uint32_t cum_j = ring.vec(c.s, 2 * w);
+              const int j0 = kK * (st - x.n_inter);
+              a_fragments(a, r, t, [&](int m, int k) {
+                const int row = x.i0 + kTile * hh + m;
+                const bool on = j0 + k <= row && row < q_len;
+                const float d =
+                    cu_row[hh][m == r ? 0 : 1] - lds(cum_j + 4 * k);
+                return score(m, k) * expf(on ? d : -INFINITY);
+              });
+            }
+            issue_rs(part, a, ring.tile(c.s, output_x(w) + kTileBytes),
+                     true);
+            retire_products(part, a);
+            if (left)
+              add_partial(acc[hh], part, f_left[hh][0], f_left[hh][1]);
+            else
+              add_partial(acc[hh], part, 1.0f, 1.0f);
+          }
+        },
+        [&](int) {});
+    if (active) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        store_acc(y + bhc * q_len * p_dim, p_dim, x.i0 + kTile * hh, q_len,
+                  kTile * x.pt, p_dim, acc[hh], r, t);
+    }
+  }
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// The blocks of each kernel at one shape (see the Python wrapper's
-// ops.grid, which mirrors it): false if a grid passes CUDA's limits.
+int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// The work of each kernel at one shape (see the Python wrapper's ops.grid
+// and ops.work_items, which mirror it): the persistent kernels' items and
+// blocks (one an SM at most), the state carry's blocks. False if a grid or
+// a tensor map's chunk coordinate passes its limit.
 struct Grid {
-  int64_t scores, states_x, states_y, pass, output;
-  int64_t pairs, n_tiles, i_tiles, p_tiles, pass_per_bh;
+  int64_t scores_items, states_items, output_items;
+  int64_t scores, states, output, pass, pass_per_bh;
 };
 
 bool make_grid(int64_t batch, int64_t heads, int64_t chunks, int64_t q_len,
-               int64_t p_dim, int64_t n_dim, int pass_vec, Grid* g) {
-  const int64_t q_tiles = (q_len + kTile - 1) / kTile;
-  g->pairs = q_tiles * (q_tiles + 1) / 2;
-  g->n_tiles = (n_dim + kTile - 1) / kTile;
-  g->i_tiles = q_tiles;
-  g->p_tiles = (p_dim + kTile - 1) / kTile;
-  g->pass_per_bh =
-      (p_dim * n_dim + kPassThreads * pass_vec - 1) / (kPassThreads * pass_vec);
-  g->scores = g->pairs * batch * chunks;
-  g->states_x = batch * heads * chunks;
-  g->states_y = g->p_tiles * g->n_tiles;
+               int64_t p_dim, int64_t n_dim, int pass_vec, int64_t sms,
+               Grid* g) {
+  const int64_t bc = batch * chunks;
+  const int64_t q_tiles = cdiv(q_len, kTile);
+  const int64_t head_pairs = cdiv(heads, 2);
+  const int64_t p_tiles = cdiv(p_dim, kTile);
+  g->scores_items = bc * q_tiles * cdiv(q_tiles, 2);
+  g->states_items = bc * head_pairs * p_tiles * cdiv(n_dim, kTile);
+  g->output_items = cdiv(q_len, kOutRows) * bc * head_pairs * p_tiles;
+  g->scores = g->scores_items < sms ? g->scores_items : sms;
+  g->states = g->states_items < sms ? g->states_items : sms;
+  g->output = g->output_items < sms ? g->output_items : sms;
+  g->pass_per_bh = cdiv(p_dim * n_dim, kPassThreads * pass_vec);
   g->pass = g->pass_per_bh * batch * heads;
-  g->output = batch * chunks * g->i_tiles * heads * g->p_tiles;
-  constexpr int64_t kMaxX = 0x7fffffff;
-  return g->scores <= kMaxX && g->states_x <= kMaxX &&
-         g->states_y <= 65535 && g->pass <= kMaxX && g->output <= kMaxX;
+  return g->pass <= 0x7fffffff && batch * heads * chunks <= 0x7fffffff;
+}
+
+// A row-major f32 tensor of `depth` matrices (rows, cols), rows ld floats
+// apart, as a 3-D tensor map with (32, box_rows, 1) boxes swizzled across
+// their 128-byte rows. Reads past cols, rows or depth are zeros.
+CUresult make_map3(CUtensorMap* map, const void* ptr, int64_t cols,
+                   int64_t rows, int64_t depth, int64_t ld, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(depth)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 4,
+                                 static_cast<cuuint64_t>(rows * ld) * 4};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// cum (B·H·C rows of q_len, ld_q apart) as a 2-D map with boxes of kK.
+CUresult make_cum_map(CUtensorMap* map, const void* ptr, int64_t q_len,
+                      int64_t rows, int64_t ld_q) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(q_len),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld_q) * 4};
+  const cuuint32_t box[2] = {kK, 1};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 const void* const kKernels[] = {
@@ -697,9 +1170,26 @@ const void* const kKernels[] = {
     reinterpret_cast<const void*>(ssd_pass_kernel<4>),
     reinterpret_cast<const void*>(ssd_output_kernel)};
 constexpr int kKernelThreads[] = {kThreads, kThreads, kPassThreads, kThreads};
-constexpr int kKernelSmem[] = {kSmemBytes, kSmemBytes, 0, kSmemBytes};
+constexpr int kKernelSmem[] = {static_cast<int>(ScoresRing::kSmemBytes),
+                               static_cast<int>(StatesRing::kSmemBytes), 0,
+                               static_cast<int>(OutputRing::kSmemBytes)};
 
-cudaError_t opt_in_smem() {
+// Opts the tensor-core kernels in to their shared memory on the current
+// device, and checks (once) that each was compiled with the registers its
+// setmaxnreg moves need: a kernel launched with fewer would hang in
+// setmaxnreg.inc.
+cudaError_t prepare_kernels() {
+  static const cudaError_t regs = [] {
+    for (int k = 0; k < 4; ++k) {
+      if (kKernelSmem[k] == 0) continue;
+      cudaFuncAttributes fa;
+      const cudaError_t err = cudaFuncGetAttributes(&fa, kKernels[k]);
+      if (err != cudaSuccess) return err;
+      if (fa.numRegs < kLaunchRegs) return cudaErrorInvalidConfiguration;
+    }
+    return cudaSuccess;
+  }();
+  if (regs != cudaSuccess) return regs;
   for (int k = 0; k < 4; ++k) {
     if (kKernelSmem[k] == 0) continue;
     const cudaError_t err = cudaFuncSetAttribute(
@@ -718,7 +1208,7 @@ cudaError_t opt_in_smem() {
 // cudaErrorInvalidValue for an unknown index.
 extern "C" int rt_ssd_kernel_info(int which, int64_t* info) {
   if (which < 0 || which >= 4) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = opt_in_smem();
+  cudaError_t err = prepare_kernels();
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -729,70 +1219,101 @@ extern "C" int rt_ssd_kernel_info(int which, int64_t* info) {
   return static_cast<int>(err);
 }
 
-// Launcher: f32 contiguous operands in the layouts above; `scores`, a
-// (B, C, Q, Q) f32 scratch (only its tiles on or below the diagonal are
-// written and read), and `states`, a (B, H, C, P, N) f32 scratch. h0 and
-// h_out may be null (a zero initial state; no final state written). Makes
-// `device` current, enqueues the four kernels on `stream` and returns
-// cudaGetLastError().
+// Launcher: f32 operands in the layouts above, each row-major with rows
+// ld_p (xdt), ld_n (bm, cm) and ld_q (cum) floats apart (multiples of 4,
+// at least P, N and Q); `scores`, a (B, C, Q, ld_q) f32 scratch (only its
+// tiles on or below the diagonal are written and read), and `states`, a
+// (B, H, C, P, ld_n) f32 scratch. y is dense (B, H, C, Q, P); h0 and h_out
+// (dense (B, H, P, N)) may be null (a zero initial state; no final state
+// written). Makes `device` current, enqueues the four kernels on `stream`
+// and returns cudaGetLastError() after each, or an error of its own:
+// cudaErrorInvalidValue for a size out of range, cudaErrorMisalignedAddress
+// for an operand not 16-byte aligned, cudaErrorInvalidConfiguration for a
+// kernel compiled with too few registers, 100000 + CUresult for a refused
+// tensor map (99999 without cuTensorMapEncodeTiled).
 extern "C" int rt_ssd_chunk_scan_f32(
     const void* xdt, const void* bm, const void* cm, const void* cum,
     const void* h0, void* y, void* h_out, void* scores, void* states,
     int64_t batch, int64_t heads, int64_t chunks, int64_t q_len,
-    int64_t p_dim, int64_t n_dim, int device, void* stream) {
-  Grid grid;
-  const bool vec_pass = (p_dim * n_dim) % 4 == 0 &&
-                        (h0 == nullptr || aligned16(h0));
+    int64_t p_dim, int64_t n_dim, int64_t ld_p, int64_t ld_n, int64_t ld_q,
+    int device, void* stream) {
+  const bool vec_pass =
+      n_dim % 4 == 0 && (h0 == nullptr || aligned16(h0));
   if (batch < 0 || heads < 0 || chunks < 0 || q_len < 1 || p_dim < 1 ||
       n_dim < 1 || n_dim > kMaxN || q_len > 0x7fffffff ||
-      p_dim > 0x7fffffff ||
-      !make_grid(batch, heads, chunks, q_len, p_dim, n_dim, vec_pass ? 4 : 1,
-                 &grid))
+      p_dim > 0x7fffffff || heads > 0x7fffffff || ld_p < p_dim ||
+      ld_n < n_dim || ld_q < q_len || ld_p % 4 != 0 || ld_n % 4 != 0 ||
+      ld_q % 4 != 0 || ld_p > 0x7fffffff || ld_q > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || heads == 0 || chunks == 0) return 0;
+  if (!aligned16(xdt) || !aligned16(bm) || !aligned16(cm) ||
+      !aligned16(cum) || !aligned16(scores) || !aligned16(states) ||
+      !aligned16(y))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   int current = -1;
   if (cudaGetDevice(&current) != cudaSuccess || current != device) {
     const cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  cudaError_t err = opt_in_smem();
+  int sms = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  Grid grid;
+  if (!make_grid(batch, heads, chunks, q_len, p_dim, n_dim, vec_pass ? 4 : 1,
+                 sms, &grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (encode_tiled() == nullptr) return kMapError - 1;
+  if ((err = prepare_kernels()) != cudaSuccess) return static_cast<int>(err);
+  const int64_t bc = batch * chunks;
+  const int64_t bhc = batch * heads * chunks;
+  ScoresMaps sm;
+  StatesMaps tm;
+  OutputMaps om;
+  memset(&sm, 0, sizeof(sm));
+  memset(&tm, 0, sizeof(tm));
+  memset(&om, 0, sizeof(om));
+  CUresult r = make_map3(&sm.cm, cm, n_dim, q_len, bc, ld_n, kTile);
+  if (r == CUDA_SUCCESS)
+    r = make_map3(&sm.bm, bm, n_dim, q_len, bc, ld_n, kTile);
+  if (r == CUDA_SUCCESS)
+    r = make_map3(&tm.xdt, xdt, p_dim, q_len, bhc, ld_p, kK);
+  if (r == CUDA_SUCCESS)
+    r = make_map3(&tm.bm, bm, n_dim, q_len, bc, ld_n, kK);
+  if (r == CUDA_SUCCESS) r = make_cum_map(&tm.cum, cum, q_len, bhc, ld_q);
+  if (r == CUDA_SUCCESS)
+    r = make_map3(&om.scores, scores, q_len, q_len, bc, ld_q, kTile);
+  if (r == CUDA_SUCCESS)
+    r = make_map3(&om.states, states, n_dim, p_dim, bhc, ld_n, kTile);
+  if (r != CUDA_SUCCESS) return kMapError + static_cast<int>(r);
+  om.cm = sm.cm;
+  om.xdt = tm.xdt;
+  om.cum = tm.cum;
+
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int q = static_cast<int>(q_len);
   const int p = static_cast<int>(p_dim);
   const int n = static_cast<int>(n_dim);
-  const float* fx = static_cast<const float*>(xdt);
-  const float* fb = static_cast<const float*>(bm);
-  const float* fc = static_cast<const float*>(cm);
+  const int h = static_cast<int>(heads);
   const float* fcum = static_cast<const float*>(cum);
-  float* fscores = static_cast<float*>(scores);
-  float* fstates = static_cast<float*>(states);
-  const bool vec_x = p % 4 == 0 && aligned16(xdt);
-  const bool vec_b = n % 4 == 0 && aligned16(bm);
-  const bool vec_c = n % 4 == 0 && aligned16(cm);
-  const bool vec_s = q % 4 == 0 && aligned16(scores);
-  const bool vec_h = n % 4 == 0 && aligned16(states);
-
   ssd_scores_kernel<<<static_cast<unsigned>(grid.scores), kThreads,
-                      kSmemBytes, s>>>(fb, fc, fscores, grid.pairs, q, n,
-                                       vec_b && vec_c);
+                      ScoresRing::kSmemBytes, s>>>(
+      sm, static_cast<float*>(scores), bc, q, static_cast<int>(ld_q), n);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  ssd_states_kernel<<<dim3(static_cast<unsigned>(grid.states_x),
-                           static_cast<unsigned>(grid.states_y)),
-                      kThreads, kSmemBytes, s>>>(
-      fx, fb, fcum, fstates, heads, chunks, q, p, n,
-      static_cast<int>(grid.n_tiles), vec_x, vec_b);
+  ssd_states_kernel<<<static_cast<unsigned>(grid.states), kThreads,
+                      StatesRing::kSmemBytes, s>>>(
+      tm, fcum, static_cast<float*>(states), bc, h, chunks, q,
+      static_cast<int>(ld_q), p, n, static_cast<int>(ld_n));
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   auto* pass = vec_pass ? ssd_pass_kernel<4> : ssd_pass_kernel<1>;
   pass<<<static_cast<unsigned>(grid.pass), kPassThreads, 0, s>>>(
-      fcum, static_cast<const float*>(h0), fstates, static_cast<float*>(h_out),
-      chunks, q, p_dim * n_dim, grid.pass_per_bh);
+      fcum, static_cast<const float*>(h0), static_cast<float*>(states),
+      static_cast<float*>(h_out), chunks, q, static_cast<int>(ld_q), n,
+      static_cast<int>(ld_n), p_dim * n_dim, p_dim * ld_n, grid.pass_per_bh);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   ssd_output_kernel<<<static_cast<unsigned>(grid.output), kThreads,
-                      kSmemBytes, s>>>(
-      fx, fc, fcum, fscores, fstates, static_cast<float*>(y), heads, chunks,
-      q, p, n, static_cast<int>(grid.i_tiles),
-      static_cast<int>(grid.p_tiles), h0 == nullptr, vec_x, vec_c, vec_s,
-      vec_h);
+                      OutputRing::kSmemBytes, s>>>(
+      om, fcum, static_cast<float*>(y), bc, h, chunks, q,
+      static_cast<int>(ld_q), p, n, h0 == nullptr ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,10 +9,14 @@ optional initial state ``h0``. One launch enqueues four CUDA kernels
 (:data:`KERNELS`: each chunk's scores, each chunk's own state
 contribution, the sequential state carry, the output), which meet in
 two scratch tensors the wrapper allocates: the scores ``(B, C, Q, Q)``
-and the chunk states ``(B, H, C, P, N)``. The JAX package has no
-backward kernel for the scan (no custom VJP), so :class:`_ChunkScan`'s
-backward recomputes through the plain version, as the flash kernel's
-does: the gradients are the plain version's.
+and the chunk states ``(B, H, C, P, N)``, each with its rows rounded up
+to 4 floats. Three of the kernels run 3xTF32 on Hopper's ``wgmma`` fed
+by TMA, whose row strides must be multiples of 16 bytes: an operand
+whose rows are not (or whose data does not start on a 16-byte boundary)
+goes through a rounded-up copy first (:func:`tma_rows`). The JAX
+package has no backward kernel for the scan (no custom VJP), so
+:class:`_ChunkScan`'s backward recomputes through the plain version, as
+the flash kernel's does: the gradients are the plain version's.
 
 Which device takes which path, through the op
 ``repro_torch::ssd_chunk_scan_fwd`` (:mod:`repro_torch.kernels.registry`):
@@ -40,7 +44,7 @@ from .ref import ssd_chunk_scan_ref
 
 __all__ = ["KERNELS", "MAX_STATE", "OP", "bytes_moved", "chunk_scan",
            "grid", "h0_aligned", "kernel_info", "needed_flops",
-           "ssd_chunk_scan"]
+           "ssd_chunk_scan", "tma_rows", "work_items"]
 
 #: the largest state width N the kernel takes; any P >= 1 and Q >= 1 are
 #: taken
@@ -48,11 +52,13 @@ MAX_STATE = 256
 #: the CUDA kernels one launch enqueues, in order (their names in a trace)
 KERNELS = ("ssd_scores_kernel", "ssd_states_kernel", "ssd_pass_kernel",
            "ssd_output_kernel")
-_TILE = 64                    # output tile of the scores, states and output
+_TILE = 64                    # a consumer's tile in the scores, states, output
 _PASS_THREADS = 256           # threads of a state-carry block
+_SMS = 132                    # an H100 SXM's SMs: the persistent grids' size
 _MAX_GRID_X = 2 ** 31 - 1
 _MAX_GRID_Y = 65535
-_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int64,) * 6
+_MAX_COORD = 2 ** 31 - 1      # TMA's coordinates are 32-bit signed
+_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int64,) * 9
              + (ctypes.c_int, ctypes.c_void_p))
 _LAUNCHER: list = []          # the ctypes launcher, filled at first launch
 
@@ -64,25 +70,54 @@ def h0_aligned(h0: Optional[torch.Tensor]) -> bool:
     return h0 is None or h0.data_ptr() % 16 == 0
 
 
-def grid(B: int, H: int, C: int, Q: int, P: int, N: int,
-         h0_aligned: bool = True) -> dict:
-    """Blocks each kernel of one launch runs at (B, H, C, Q, P, N), as
-    ``(gridDim.x, gridDim.y)`` (``csrc/ssd.cu``'s ``make_grid``): the
-    scores one per (b, c, 64 x 64 tile on or below the diagonal); the
-    chunk states x = B·H·C, y = the 64 x 64 tiles of (P, N); the state
-    carry one per (b, h, 256 threads of 4 state elements, or of 1 where
-    P·N is not a multiple of 4 or ``h0`` is not 16-byte aligned: pass
-    ``h0_aligned=False`` then, as :func:`h0_aligned` decides it); the
-    output one per (b, c, 64 rows, head, 64 columns of P)."""
+def tma_rows(x: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``x`` (contiguous, rows along its last dimension) as the kernel's
+    TMA loads take it, and its row stride in elements: rows a multiple of
+    4 floats (16 bytes) apart from a 16-byte aligned start. A tensor that
+    is not so is copied into a buffer whose rows are rounded up to 4
+    floats; the kernel never reads the columns past the tensor's own."""
+    cols = x.shape[-1]
+    ld = -(-cols // 4) * 4
+    if ld == cols and x.data_ptr() % 16 == 0:
+        return x, ld
+    buf = x.new_empty((*x.shape[:-1], ld))
+    buf[..., :cols].copy_(x)
+    return buf, ld
+
+
+def work_items(B: int, H: int, C: int, Q: int, P: int, N: int) -> dict:
+    """Work items of the three tensor-core kernels at (B, H, C, Q, P, N)
+    (``csrc/ssd.cu``'s ``make_grid``), each split between two consumer
+    warpgroups: the scores one per (b, c, 64 rows of i, pair of 64-column
+    tiles of j; pairs wholly above the diagonal counted, and skipped); the
+    chunk states one per (b, c, pair of heads, 64 rows of p, 64 columns of
+    n); the output one per (128 rows of i, b, c, pair of heads, 64 columns
+    of p)."""
     def cdiv(a, b):
         return -(-a // b)
-    q_tiles = cdiv(Q, _TILE)
-    per_thread = 4 if P * N % 4 == 0 and h0_aligned else 1
-    return {"ssd_scores_kernel": (q_tiles * (q_tiles + 1) // 2 * B * C, 1),
-            "ssd_states_kernel": (B * H * C, cdiv(P, _TILE) * cdiv(N, _TILE)),
-            "ssd_pass_kernel": (cdiv(P * N, _PASS_THREADS * per_thread)
-                                * B * H, 1),
-            "ssd_output_kernel": (B * C * q_tiles * H * cdiv(P, _TILE), 1)}
+    q_tiles, pairs = cdiv(Q, _TILE), cdiv(H, 2)
+    return {"ssd_scores_kernel": B * C * q_tiles * cdiv(q_tiles, 2),
+            "ssd_states_kernel": B * C * pairs * cdiv(P, _TILE)
+            * cdiv(N, _TILE),
+            "ssd_output_kernel": cdiv(Q, 2 * _TILE) * B * C * pairs
+            * cdiv(P, _TILE)}
+
+
+def grid(B: int, H: int, C: int, Q: int, P: int, N: int,
+         h0_aligned: bool = True, sms: int = _SMS) -> dict:
+    """Blocks each kernel of one launch runs at (B, H, C, Q, P, N), as
+    ``(gridDim.x, gridDim.y)`` (``csrc/ssd.cu``'s ``make_grid``): the
+    three tensor-core kernels are persistent, one block an SM at most
+    (``sms``; the launcher asks the card) walking :func:`work_items`; the
+    state carry one block per (b, h, 256 threads of 4 state elements, or
+    of 1 where N is not a multiple of 4 or ``h0`` is not 16-byte aligned:
+    pass ``h0_aligned=False`` then, as :func:`h0_aligned` decides it)."""
+    per_thread = 4 if N % 4 == 0 and h0_aligned else 1
+    out = {name: (min(items, sms), 1)
+           for name, items in work_items(B, H, C, Q, P, N).items()}
+    out["ssd_pass_kernel"] = (-(-P * N // (_PASS_THREADS * per_thread))
+                              * B * H, 1)
+    return {name: out[name] for name in KERNELS}
 
 
 def kernel_info() -> dict:
@@ -156,6 +191,11 @@ def _launch(xdt, bm, cm, cum, h0, return_state: bool):
     if q < 1 or p < 1:
         raise ValueError(f"chunk length and head dim must be positive, got "
                          f"Q={q}, P={p}")
+    if b * h * c > _MAX_COORD:
+        raise ValueError(f"(B, H, C) = {(b, h, c)}: B·H·C = {b * h * c} "
+                         f"chunks pass the ssd_states_kernel and "
+                         f"ssd_output_kernel tensor maps' 32-bit chunk "
+                         f"coordinate ({_MAX_COORD})")
     for name, (gx, gy) in grid(b, h, c, q, p, n,
                                h0_aligned(h0)).items():
         if gx > _MAX_GRID_X or gy > _MAX_GRID_Y:
@@ -166,20 +206,25 @@ def _launch(xdt, bm, cm, cum, h0, return_state: bool):
     dev = xdt.device
     if not _LAUNCHER:
         _LAUNCHER.append(build.kernel_fn("rt_ssd_chunk_scan_f32", _ARGTYPES))
-    y = torch.empty_like(xdt)
+    xdt, ld_p = tma_rows(xdt)
+    bm, ld_n = tma_rows(bm)
+    cm, _ = tma_rows(cm)
+    cum, ld_q = tma_rows(cum)
+    y = torch.empty((b, h, c, q, p), dtype=torch.float32, device=dev)
     h_out = (torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
              if return_state else None)
     # each chunk's C B^T, shared by the heads (only tiles on or below the
     # diagonal are written and read), and each chunk's own state
     # contribution, which the state carry overwrites with the state
-    # entering the chunk
-    scores = torch.empty((b, c, q, q), dtype=torch.float32, device=dev)
-    states = torch.empty((b, h, c, p, n), dtype=torch.float32, device=dev)
+    # entering the chunk; rows as the tensor maps take them
+    scores = torch.empty((b, c, q, ld_q), dtype=torch.float32, device=dev)
+    states = torch.empty((b, h, c, p, ld_n), dtype=torch.float32,
+                         device=dev)
     rc = _LAUNCHER[0](
         xdt.data_ptr(), bm.data_ptr(), cm.data_ptr(), cum.data_ptr(),
         None if h0 is None else h0.data_ptr(), y.data_ptr(),
         None if h_out is None else h_out.data_ptr(), scores.data_ptr(),
-        states.data_ptr(), b, h, c, q, p, n, dev.index,
+        states.data_ptr(), b, h, c, q, p, n, ld_p, ld_n, ld_q, dev.index,
         build.current_stream_ptr(dev.index))
     if rc != 0:
         raise RuntimeError(f"SSD chunk-scan kernel launch failed: CUDA "

@@ -296,6 +296,7 @@ SSD_CASES = [  # (B, H, C, Q, P, N, with h0)
     (1, 3, 4, 96, 64, 200, True),       # N = 200: a ragged last k slice
     (2, 2, 3, 128, 32, 256, False),     # N = 256, the widest state taken
     (1, 9, 8192, 8, 8, 16, False),      # B·H·C = 73,728 > 65,535 blocks
+    (1, 3, 2, 50, 6, 10, True),         # rows of 24, 40, 200 bytes
 ]
 
 

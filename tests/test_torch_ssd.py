@@ -23,7 +23,8 @@ from repro.kernels.ssd import ssd_chunk_scan_pallas, ssd_chunk_scan_ref as \
     jax_scan_ref
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.ssd import (KERNELS, bytes_moved, chunk_scan, flops,
-                                     grid, needed_flops, ssd_chunk_scan)
+                                     grid, needed_flops, ssd_chunk_scan,
+                                     tma_rows, work_items)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 STATE_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -122,24 +123,37 @@ def test_chunk_parallel_phases_match_the_reference(shape):
 
 def test_grid_flattens_the_chunks_and_puts_the_heads_on_x():
     """The four kernels' blocks at the main path's shapes and at a shape
-    with B·H·C over 65,535 (the old grid's y/z limit), which now fits."""
+    with B·H·C over 65,535: the three tensor-core kernels are persistent
+    (at most one block an SM walking their work items, heads in pairs, one
+    a consumer warpgroup), the state carry flat on x."""
+    assert work_items(4, 24, 128, 256, 64, 128) == {
+        "ssd_scores_kernel": 4 * 128 * 4 * 2,
+        "ssd_states_kernel": 4 * 128 * 12 * 1 * 2,
+        "ssd_output_kernel": 2 * 4 * 128 * 12 * 1}
     assert grid(4, 24, 128, 256, 64, 128) == {
-        "ssd_scores_kernel": (10 * 4 * 128, 1),
-        "ssd_states_kernel": (4 * 24 * 128, 2),
+        "ssd_scores_kernel": (132, 1), "ssd_states_kernel": (132, 1),
         "ssd_pass_kernel": (8 * 4 * 24, 1),
-        "ssd_output_kernel": (4 * 128 * 4 * 24, 1)}
-    assert grid(1, 80, 32, 128, 64, 64) == {
-        "ssd_scores_kernel": (3 * 32, 1), "ssd_states_kernel": (2560, 1),
-        "ssd_pass_kernel": (4 * 80, 1), "ssd_output_kernel": (2 * 32 * 80, 1)}
+        "ssd_output_kernel": (132, 1)}
+    assert work_items(1, 80, 32, 128, 64, 64) == {
+        "ssd_scores_kernel": 32 * 2 * 1, "ssd_states_kernel": 32 * 40,
+        "ssd_output_kernel": 32 * 40}
+    assert grid(1, 80, 32, 128, 64, 64, sms=4096) == {
+        "ssd_scores_kernel": (64, 1), "ssd_states_kernel": (1280, 1),
+        "ssd_pass_kernel": (4 * 80, 1), "ssd_output_kernel": (1280, 1)}
     big = grid(1, 9, 8192, 8, 8, 16)
-    assert big["ssd_states_kernel"] == (73728, 1)
-    assert big["ssd_output_kernel"] == (73728, 1)
-    # P·N not a multiple of 4: one state element a thread
+    assert big["ssd_states_kernel"] == big["ssd_output_kernel"] == (132, 1)
+    assert work_items(1, 9, 8192, 8, 8, 16)["ssd_output_kernel"] == \
+        8192 * 5
+    # N not a multiple of 4: one state element a thread
     assert grid(1, 3, 2, 130, 33, 5)["ssd_pass_kernel"] == (3, 1)
-    assert grid(1, 1, 1, 1, 65, 200)["ssd_states_kernel"] == (1, 8)
+    assert grid(1, 3, 2, 130, 34, 6)["ssd_pass_kernel"] == (3, 1)
+    assert grid(1, 1, 1, 1, 65, 200)["ssd_states_kernel"] == (8, 1)
+    assert work_items(1, 1, 1, 1, 65, 200)["ssd_states_kernel"] == 2 * 4
 
 
 def test_a_grid_past_cudas_limits_raises_before_the_library():
+    """B·H·C = 2**31 chunks pass the tensor maps' 32-bit chunk coordinate
+    (TMA's coordinates are signed 32-bit): refused before the library."""
     from repro_torch.kernels.ssd import ops
     b, h, c = 1, 65536, 32768                  # B·H·C = 2**31
     meta = [torch.empty(shape, device="meta") for shape in
@@ -150,9 +164,10 @@ def test_a_grid_past_cudas_limits_raises_before_the_library():
 
 def test_a_misaligned_h0_gives_the_one_element_state_carry_grid(
         monkeypatch):
-    """The launcher reads ``h0`` 4 elements a thread only from a 16-byte
-    boundary (``csrc/ssd.cu``), so the limit check must count the 4x
-    larger state-carry grid of a misaligned ``h0``."""
+    """The state carry reads ``h0`` 4 elements a thread only from a
+    16-byte boundary (``csrc/ssd.cu``), so the limit check must count the
+    4x larger state-carry grid of a misaligned ``h0``; the persistent
+    kernels' grids do not change."""
     from repro_torch.kernels.ssd import ops
     b, h, c, q, p, n = 1, 2, 1, 1, 64, 64
     storage = torch.zeros(b * h * p * n + 1)
@@ -182,14 +197,73 @@ def test_kernel_names_are_the_sources_kernels():
     src = (build.CSRC / "ssd.cu").read_text(encoding="utf-8")
     defined = re.findall(r"__global__ void __launch_bounds__\([^)]*\)\n"
                          r"(\w+)\(", src)
-    launched = re.findall(r"\b(ssd_\w+_kernel)\b(?:<[^>]*>)?<<<|"
-                          r"\b(ssd_pass_kernel)<4> :", src)
+    # launched directly (<<<), or through a pointer to one of two
+    # instantiations (the first of them: ``ssd_..._kernel<...> :``)
+    launched = re.findall(r"\b(ssd_\w+_kernel)\b(?:<[^>]*>)?(?:<<<| :)",
+                          src)
     assert tuple(defined) == KERNELS
-    assert [a or b for a, b in launched] == list(KERNELS)
+    assert launched == list(KERNELS)
+
+
+@pytest.mark.parametrize("shape,cols,ld,copied", [
+    ((2, 3, 4, 16, 8), 8, 8, False),       # 32-byte rows: taken as they are
+    ((2, 3, 4, 16, 6), 6, 8, True),        # P = 6: 24-byte rows
+    ((1, 3, 2, 10), 10, 12, True),         # N = 10
+    ((1, 3, 2, 50), 50, 52, True),         # Q = 50 (cum)
+    ((4, 24, 128, 256), 256, 256, False)], ids=str)
+def test_rows_not_16_bytes_apart_take_a_rounded_up_copy(shape, cols, ld,
+                                                         copied):
+    """TMA wants rows a multiple of 16 bytes apart: rows of 4k floats are
+    handed over as they are, others go through a buffer whose rows are
+    rounded up to 4 floats, with the tensor's values in the first
+    columns."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        shape).astype(np.float32))
+    got, got_ld = tma_rows(x)
+    assert got_ld == ld and got.shape == (*shape[:-1], ld)
+    assert (got.data_ptr() != x.data_ptr()) == copied
+    assert torch.equal(got[..., :cols], x)
+
+
+def test_a_view_off_the_16_byte_boundary_is_copied():
+    storage = torch.arange(1 + 2 * 3 * 8, dtype=torch.float32)
+    view = storage[1:].view(2, 3, 8)           # rows of 8 floats, 4 bytes off
+    got, ld = tma_rows(view)
+    assert ld == 8 and got.data_ptr() % 16 == 0
+    assert got.data_ptr() != view.data_ptr() and torch.equal(got, view)
+
+
+def test_launch_hands_the_kernel_tma_ready_rows_and_padded_scratch(
+        monkeypatch):
+    """``_launch`` passes the launcher each operand with its row stride
+    (rounded-up copies where a row is not 16 bytes), the scores scratch
+    (B, C, Q, ld_q) and the states scratch (B, H, C, P, ld_n); y and the
+    final state dense. A fake launcher records the call."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd import ops
+    calls = []
+
+    def fake(*args):
+        calls.append(args)
+        return 0
+    monkeypatch.setattr(ops, "_LAUNCHER", [fake])
+    monkeypatch.setattr(build, "current_stream_ptr", lambda index: 0)
+    b, h, c, q, p, n = 1, 3, 2, 50, 6, 10
+    xdt, bm, cm, cum = _t(make_inputs(B=b, H=h, C=c, Q=q, P=p, N=n))
+    before = ssd_chunk_scan.launches
+    y, h_out = ops._launch(xdt, bm, cm, cum, None, True)
+    assert ssd_chunk_scan.launches == before + 1
+    (args,) = calls
+    assert args[9:18] == (b, h, c, q, p, n, 8, 12, 52)
+    assert args[4] is None and y.shape == (b, h, c, q, p)
+    assert h_out.shape == (b, h, p, n)
+    for ptr in args[:4] + args[7:9]:
+        assert ptr % 16 == 0
 
 
 @pytest.mark.parametrize("variant", ["tensor_core_sums", "no_split",
-                                     "no_loads", "one_product"])
+                                     "no_loads", "one_product",
+                                     "partials_k64"])
 def test_probe_edits_still_match_the_kernel_source(variant):
     """Each variant of ``bench/ssd_probe.py`` is an edit of ``csrc/ssd.cu``
     that must find its text exactly once, or the probe would measure the
