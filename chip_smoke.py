@@ -9,11 +9,17 @@ run when it fails:
 
 1. card      — ``nvidia-smi`` name and power limit; torch, CUDA, nvcc.
 2. build     — compile the CUDA kernels for sm_90a, and beside them the
-               mma.sync SSD design the shipped one replaced
-               (``csrc/baseline/ssd_mma_sync.cu``, its own library, for
-               its time only); print the seconds, every kernel's
+               designs the shipped ones replaced, each its own library,
+               for their times only (``csrc/baseline/ssd_mma_sync.cu``,
+               the mma.sync SSD, and ``csrc/baseline/
+               matmul_cuda_cores.cu``, the CUDA-core GEMM in f32 and
+               bf16); print the seconds, every kernel's
                registers, spills and static shared memory, the kernels
-               that spill, the dynamic shared memory of the GEMM and
+               that spill, the f32 GEMM at every tile (threads, registers
+               at launch and a consumer's, spills, dynamic shared memory,
+               blocks and consumer warps an SM; none may spill; the
+               library's table and shared memory must be the wrapper's),
+               the dynamic shared memory of the
                flash blocks (the CUDA-core kernel at each head dim, the
                bf16 and 3xTF32 tensor-core kernels at every tile, the
                latter, D = 256's too, with its registers and spills; the
@@ -25,9 +31,11 @@ run when it fails:
                and tf32x3_d256 flash tile tables and its bf16 GEMM table
                (and each tile's shared memory) must be the wrapper's.
 3. checks    — each kernel against its plain PyTorch version on the card:
-               GEMM at every tile of the table at 4096x2048x6144 f32 and
-               at 300x450x200 and 1024x256x128 in f32; the bf16
-               tensor-core GEMM at every tile of its table at those three
+               the f32 GEMM at every tile of the table at 4096x2048x6144
+               (each C bitwise equal to the replaced design's) and at
+               300x450x200, 1024x256x128 and 129x65x33 (rows not 16 bytes
+               apart), every launch on the CUDA-core route; the bf16
+               tensor-core GEMM at every tile of its table at those four
                shapes, at a ragged 1000x1000x1000 and at 333x250x77
                (unaligned rows), every launch on the tensor-core route;
                TRIAD at
@@ -54,7 +62,11 @@ run when it fails:
 4. timing    — CUDA-event times of each kernel at the main path's shapes
                (each checked against its plain version on the same
                tensors first) beside its bound, its plain version and one
-               PyTorch call that computes the same function; the bf16
+               PyTorch call that computes the same function; the f32 GEMM
+               and the CUDA-core design it replaced at every tile, in
+               turns, and the host microseconds of a launch at 128^3
+               through the wrapper (tensor maps) and the replaced
+               launcher; the bf16
                GEMM at 4096x2048x6144 at every tensor-core tile, beside
                its bound at 989 TFLOP/s, torch.matmul and the CUDA-core
                bf16 instantiation it replaced at its best tile (checked
@@ -302,7 +314,8 @@ Each phase prints its seconds.
 
 The last three lines are the card line, one ``{"kernels": [...]}`` JSON
 object (the GEMM split by dtype: ``matmul`` the f32 CUDA-core kernel,
-``matmul_bf16`` the tensor-core kernel, with the CUDA-core bf16
+with the design it replaced as ``was_ms``, ``matmul_bf16`` the
+tensor-core kernel, with the CUDA-core bf16
 instantiation it replaced as ``was_ms`` and phase 11's bf16 tile search
 as its launches; flash attention split by dtype: ``flash_attention`` the bf16
 tensor-core kernel, ``flash_attention_f32`` the 3xTF32 one, with the
@@ -341,7 +354,11 @@ SRC = REPO / "src"
 WORK = REPO / "build" / "chip_smoke"
 
 GEMM_MAIN = (4096, 2048, 6144)              # (m, n, k) of the tile search
-GEMM_SMALL = ((300, 450, 200), (1024, 256, 128))
+#: small f32 and bf16 shapes: ragged, and (129, 65, 33) rows that are not
+#: 16 bytes apart (the f32 kernel's operands copied into rounded-up rows)
+GEMM_SMALL = ((300, 450, 200), (1024, 256, 128), (129, 65, 33))
+#: the f32 tile whose replaced-design C the f32 kernel's is held to bitwise
+DEFAULT_F32_TILE = (128, 128, 16)
 #: the bf16 tensor-core GEMM's edge cases, each at every tile of its table:
 #: m, n and k multiples of no tile (rows still 16-byte multiples), and rows
 #: that are not (A's and B's rows copied into rounded-up strides)
@@ -1323,14 +1340,14 @@ def ssd_shape_cost(shape: tuple) -> dict:
             "items": work_items(b, h, c, q, p, n)}
 
 
-def start_ssd_baseline_build(nvcc: str):
-    """Start compiling the mma.sync SSD design the shipped kernel
-    replaced (``csrc/baseline/ssd_mma_sync.cu``, outside the kernel
-    library) into a library of its own; returns (process, path)."""
+def start_baseline_build(nvcc: str, source: str, name: str):
+    """Start compiling a design the shipped kernels replaced
+    (``csrc/baseline/<source>``, outside the kernel library) into a
+    library of its own, ``<name>``; returns (process, path)."""
     from repro_torch.kernels import build
-    src = build.CSRC / "baseline" / "ssd_mma_sync.cu"
-    out = build.BUILD_ROOT.parent / "ssd_baseline" / (
-        build.source_hash() + "_libssdmmasync.so")
+    src = build.CSRC / "baseline" / source
+    out = build.BUILD_ROOT.parent / "baselines" / (
+        build.source_hash() + "_" + name)
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-shared", "-o",
                              str(out), str(src)], stdout=subprocess.PIPE,
@@ -1395,17 +1412,21 @@ def cuda_core_flash(d: int):
     return run
 
 
-def cuda_core_gemm_bf16(tile: tuple[int, int, int]):
-    """The CUDA-core GEMM's bf16 launcher at ``tile`` (a tile of
-    ``TILES``) as a function of (m, k) and (k, n) bf16 operands on the
-    card: the design the tensor-core kernel replaced, timed beside it
-    (``was_ms``) and on no path of the port. Bypasses the wrapper, so it
-    counts no launch."""
+def baseline_gemm(lib_path, dtype, tile: tuple[int, int, int]):
+    """The replaced CUDA-core GEMM's launcher (``csrc/baseline/
+    matmul_cuda_cores.cu``, its own library at ``lib_path``) for ``dtype``
+    at ``tile`` (a tile of ``TILES``) as a function of (m, k) and (k, n)
+    operands on the card: the design the f32 and bf16 kernels replaced,
+    timed beside them (``was_ms``) and on no path of the port. Bypasses
+    the wrapper, so it counts no launch."""
     import torch
     from repro_torch.kernels import build
-    fn = build.kernel_fn(f"rt_matmul_bf16_{tile[0]}x{tile[1]}x{tile[2]}", (
-        (ctypes.c_void_p,) * 3 + (ctypes.c_int64,) * 3
-        + (ctypes.c_int, ctypes.c_void_p)))
+    name = "f32" if dtype == torch.float32 else "bf16"
+    fn = getattr(ctypes.CDLL(str(lib_path)),
+                 f"rt_matmul_{name}_{tile[0]}x{tile[1]}x{tile[2]}")
+    fn.argtypes = ((ctypes.c_void_p,) * 3 + (ctypes.c_int64,) * 3
+                   + (ctypes.c_int, ctypes.c_void_p))
+    fn.restype = ctypes.c_int
 
     def run(a, b):
         m, k = a.shape
@@ -1414,7 +1435,8 @@ def cuda_core_gemm_bf16(tile: tuple[int, int, int]):
         rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
                 a.device.index, build.current_stream_ptr(a.device.index))
         if rc != 0:
-            fail(f"the CUDA-core bf16 GEMM failed to launch: CUDA error {rc}")
+            fail(f"the CUDA-core {name} GEMM failed to launch: CUDA error "
+                 f"{rc}")
         return c
     return run
 
@@ -1464,12 +1486,13 @@ def bf16_gemm_checks(randn) -> tuple[int, float]:
     return n_checks, err
 
 
-def bf16_gemm_times(randn) -> dict:
+def bf16_gemm_times(randn, was_lib) -> dict:
     """Phase 4's bf16 GEMM at GEMM_MAIN: the tensor-core kernel at every
     tile of ``BF16_TILES`` (each checked against ``matmul_ref`` first),
     beside its bound, its plain version, ``torch.matmul`` on the same
     operands and the CUDA-core bf16 instantiation it replaced at every
-    tile of ``TILES`` (its best checked too)."""
+    tile of ``TILES`` (its best checked too), from the baseline library
+    ``was_lib``."""
     import torch
     from repro_torch.kernels.matmul import (BF16_TILES, TILES, matmul,
                                             matmul_ref)
@@ -1495,11 +1518,12 @@ def bf16_gemm_times(randn) -> dict:
     best = min(tile_ms, key=tile_ms.get)
     was_ms = {}
     for tile in TILES:
-        run = cuda_core_gemm_bf16(tile)
+        run = baseline_gemm(was_lib, torch.bfloat16, tile)
         was_ms[tile] = cuda_ms(lambda r=run: r(a, b), iters=5, warmup=1)
     was_tile = min(was_ms, key=was_ms.get)
     was_err = check_close(f"matmul bf16 CUDA-core tile {was_tile}",
-                          cuda_core_gemm_bf16(was_tile)(a, b), want, tol)
+                          baseline_gemm(was_lib, torch.bfloat16, was_tile)(
+                              a, b), want, tol)
     plain = cuda_ms(lambda: matmul_ref(a, b), iters=10)
     library = cuda_ms(lambda: torch.matmul(a, b), iters=20)
     ms = tile_ms[best]
@@ -1516,6 +1540,157 @@ def bf16_gemm_times(randn) -> dict:
             "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
             "was": was_ms[was_tile], "was_tile": was_tile,
             "was_err": was_err}
+
+
+def f32_gemm(a, b, tile):
+    """The GEMM wrapper's launch on f32 operands at ``tile``, which must
+    count one launch, on the CUDA-core route and none on the tensor-core
+    one."""
+    import torch
+    from repro_torch.kernels.matmul import matmul
+    before, routes = matmul.launches, dict(matmul.route_launches)
+    got = matmul(a, b, bm=tile[0], bn=tile[1], bk=tile[2])
+    torch.cuda.synchronize()
+    if matmul.launches != before + 1 or \
+            matmul.route_launches["cuda_cores"] != routes["cuda_cores"] + 1:
+        fail(f"matmul f32 {tile}: no launch on the CUDA-core route")
+    if matmul.route_launches["tensor_cores"] != routes["tensor_cores"]:
+        fail(f"matmul f32 {tile}: a launch on the tensor-core route")
+    return got
+
+
+def f32_gemm_build(lib, ptxas_rows: list) -> dict:
+    """Phase 2's f32 GEMM report: the library's tile table must be the
+    wrapper's ``TILES`` and each tile's dynamic shared memory the
+    wrapper's formula; per tile its threads, registers (at launch and a
+    consumer's), spills, shared memory, blocks and consumer warps an SM.
+    Fails on a spill. Returns {tile: info}."""
+    from repro_torch.kernels.matmul import TILES, smem_bytes
+    table = (ctypes.c_int * 300)()
+    n_tiles = lib.rt_matmul_f32_sm90_tiles(table, 100)
+    if [tuple(table[3 * i:3 * i + 3]) for i in range(n_tiles)] != \
+            list(TILES):
+        fail("the library's f32 GEMM tiles are not the wrapper's TILES")
+    lib.rt_matmul_f32_sm90_smem_bytes.restype = ctypes.c_int64
+    out, bad = {}, []
+    for t in TILES:
+        smem = lib.rt_matmul_f32_sm90_smem_bytes(*t)
+        if smem != smem_bytes(*t):
+            fail(f"matmul f32 {t}: the library asks {smem} bytes of shared "
+                 f"memory, the wrapper's formula {smem_bytes(*t)}")
+        info = (ctypes.c_int64 * 7)()
+        rc = lib.rt_matmul_f32_sm90_info(*t, info)
+        if rc != 0:
+            fail(f"matmul f32 {t}: info query failed: CUDA error {rc}")
+        threads, consumers, smem, regs, consumer_regs, blocks, min_blocks = \
+            list(info)
+        label = f"matmul_f32_sm90_kernel<f32,{t[0]},{t[1]},{t[2]}>: "
+        rows = [row.split(label, 1)[1] for row in ptxas_rows if label in row]
+        bad += [f"{label}{row}" for row in rows
+                if ", 0 bytes spill stores" not in row]
+        if not rows:
+            bad.append(f"{label}not in the build log")
+        warps = blocks * consumers // 32
+        out[t] = {"threads": threads, "consumers": consumers,
+                  "smem_bytes": smem, "registers": regs,
+                  "consumer_registers": consumer_regs,
+                  "blocks_per_sm": blocks, "min_blocks": min_blocks,
+                  "consumer_warps_per_scheduler": warps / 4,
+                  "ptxas": "; ".join(rows)}
+        print(f"  matmul f32 {'x'.join(map(str, t))}: {threads} threads "
+              f"({consumers} consumers), {smem} bytes dynamic shared memory, "
+              f"{regs} registers at launch ({consumer_regs} a consumer), "
+              f"{blocks} blocks an SM (launch bounds ask {min_blocks}), "
+              f"{warps / 4:g} consumer warps a scheduler; "
+              + ("; ".join(rows) or "not in the build log"))
+    if bad:
+        fail(f"the f32 GEMM spills: {bad}")
+    return out
+
+
+def f32_gemm_checks(randn, was_lib) -> tuple[int, float]:
+    """Phase 3's f32 GEMM checks: the kernel against ``matmul_ref`` at
+    every tile of ``TILES`` at GEMM_MAIN and at every GEMM_SMALL shape,
+    every launch on the CUDA-core route; at GEMM_MAIN every tile's C must
+    equal the replaced design's (``was_lib``) bit for bit, since both sum
+    each output as one fmaf chain in increasing k. Returns the checks made
+    and the largest error."""
+    import torch
+    from repro_torch.kernels.matmul import TILES, matmul_ref
+    n_checks, err = 0, 0.0
+    for label, (m, n, k) in [("main", GEMM_MAIN)] + [
+            ("small", s) for s in GEMM_SMALL]:
+        a, b = randn(m, k), randn(k, n)
+        want = matmul_ref(a, b)
+        was = baseline_gemm(was_lib, torch.float32, DEFAULT_F32_TILE)(a, b) \
+            if label == "main" else None
+        worst = 0.0
+        for tile in TILES:
+            got = f32_gemm(a, b, tile)
+            if was is not None and not torch.equal(got, was):
+                n_diff = int((got != was).sum())
+                fail(f"matmul {m}x{n}x{k} f32 tile {tile}: {n_diff} elements "
+                     f"differ from the replaced design's C")
+            worst = max(worst, check_close(
+                f"matmul {m}x{n}x{k} f32 tile {tile}", got, want,
+                gemm_tol(torch.float32, k)))
+            n_checks += 1
+        err = max(err, worst)
+        print(f"matmul {m}x{n}x{k} f32 ({label}): {len(TILES)} tiles ok, max "
+              f"abs err {worst:.3e} (tol {gemm_tol(torch.float32, k)})"
+              + ("; bitwise equal to the replaced design's C" if was is not
+                 None else ""))
+    return n_checks, err
+
+
+def f32_gemm_times(randn, was_lib) -> dict:
+    """Phase 4's f32 GEMM at GEMM_MAIN: the kernel and the CUDA-core
+    design it replaced (``was_lib``) at every tile of ``TILES``, in turns
+    tile by tile, beside the bound, the plain version and ``torch.matmul``
+    with TF32 off; and the host microseconds of one launch at 128³
+    through the wrapper (its checks, the tensor maps, the ctypes call)
+    and through the replaced design's launcher (no tensor map)."""
+    import torch
+    from repro_torch.kernels.matmul import TILES, matmul, matmul_ref
+    m, n, k = GEMM_MAIN
+    a, b = randn(m, k), randn(k, n)
+    flops = 2.0 * m * n * k
+    bound_ops = flops / F32_PEAK * 1e3
+    bound_bytes = 4.0 * (m * k + k * n + m * n) / HBM_PEAK * 1e3
+    bound = max(bound_ops, bound_bytes)
+    tile_ms, was_ms = {}, {}
+    for tile in TILES:
+        was = baseline_gemm(was_lib, torch.float32, tile)
+        tile_ms[tile] = cuda_ms(
+            lambda t=tile: matmul(a, b, bm=t[0], bn=t[1], bk=t[2]), iters=10)
+        was_ms[tile] = cuda_ms(lambda r=was: r(a, b), iters=10)
+        print(f"matmul f32 tile {tile}: {tile_ms[tile]:.4f} ms "
+              f"{flops / tile_ms[tile] / 1e9:.2f} TFLOP/s "
+              f"({bound_ops / tile_ms[tile]:.1%} of bound) | was "
+              f"{was_ms[tile]:.4f} ms ({was_ms[tile] / tile_ms[tile]:.3f}x)")
+    best = min(tile_ms, key=tile_ms.get)
+    was_tile = min(was_ms, key=was_ms.get)
+    plain = cuda_ms(lambda: matmul_ref(a, b), iters=10)
+    library = cuda_ms(lambda: torch.matmul(a, b), iters=10)
+    ms = tile_ms[best]
+    sa, sb = randn(128, 128), randn(128, 128)
+    was_small = baseline_gemm(was_lib, torch.float32, DEFAULT_F32_TILE)
+    host_us = host_us_per_call(lambda: matmul(sa, sb))
+    was_host_us = host_us_per_call(lambda: was_small(sa, sb))
+    print(f"matmul {m}x{n}x{k} f32: kernel {ms:.4f} ms (tile {best}, "
+          f"{flops / ms / 1e9:.2f} TFLOP/s, {bound_ops / ms:.1%} of its "
+          f"bound) | bound {bound:.4f} ms (2mnk / 67 TFLOP/s; bytes "
+          f"{bound_bytes:.4f}) | plain {plain:.4f} ms | torch.matmul (TF32 "
+          f"off) {library:.4f} ms (kernel {ms / library:.3f}x) | was "
+          f"{was_ms[was_tile]:.4f} ms (tile {was_tile}; "
+          f"{was_ms[was_tile] / ms:.3f}x) | host us a launch at 128^3: "
+          f"{host_us:.2f} (wrapper, tensor maps), {was_host_us:.2f} (the "
+          f"replaced launcher)")
+    return {"ms": ms, "tile": best, "tile_ms": tile_ms, "was_ms": was_ms,
+            "was": was_ms[was_tile], "was_tile": was_tile, "plain": plain,
+            "library": library, "bound": bound,
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+            "host_us": host_us, "was_host_us": was_host_us}
 
 
 def serving_path() -> dict:
@@ -4036,8 +4211,7 @@ def main() -> int:
     from repro_torch.bench import roofline_model
     from repro_torch.bench.common import triad_length, triad_sizes
     from repro_torch.kernels import build
-    from repro_torch.kernels.matmul import (BF16_TILES, TILES, matmul,
-                                            matmul_ref)
+    from repro_torch.kernels.matmul import BF16_TILES, TILES
     from repro_torch.kernels.matmul import smem_bytes as gemm_smem_bytes
     from repro_torch.kernels.flash_attention import (SM90_TILES,
                                                      TF32X3_D256_TILES,
@@ -4066,18 +4240,24 @@ def main() -> int:
     phase("build")
     fresh = not build.library_path().exists()
     t0 = time.perf_counter()
-    baseline_proc, baseline_lib = start_ssd_baseline_build(nvcc)
+    baselines = {
+        "mma.sync SSD": start_baseline_build(nvcc, "ssd_mma_sync.cu",
+                                             "libssdmmasync.so"),
+        "CUDA-core GEMM": start_baseline_build(
+            nvcc, "matmul_cuda_cores.cu", "libmatmulcudacores.so")}
     build.library()
     print(f"kernel library {build.library_path()} "
           f"({'built' if fresh else 'found'} in "
           f"{time.perf_counter() - t0:.2f}s)")
-    baseline_log = baseline_proc.communicate(timeout=SUBPROCESS_TIMEOUT_S)[0]
-    if baseline_proc.returncode != 0:
-        print(baseline_log)
-        fail("the mma.sync SSD baseline did not build")
-    print(f"mma.sync SSD baseline {baseline_lib.name} built in "
-          f"{time.perf_counter() - t0:.2f}s (with the library)")
-    ssd_baseline = ssd_baseline_fn(baseline_lib)
+    for label, (proc, path) in baselines.items():
+        out = proc.communicate(timeout=SUBPROCESS_TIMEOUT_S)[0]
+        if proc.returncode != 0:
+            print(out)
+            fail(f"the {label} baseline did not build")
+        print(f"{label} baseline {path.name} built in "
+              f"{time.perf_counter() - t0:.2f}s (with the library)")
+    ssd_baseline = ssd_baseline_fn(baselines["mma.sync SSD"][1])
+    gemm_baseline = baselines["CUDA-core GEMM"][1]
     log = build.library_path().parent / "build.log"
     ptxas_rows = []
     if log.exists():
@@ -4123,8 +4303,7 @@ def main() -> int:
     for d, tiles in SM90_TILES.items():
         print(f"  flash bf16 d={d}: dynamic shared memory per block " + ", ".join(
             f"{qt}x{kt} {sm90_smem_bytes(d, qt, kt)}" for qt, kt in tiles))
-    print("  matmul f32: dynamic shared memory per block " + ", ".join(
-        f"{'x'.join(map(str, t))} {gemm_smem_bytes(*t)}" for t in TILES))
+    gemm_info = f32_gemm_build(lib, ptxas_rows)
     table = (ctypes.c_int * 300)()
     n_tiles = lib.rt_matmul_sm90_tiles(table, 100)
     if [tuple(table[3 * i:3 * i + 3]) for i in range(n_tiles)] != \
@@ -4175,42 +4354,9 @@ def main() -> int:
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen).to(dev).to(dtype)
 
-    errs = {"matmul": 0.0, "triad": 0.0}
-    n_checks = {"matmul": 0, "triad": 0, "flash_attention": 0,
-                "ssd_chunk_scan": 0}  # and "matmul_bf16" below
-    m, n, k = GEMM_MAIN
-    a, b = randn(m, k), randn(k, n)
-    want = matmul_ref(a, b)
-    for tile in TILES:
-        before = matmul.launches
-        got = matmul(a, b, bm=tile[0], bn=tile[1], bk=tile[2])
-        torch.cuda.synchronize()
-        if matmul.launches != before + 1:
-            fail(f"matmul {tile}: launch counter did not move")
-        errs["matmul"] = max(errs["matmul"], check_close(
-            f"matmul {m}x{n}x{k} f32 tile {tile}", got, want,
-            gemm_tol(torch.float32, k)))
-        n_checks["matmul"] += 1
-    print(f"matmul {m}x{n}x{k} f32: {len(TILES)} tiles ok, max abs err "
-          f"{errs['matmul']:.3e} (tol {gemm_tol(torch.float32, k)})")
-    del a, b, want, got
-    for (m_, n_, k_) in GEMM_SMALL:
-        a, b = randn(m_, k_), randn(k_, n_)
-        want = matmul_ref(a, b)
-        worst = 0.0
-        for tile in TILES:
-            before = matmul.launches
-            got = matmul(a, b, bm=tile[0], bn=tile[1], bk=tile[2])
-            torch.cuda.synchronize()
-            if matmul.launches != before + 1:
-                fail(f"matmul {tile}: launch counter did not move")
-            worst = max(worst, check_close(
-                f"matmul {m_}x{n_}x{k_} f32 tile {tile}", got, want,
-                gemm_tol(torch.float32, k_)))
-            n_checks["matmul"] += 1
-        errs["matmul"] = max(errs["matmul"], worst)
-        print(f"matmul {m_}x{n_}x{k_} f32: {len(TILES)} tiles ok, max abs "
-              f"err {worst:.3e}")
+    errs = {"triad": 0.0}
+    n_checks = {"triad": 0, "flash_attention": 0, "ssd_chunk_scan": 0}
+    n_checks["matmul"], errs["matmul"] = f32_gemm_checks(randn, gemm_baseline)
     n_checks["matmul_bf16"], errs["matmul_bf16"] = bf16_gemm_checks(randn)
     for n_ in TRIAD_CHECK_N:
         for dtype in (torch.float32, torch.bfloat16):
@@ -4273,28 +4419,8 @@ def main() -> int:
 
     # -- 4. timing ---------------------------------------------------------
     phase("kernel timing (CUDA events)")
-    m, n, k = GEMM_MAIN
-    a, b = randn(m, k), randn(k, n)
-    gemm_flops = 2.0 * m * n * k
-    gemm_bound_ms = max(gemm_flops / F32_PEAK,
-                        4.0 * (m * k + k * n + m * n) / HBM_PEAK) * 1e3
-    tile_ms = {}
-    for tile in TILES:
-        tile_ms[tile] = cuda_ms(
-            lambda t=tile: matmul(a, b, bm=t[0], bn=t[1], bk=t[2]), iters=10)
-        print(f"matmul tile {tile}: {tile_ms[tile]:.4f} ms  "
-              f"{gemm_flops / tile_ms[tile] / 1e9:.2f} TFLOP/s")
-    best_tile = min(tile_ms, key=tile_ms.get)
-    gemm_ms = tile_ms[best_tile]
-    gemm_plain_ms = cuda_ms(lambda: matmul_ref(a, b), iters=10)
-    gemm_lib_ms = cuda_ms(lambda: torch.matmul(a, b), iters=10)
-    print(f"matmul {m}x{n}x{k} f32: kernel {gemm_ms:.4f} ms (tile "
-          f"{best_tile}, {gemm_flops / gemm_ms / 1e9:.2f} TFLOP/s) | bound "
-          f"{gemm_bound_ms:.4f} ms (2mnk / 67 TFLOP/s) | plain "
-          f"{gemm_plain_ms:.4f} ms | torch.matmul (TF32 off) "
-          f"{gemm_lib_ms:.4f} ms")
-    del a, b
-    gemm16 = bf16_gemm_times(randn)
+    gemm = f32_gemm_times(randn, gemm_baseline)
+    gemm16 = bf16_gemm_times(randn, gemm_baseline)
     torch.cuda.empty_cache()
 
     triad_ms = {}
@@ -4707,7 +4833,7 @@ def main() -> int:
     t_dram = triad_ms["dram"]
     print(json.dumps({"kernels": [
         {"name": "matmul", "route": "cuda",
-         "source": "src/repro_torch/csrc/matmul.cu",
+         "source": "src/repro_torch/csrc/matmul_f32_sm90.cu",
          "replaces": "src/repro/kernels/matmul/matmul.py:27",
          "launches": launches["matmul"],
          "launches_paper_tables": tables["routes"]["cuda_cores"],
@@ -4716,10 +4842,22 @@ def main() -> int:
              observe["tune_launches"]["gemm_tiled"]["matmul"]),
          "launches_distribution": dist["launches"]["matmul"],
          "max_abs_err": errs["matmul"],
-         "ms": gemm_ms, "plain_ms": gemm_plain_ms,
-         "bound_ms": gemm_bound_ms, "bound_by": "operations",
-         "library_ms": gemm_lib_ms, "checks_passed": n_checks["matmul"],
-         "shape": list(GEMM_MAIN), "tile": list(best_tile),
+         "ms": gemm["ms"], "plain_ms": gemm["plain"],
+         "bound_ms": gemm["bound"], "bound_by": gemm["bound_by"],
+         "library_ms": gemm["library"], "checks_passed": n_checks["matmul"],
+         "shape": list(GEMM_MAIN), "tile": list(gemm["tile"]),
+         "tile_ms": {"x".join(map(str, t)): ms
+                     for t, ms in gemm["tile_ms"].items()},
+         "was_ms": gemm["was"], "was_tile": list(gemm["was_tile"]),
+         "was_tile_ms": {"x".join(map(str, t)): ms
+                         for t, ms in gemm["was_ms"].items()},
+         "was_source":
+             "src/repro_torch/csrc/baseline/matmul_cuda_cores.cu",
+         "host_us_per_launch": gemm["host_us"],
+         "was_host_us_per_launch": gemm["was_host_us"],
+         "build": {"x".join(map(str, t)): {
+             key: v for key, v in row.items() if key != "ptxas"}
+             for t, row in gemm_info.items()},
          "dtype": "float32"},
         {"name": "matmul_bf16", "route": "cuda",
          "source": "src/repro_torch/csrc/matmul_sm90.cu",
@@ -4732,7 +4870,8 @@ def main() -> int:
          "max_abs_err": max(errs["matmul_bf16"], gemm16["err"]),
          "max_abs_err_was": gemm16["was_err"],
          "ms": gemm16["ms"], "was_ms": gemm16["was"],
-         "was_source": "src/repro_torch/csrc/matmul.cu",
+         "was_source":
+             "src/repro_torch/csrc/baseline/matmul_cuda_cores.cu",
          "was_tile": list(gemm16["was_tile"]),
          "plain_ms": gemm16["plain"], "bound_ms": gemm16["bound"],
          "bound_by": gemm16["bound_by"], "library_ms": gemm16["library"],

@@ -1,9 +1,12 @@
-// Blocked GEMM, C = A @ B, on CUDA cores, for f32 operands (and bf16 ones,
-// kept only to be timed).
+// Blocked GEMM, C = A @ B, on CUDA cores, for f32 and bf16 operands: the
+// design that ../matmul_f32_sm90.cu (f32) and ../matmul_sm90.cu (bf16)
+// replaced, kept outside the kernel library and on no route of the port.
+// chip_smoke.py builds it into a library of its own and times it beside
+// them (was_ms); every launch of the port takes the new kernels.
 //
-// Replaces: src/repro/kernels/matmul/matmul.py:27, _matmul_kernel /
-// matmul_pallas (with the tile padding of ops.matmul), for float32
-// operands. bfloat16 operands take matmul_sm90.cu, on the tensor cores.
+// It ported src/repro/kernels/matmul/matmul.py:27, _matmul_kernel /
+// matmul_pallas, for float32 operands before the Hopper design: Ampere's
+// idiom, with no TMA, mbarrier or producer warp.
 //
 // Bound on the card: operations. The main path's product, 4096 x 2048 x
 // 6144 in f32, is 2mnk = 103.1 GFLOP against 0.15 GB of operands, far
@@ -39,11 +42,9 @@
 //   ring and the register tile are the same. Ragged edges are masked in
 //   the kernel (zero-filled loads, guarded stores), so the host pads
 //   nothing.
-// - The bf16 instantiations (rt_matmul_bf16_*) are on no route: the
-//   wrapper sends bf16 to matmul_sm90.cu, and they stay compiled only as
-//   the design it replaced, which chip_smoke.py times beside it (was_ms).
-//   Shared memory holds the bytes cp.async copies, and each element
-//   becomes f32 as it is read into the register tile.
+// - The bf16 instantiations (rt_matmul_bf16_*): shared memory holds the
+//   bytes cp.async copies, and each element becomes f32 as it is read
+//   into the register tile.
 // Shared memory: 2 * (BK * (BM + 4) + BK * BN) * sizeof(T), 66,560 bytes
 // at 128 x 128 x 32 in f32, above the 48 KiB a block gets without the
 // opt-in attribute that every launch sets. wgmma and the tensor cores are

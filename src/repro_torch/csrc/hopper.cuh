@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the tensor-core kernels (the
 // flash-attention kernels flash_attention_sm90.cu, bf16, and
 // flash_attention_tf32x3.cu and flash_attention_tf32x3_d256.cu, f32; the
-// bf16 GEMM matmul_sm90.cu): shared memory addresses and wgmma
+// bf16 GEMM matmul_sm90.cu) and the f32 CUDA-core GEMM matmul_f32_sm90.cu
+// (its mbarriers, TMA loads and tensor maps): shared memory addresses and wgmma
 // descriptors, mbarriers, TMA loads and their tensor maps, wgmma fences
 // and waits, register moves between warpgroups, the quad reductions of the
 // accumulator fragment's rows, and what the flash kernels share of flash
@@ -279,6 +280,33 @@ inline CUresult make_map(CUtensorMap* map, const void* ptr,
                         box, strides_elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A row-major (rows, cols) matrix of `elem`-byte elements whose rows are ld
+// elements apart (ld * elem a multiple of 16), as a 2-D tensor map with a
+// (box_cols, box_rows) box, swizzled as asked; reads past rows or cols are
+// zeros.
+inline CUresult make_map_2d(CUtensorMap* map, const void* ptr,
+                            CUtensorMapDataType type, int elem, int64_t cols,
+                            int64_t rows, int64_t ld, int box_cols,
+                            int box_rows, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t strides_elem[2] = {1, 1};
+  return encode_tiled()(map, type, 2, const_cast<void*>(ptr), dims, strides,
+                        box, strides_elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The TMA swizzle across rows of `bytes` bytes (128, 64 or 32).
+inline CUtensorMapSwizzle swizzle_of(int bytes) {
+  return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                    : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
 // Tensor maps of a flash kernel's q, k, v: [0] the full column chunks,

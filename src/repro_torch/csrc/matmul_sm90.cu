@@ -5,9 +5,9 @@
 // matmul_pallas, for bfloat16 operands: the TPU kernel runs bf16 on the
 // matrix unit, jnp.dot with preferred_element_type=float32, an f32
 // accumulator over the sequential k axis and the output in bf16. float32
-// operands take matmul.cu (full f32 on the CUDA cores), whose bf16
-// instantiations this kernel replaces; they stay compiled, on no route,
-// and are timed beside it.
+// operands take matmul_f32_sm90.cu (full f32 on the CUDA cores). This
+// kernel replaced the bf16 instantiations of the CUDA-core design, now
+// baseline/matmul_cuda_cores.cu, outside the library, timed beside it.
 //
 // Computes C = A B for row-major A (m, k), B (k, n) and C (m, n), bf16,
 // each product exact and summed in f32 (a bf16 x bf16 product on the
@@ -335,27 +335,6 @@ matmul_sm90_kernel(const __grid_constant__ GemmMaps maps, T* __restrict__ c,
   }
 }
 
-// A row-major (rows, cols) bf16 matrix whose rows are ld elements apart, as
-// a 2-D tensor map with a (box_cols, box_rows) box swizzled across its
-// box_cols * 2 bytes (128 or 64); reads past rows or cols are zeros.
-inline CUresult make_map_2d(CUtensorMap* map, const void* ptr, int64_t cols,
-                            int64_t rows, int64_t ld, int box_cols,
-                            int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t strides_elem[2] = {1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(ptr), dims, strides, box,
-                        strides_elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                            : CU_TENSOR_MAP_SWIZZLE_64B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int BM, int BN, int BK>
 int launch(const void* a, const void* b, void* c, int64_t m, int64_t n,
            int64_t k, int64_t lda, int64_t ldb, int device, void* stream) {
@@ -379,8 +358,13 @@ int launch(const void* a, const void* b, void* c, int64_t m, int64_t n,
   GemmMaps maps;
   memset(&maps, 0, sizeof(maps));
   if (k > 0) {  // with k = 0 the kernel loads nothing and writes zeros
-    CUresult r = make_map_2d(&maps.a, a, k, m, lda, BK, BM);
-    if (r == CUDA_SUCCESS) r = make_map_2d(&maps.b, b, n, k, ldb, 64, BK);
+    // A: (BK, BM) boxes swizzled across their BK * 2 bytes; B: boxes of
+    // 64 columns, one 128-byte swizzle row each
+    CUresult r = make_map_2d(&maps.a, a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                             k, m, lda, BK, BM, swizzle_of(BK * 2));
+    if (r == CUDA_SUCCESS)
+      r = make_map_2d(&maps.b, b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, n, k,
+                      ldb, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B);
     if (r != CUDA_SUCCESS) return kMapError + static_cast<int>(r);
   }
   const cudaError_t attr = cudaFuncSetAttribute(

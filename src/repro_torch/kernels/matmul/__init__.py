@@ -1,6 +1,7 @@
-from .ops import (BF16_TILES, DEFAULT_TILES, ROUTE_TILES, TILES, flops,
-                  matmul, matmul_ref, route, smem_bytes, tiles, tma_operand)
+from .ops import (BF16_TILES, DEFAULT_TILES, F32_STAGES, ROUTE_TILES, TILES,
+                  flops, matmul, matmul_ref, route, smem_bytes, tiles,
+                  tma_operand)
 
-__all__ = ["BF16_TILES", "DEFAULT_TILES", "ROUTE_TILES", "TILES", "flops",
-           "matmul", "matmul_ref", "route", "smem_bytes", "tiles",
-           "tma_operand"]
+__all__ = ["BF16_TILES", "DEFAULT_TILES", "F32_STAGES", "ROUTE_TILES",
+           "TILES", "flops", "matmul", "matmul_ref", "route", "smem_bytes",
+           "tiles", "tma_operand"]

@@ -6,16 +6,16 @@ per operand dtype; :func:`route` names the one a dtype takes, and each
 launch counts one in ``matmul.launches`` and one in its route's entry of
 ``matmul.route_launches``:
 
-- ``"cuda_cores"``: float32, ``csrc/matmul.cu``, a CUDA-core design (f32
-  stays full f32) with a two-stage shared-memory ring fed by
-  ``cp.async`` and 8 x 8 (16 x 8 on the 128 x 128 tiles up to bk = 16)
-  register tiles per thread, at the tiles of :data:`TILES`;
+- ``"cuda_cores"``: float32, ``csrc/matmul_f32_sm90.cu``, full f32 on the
+  CUDA cores fed by a TMA ring on mbarriers (a producer warp, 8 x 8
+  register tiles a consumer thread), at the tiles of :data:`TILES`;
 - ``"tensor_cores"``: bfloat16, ``csrc/matmul_sm90.cu``, ``wgmma`` on
   Hopper's tensor cores fed by a TMA ring (exact bf16 products summed in
-  f32), at the tiles of :data:`BF16_TILES`. TMA wants 16-byte aligned
-  rows, so an operand whose row is not a multiple of 8 elements (or whose
-  start is not 16-byte aligned) is copied into a buffer whose row stride
-  is rounded up (:func:`tma_operand`).
+  f32), at the tiles of :data:`BF16_TILES`.
+
+TMA wants 16-byte aligned rows, so an operand whose row is not a multiple
+of 16 bytes (or whose start is not 16-byte aligned) is copied into a
+buffer whose row stride is rounded up (:func:`tma_operand`).
 
 The (bm, bn, bk) tile is the autotuner's tunable, as the VMEM tile is on
 the TPU; each route's tiles are compiled ahead as a fixed table
@@ -23,10 +23,10 @@ the TPU; each route's tiles are compiled ahead as a fixed table
 masked inside the kernels, so no operand is padded to a tile. On a CPU
 tensor :func:`matmul` runs :func:`matmul_ref`; on a CUDA tensor it
 launches its route's kernel or raises. Both go through the op
-``repro_torch::matmul`` (:mod:`repro_torch.kernels.registry`). The bf16
-instantiations of ``matmul.cu`` stay compiled on no route: the CUDA-core
-design the tensor-core kernel replaced, which ``chip_smoke.py`` times
-beside it through its launcher.
+``repro_torch::matmul`` (:mod:`repro_torch.kernels.registry`). The
+CUDA-core design both kernels replaced, ``csrc/baseline/matmul_cuda_cores.cu``,
+is outside the kernel library: ``chip_smoke.py`` builds and times it
+beside them.
 """
 
 from __future__ import annotations
@@ -40,12 +40,12 @@ import torch
 from .. import build, registry
 from ..counting import count_launch
 
-__all__ = ["BF16_TILES", "DEFAULT_TILES", "OP", "ROUTE_TILES", "TILES",
-           "flops", "matmul", "matmul_ref", "route", "smem_bytes",
+__all__ = ["BF16_TILES", "DEFAULT_TILES", "F32_STAGES", "OP", "ROUTE_TILES",
+           "TILES", "flops", "matmul", "matmul_ref", "route", "smem_bytes",
            "tiles", "tma_operand"]
 
 #: the compiled (bm, bn, bk) tile table of the float32 route —
-#: csrc/matmul.cu instantiates exactly these (for bfloat16 too, on no route)
+#: csrc/matmul_f32_sm90.cu's RT_MATMUL_F32_SM90_TILES lists exactly these
 TILES = tuple((bm, bn, bk) for bm in (64, 128) for bn in (64, 128)
               for bk in (8, 16, 32))
 #: the compiled (bm, bn, bk) tile table of the bfloat16 route —
@@ -59,17 +59,18 @@ ROUTE_TILES = {"cuda_cores": TILES, "tensor_cores": BF16_TILES}
 DEFAULT_TILES = {"cuda_cores": (128, 128, 16), "tensor_cores": (128, 128, 64)}
 
 _ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "tensor_cores"}
+#: each route's launcher name prefix in the kernel library
+_LAUNCHER_NAMES = {"cuda_cores": "rt_matmul_f32_sm90",
+                   "tensor_cores": "rt_matmul_sm90_bf16"}
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-             ctypes.c_void_p)
-_SM90_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                  ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                  ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                  ctypes.c_void_p)
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_int, ctypes.c_void_p)
 _MAX_GRID_Y = 65535
 #: a block's opt-in shared memory on an H100, which the tensor-core
 #: kernel's ring fills (csrc/hopper.cuh's kSmemLimit)
 _SMEM_LIMIT = 232448
+#: the float32 kernel's ring depth (csrc/matmul_f32_sm90.cu's kStages)
+F32_STAGES = 3
 #: (dtype, tile) -> ctypes launcher, filled at its first launch
 _LAUNCHERS: dict = {}
 
@@ -92,15 +93,15 @@ def tiles(dtype: torch.dtype) -> tuple:
 def smem_bytes(bm: int, bn: int, bk: int,
                dtype: torch.dtype = torch.float32) -> int:
     """Dynamic shared memory one block of ``dtype``'s kernel takes at
-    tile (bm, bn, bk). float32 (``matmul.cu``): a ring of two stages, each
-    the (bk, bm) slice of A transposed with rows padded by 4 elements and
-    the (bk, bn) slice of B. bfloat16 (``matmul_sm90.cu``): 1024 bytes to
-    align the ring, then as many stages as fit the H100's 232,448 bytes,
-    each A's (bm, bk) and B's (bk, bn) slice and two 8-byte mbarriers.
-    The search-space constraint holds it to the device's per-block limit
-    (the counterpart of the TPU's ``vmem_bytes`` budget)."""
+    tile (bm, bn, bk): 1024 bytes to align the ring, then its stages, each
+    A's (bm, bk) and B's (bk, bn) slice and two 8-byte mbarriers. float32
+    (``matmul_f32_sm90.cu``): :data:`F32_STAGES` stages, so the ring
+    follows the tile. bfloat16 (``matmul_sm90.cu``): as many stages as fit
+    the H100's 232,448 bytes. The search-space constraint holds it to the
+    device's per-block limit (the counterpart of the TPU's ``vmem_bytes``
+    budget)."""
     if route(dtype) == "cuda_cores":
-        return 2 * (bk * (bm + 4) + bk * bn) * 4
+        return 1024 + F32_STAGES * ((bm * bk + bk * bn) * 4 + 16)
     stage = (bm * bk + bk * bn) * 2 + 16
     return 1024 + (_SMEM_LIMIT - 1024) // stage * stage
 
@@ -117,13 +118,14 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def tma_operand(x: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """``x`` (row-major, 2-D) as the tensor-core kernel's TMA loads take
-    it, and its row stride in elements: rows a multiple of 8 elements (16
-    bytes) apart from a 16-byte aligned start. An operand that is not so
-    is copied into a buffer whose row stride is rounded up to 8 elements;
-    the kernel never reads the columns past the operand's own."""
+    """``x`` (row-major, 2-D) as the kernels' TMA loads take it, and its
+    row stride in elements: rows a multiple of 16 bytes apart (8 bf16 or 4
+    f32 elements) from a 16-byte aligned start. An operand that is not so
+    is copied into a buffer whose row stride is rounded up to 16 bytes;
+    the kernels never read the columns past the operand's own."""
     rows, cols = x.shape
-    ld = -(-cols // 8) * 8
+    per = 16 // x.element_size()
+    ld = -(-cols // per) * per
     if ld == cols and x.data_ptr() % 16 == 0:
         return x, ld
     buf = x.new_empty((rows, ld))
@@ -156,11 +158,8 @@ def _launcher(path: str, bm: int, bn: int, bk: int):
     key = (path, bm, bn, bk)
     fn = _LAUNCHERS.get(key)
     if fn is None:
-        fn = _LAUNCHERS[key] = (
-            build.kernel_fn(f"rt_matmul_f32_{bm}x{bn}x{bk}", _ARGTYPES)
-            if path == "cuda_cores" else
-            build.kernel_fn(f"rt_matmul_sm90_bf16_{bm}x{bn}x{bk}",
-                            _SM90_ARGTYPES))
+        fn = _LAUNCHERS[key] = build.kernel_fn(
+            f"{_LAUNCHER_NAMES[path]}_{bm}x{bn}x{bk}", _ARGTYPES)
     return fn
 
 
@@ -180,14 +179,10 @@ def _launch(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
     fn = _launcher(path, bm, bn, bk)
     c = torch.empty((m, n), dtype=a.dtype, device=dev)
     stream = build.current_stream_ptr(dev.index)
-    if path == "cuda_cores":
-        rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-                dev.index, stream)
-    else:
-        a_, lda = tma_operand(a)
-        b_, ldb = tma_operand(b)
-        rc = fn(a_.data_ptr(), b_.data_ptr(), c.data_ptr(), m, n, k, lda,
-                ldb, dev.index, stream)
+    a_, lda = tma_operand(a)
+    b_, ldb = tma_operand(b)
+    rc = fn(a_.data_ptr(), b_.data_ptr(), c.data_ptr(), m, n, k, lda, ldb,
+            dev.index, stream)
     if rc != 0:
         raise RuntimeError(f"matmul {path} kernel launch failed: CUDA "
                            f"error {rc}")

@@ -1,7 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version on the card (the bf16 and the f32 3xTF32 flash kernels at every
 compiled head dim and physical tile, the GEMM at every tile of each
-dtype's kernel: f32 on the CUDA cores, bf16 on the tensor cores), the flash
+dtype's kernel: f32 on the CUDA cores, bf16 on the tensor cores, also on
+misaligned views), the flash
 and SSD kernels' gradients, a mamba2 prefill through the SSD kernel,
 tuning sessions through the kernels (the GEMM tile search keeping all 12
 tiles, and a surrogate search over them recording its run in the
@@ -65,6 +66,31 @@ def test_matmul_kernel_matches_plain_on_card(card, m, n, k, dtype):
             p: routes[p] + (p == path) for p in routes}
         torch.testing.assert_close(got.float(), want.float(), **tol)
         got.fill_(float("nan"))   # a stale buffer must not pass next time
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_kernel_takes_misaligned_views_on_card(card, dtype):
+    # operands whose start is not 16-byte aligned (sliced views one element
+    # in; their rows are 16-byte multiples) go through tma_operand's copy,
+    # on the dtype's route at every tile
+    from repro_torch.kernels.matmul import matmul, matmul_ref, route, tiles
+    m, n, k = 200, 136, 96
+    gen = torch.Generator().manual_seed(7)
+    a = _randn(gen, m * k + 1, dtype=dtype, device=card)[1:].view(m, k)
+    b = _randn(gen, k * n + 1, dtype=dtype, device=card)[1:].view(k, n)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    want = matmul_ref(a, b)
+    tol = dict(rtol=3e-2, atol=3e-2) if dtype == torch.bfloat16 else \
+        dict(rtol=1e-4, atol=1e-4)
+    path = route(dtype)
+    for bm, bn, bk in tiles(dtype):
+        routes = dict(matmul.route_launches)
+        got = matmul(a, b, bm=bm, bn=bn, bk=bk)
+        torch.cuda.synchronize()
+        assert matmul.route_launches == {
+            p: routes[p] + (p == path) for p in routes}
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        got.fill_(float("nan"))
 
 
 @pytest.mark.parametrize("n", [1, 7, 1024, 1_048_576 + 17])

@@ -14,9 +14,10 @@ import torch
 from repro.kernels.matmul import matmul as jax_matmul
 from repro.kernels.triad import triad as jax_triad
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.matmul import (BF16_TILES, ROUTE_TILES, TILES,
-                                        flops, matmul, matmul_ref, route,
-                                        smem_bytes, tiles, tma_operand)
+from repro_torch.kernels.matmul import (BF16_TILES, F32_STAGES,
+                                        ROUTE_TILES, TILES, flops, matmul,
+                                        matmul_ref, route, smem_bytes, tiles,
+                                        tma_operand)
 from repro_torch.kernels.triad import bytes_moved, triad, triad_ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -115,6 +116,26 @@ def test_tma_operand_rounds_the_row_stride(shape, offset):
     assert (got is x) == (ld == cols and x.data_ptr() % 16 == 0)
 
 
+@pytest.mark.parametrize("shape,offset", [((5, 13), 0), ((7, 16), 0),
+                                          ((7, 16), 1), ((7, 16), 2),
+                                          ((33, 65), 0), ((3, 0), 0)])
+def test_tma_operand_rounds_the_row_stride_f32(shape, offset):
+    # the f32 kernel's TMA loads want the same 16 bytes: rows a multiple
+    # of 4 float32 elements apart from a 16-byte aligned start; a sliced
+    # view that starts 4 or 8 bytes in is copied even when its rows are
+    rows, cols = shape
+    x = torch.empty(rows * cols + offset, dtype=torch.float32)[offset:]
+    x = x.view(rows, cols).copy_(
+        torch.arange(rows * cols, dtype=torch.float32).reshape(rows, cols))
+    got, ld = tma_operand(x)
+    assert ld == -(-cols // 4) * 4 and ld % 4 == 0
+    assert got.shape == (rows, ld) and got.data_ptr() % 16 == 0
+    assert torch.equal(got[:, :cols], x)
+    assert (got is x) == (ld == cols and x.data_ptr() % 16 == 0)
+    if offset:
+        assert got is not x
+
+
 @pytest.mark.parametrize("n", [1024, 4096, 100_000, 1_048_576 + 17])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_triad_matches_pallas_interpret(n, dtype):
@@ -129,11 +150,14 @@ def test_triad_matches_pallas_interpret(n, dtype):
 
 
 def test_smem_bytes_formula_and_table_fits_static_limit():
-    # two stages of bk x (bm + 4) A and bk x bn B float32 words; the
-    # table needs the H100's opt-in limit (232,448 bytes), not the static
-    # 48 KiB
-    assert smem_bytes(128, 128, 32) == 2 * (32 * 132 + 32 * 128) * 4 == 66560
-    assert smem_bytes(64, 128, 8) == 2 * (8 * 68 + 8 * 128) * 4
+    # 1024 bytes of alignment, then three stages of bm x bk A and bk x bn
+    # B float32 words and two 8-byte mbarriers each; the table needs the
+    # H100's opt-in limit (232,448 bytes), not the static 48 KiB
+    assert F32_STAGES == 3
+    assert smem_bytes(128, 128, 32) == \
+        1024 + 3 * ((128 * 32 + 32 * 128) * 4 + 16) == 99376
+    assert smem_bytes(64, 128, 8) == 1024 + 3 * ((64 * 8 + 8 * 128) * 4 + 16)
+    assert smem_bytes(64, 64, 8) == 13360
     assert len(TILES) == 12 and len(set(TILES)) == 12
     assert max(smem_bytes(*t) for t in TILES) <= 232448
     assert max(smem_bytes(*t) for t in TILES) > 48 * 1024
@@ -218,7 +242,12 @@ def test_tile_table_matches_the_cuda_instantiations():
     import re
 
     from repro_torch.kernels import build
-    src = (build.CSRC / "matmul.cu").read_text()
+    # the replaced CUDA-core design, outside the library, still compiles
+    # every tile of TILES in f32 and bf16 (timed beside both kernels)
+    assert not (build.CSRC / "matmul.cu").exists()
+    assert build.CSRC / "baseline" / "matmul_cuda_cores.cu" not in \
+        build._sources()
+    src = (build.CSRC / "baseline" / "matmul_cuda_cores.cu").read_text()
     compiled = {tuple(map(int, t)) for t in re.findall(
         r"RT_MATMUL\(NAME, T, (\d+), (\d+), (\d+)\)", src)}
     assert compiled == set(TILES)
@@ -234,6 +263,73 @@ def test_tile_table_matches_the_cuda_instantiations():
     triad_src = (build.CSRC / "triad.cu").read_text()
     assert "int rt_triad_f32(" in triad_src
     assert "int rt_triad_bf16(" in triad_src
+
+
+def test_f32_tile_table_matches_the_sm90_source():
+    import re
+
+    from repro_torch.kernels import build
+    src = (build.CSRC / "matmul_f32_sm90.cu").read_text()
+    assert build.CSRC / "matmul_f32_sm90.cu" in build._sources()
+    table = src.split("#define RT_MATMUL_F32_SM90_TILES(X)", 1)[1]
+    table = table.split("\n\n", 1)[0]
+    compiled = [tuple(map(int, t)) for t in re.findall(
+        r"X\((\d+), (\d+), (\d+)\)", table)]
+    assert compiled == list(TILES)
+    assert "RT_MATMUL_F32_SM90_TILES(RT_MATMUL_F32_SM90)" in src
+    assert "rt_matmul_f32_sm90_##BM##x##BN##x##BK" in src
+    assert re.search(r"constexpr int kStages = (\d+);", src).group(1) == \
+        str(F32_STAGES)
+
+
+def test_f32_kernel_source_is_hopper_code():
+    # operands by TMA on mbarriers from a producer, no __syncthreads in the
+    # k loop (one, after the barriers' init), no non-bulk cp.async, and
+    # every source built for sm_90a
+    import re
+
+    from repro_torch.kernels import build
+    src = (build.CSRC / "matmul_f32_sm90.cu").read_text()
+    code = "\n".join(line.split("//", 1)[0] for line in src.splitlines())
+    assert "tma_load_2d(" in code and "mbar_expect_tx(" in code
+    assert "mbar_wait(full" in code and "mbar_arrive(empty" in code
+    assert "set_max_regs_dec<" in code and "set_max_regs_inc<" in code
+    assert code.count("__syncthreads()") == 1
+    assert code.index("__syncthreads()") < code.index("for (int t = 0;")
+    assert not re.search(r"cp\.async(?!\.bulk)", code)
+    assert "cp.async.bulk.tensor" in (build.CSRC / "hopper.cuh").read_text()
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+GEMM_PROBE_VARIANTS = ["no_loads", "no_fma", "tile_8x16", "a_reads_16B",
+                       "a_reads_4B", "four_stages", "lanes_8x4", "budget_136",
+                       "first_build"]
+
+
+@pytest.mark.parametrize("variant", GEMM_PROBE_VARIANTS)
+def test_gemm_probe_edits_still_match_the_kernel_source(variant):
+    """Each variant of ``bench/gemm_probe.py`` is an edit of
+    ``csrc/matmul_f32_sm90.cu`` that must find its text exactly once, or
+    the probe would measure the shipped kernel under another name."""
+    from repro_torch.bench.gemm_probe import EDITS, variant_source
+    assert set(EDITS) - {"shipped"} == set(GEMM_PROBE_VARIANTS)
+    shipped = variant_source("shipped")
+    edited = variant_source(variant)
+    assert edited != shipped
+    for old, new in EDITS[variant]:
+        assert new in edited and old not in edited
+
+
+def test_gemm_probe_reads_the_ptxas_log():
+    from repro_torch.bench.gemm_probe import ptxas_rows
+    name = "_ZN12_GLOBAL__N_122matmul_f32_sm90_kernelILi128ELi64ELi16EEEv"
+    log = (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+           f"ptxas info    : Function properties for {name}\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 224 registers, used 1 barriers\n")
+    assert ptxas_rows(log) == {(128, 64, 16): {
+        "registers": 224, "spill_stores": 8, "spill_loads": 4}}
 
 
 def test_build_is_keyed_by_the_sources_and_needs_nvcc(monkeypatch, tmp_path):
