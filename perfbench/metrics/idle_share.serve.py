@@ -1,0 +1,9 @@
+"""idle_share.serve (device): the share of the traced window in which no
+operation ran on the device, in percent, while ``generate`` serves
+batches. It moves ``tokens_per_s``."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
